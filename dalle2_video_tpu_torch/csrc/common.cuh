@@ -1,0 +1,44 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Each kernel source is compiled on its own by nvcc into a shared library
+// with a plain C interface (loaded with ctypes by ops/_cuda.py). Every
+// entry point launches on the caller's stream, never synchronises, and
+// returns cudaGetLastError() so the Python wrapper can raise on a refused
+// launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace d2v {
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+template <typename T>
+__device__ __forceinline__ float to_f(T v);
+template <>
+__device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+}  // namespace d2v
+
+// Every library exports the runtime's error text so the wrapper can raise
+// with a readable message.
+#define D2V_EXPORT_ERROR_STRING                                  \
+  extern "C" const char* d2v_error_string(int err) {             \
+    return cudaGetErrorString(static_cast<cudaError_t>(err));    \
+  }

@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips (with a reason) where there is no CUDA
+device or no nvcc; the decision is made inside the fixture, never at
+import. Run on the card with
+
+    python -m pytest -m cuda tests/test_torch_port_cuda.py
+
+Tolerances: f32 inputs 1e-5, 4e-5 for GroupNorm's sums over up to 80k
+values (same math, another summation order). bf16 attention outputs:
+|kernel - plain| <= atol + 1e-2 * |plain|. Both sides end in a bf16
+rounding, one step of which is at most 2^-7 = 7.8e-3 of the value, so the
+relative term admits one rounding flip at any magnitude; atol covers the
+work before the rounding: 1e-3 for cross-attention (f32 math), and for flash
+the bf16 probabilities of its second product (see the flash test). GroupNorm
+in bf16 keeps 8e-2 absolute on outputs of a few units.
+"""
+
+from __future__ import annotations
+
+import math
+import shutil
+
+import pytest
+import torch
+
+from dalle2_video_tpu_torch.ops import cross_attention as xa
+from dalle2_video_tpu_torch.ops import flash_mqa as fm
+from dalle2_video_tpu_torch.ops import groupnorm_film as gn
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None and shutil.which("nvcc") is None:
+        pytest.skip("needs nvcc to build the kernels")
+    return torch.device("cuda")
+
+
+def _assert_attention_close(out, ref, dtype, bf16_atol):
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=bf16_atol, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_kv", [1, 65, 5761])
+def test_flash_kernel_matches_plain(dev, dtype, n_kv):
+    g = torch.Generator(device=dev).manual_seed(n_kv)
+    q = torch.randn(2, 333, 32, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, n_kv, 32, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, n_kv, 32, generator=g, device=dev).to(dtype)
+    before = fm.KERNEL.launches
+    out, lse = fm.flash_mqa_fwd(q, k, v, sm_scale=32**-0.5, save_lse=True)
+    torch.cuda.synchronize()
+    assert fm.KERNEL.launches == before + 1
+    ref, ref_lse = fm.flash_mqa_reference(q, k, v, 32**-0.5, save_lse=True)
+    # the kernel rounds the probabilities to bf16 (unit roundoff 2^-8) for its
+    # second product: an error of ~2^-8/sqrt(3) * sqrt(sum p^2 v^2) RMS, about
+    # 2.3e-3 * sqrt(e / n_kv) for logits ~ N(0, 1); allow five of those,
+    # clipped to [5e-4, 2.5e-3] (at n_kv = 1 the one probability is exact)
+    bf16_atol = min(2.5e-3, max(5e-4, 1.15e-2 * math.sqrt(math.e / n_kv)))
+    _assert_attention_close(out, ref, dtype, bf16_atol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+def test_flash_kernel_logits_below_minus_87(dev):
+    q = torch.full((1, 8, 16), 16.0, device=dev)
+    k = torch.full((1, 37, 16), -2.0, device=dev) + 0.1 * torch.randn(1, 37, 16, device=dev)
+    v = torch.randn(1, 37, 16, device=dev)
+    out = fm.flash_mqa_fwd(q, k, v, sm_scale=0.25)
+    assert torch.isfinite(out).all()
+    # logits near -124 (base-2: -179) carry f32 spacing ~1.5e-5, so the
+    # kernel's exp2 and the plain exp differ by ~1e-4 relative here
+    torch.testing.assert_close(out, fm.flash_mqa_reference(q, k, v, 0.25), atol=1e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,l", [(8, 40000), (64, 777), (512, 90), (128, 4097)])
+def test_groupnorm_kernel_matches_plain(dev, dtype, c, l):
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = (torch.randn(2, l, c, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=g, device=dev).to(dtype)
+    beta = torch.randn(c, generator=g, device=dev).to(dtype)
+    scale = (0.1 * torch.randn(2, c, generator=g, device=dev)).to(dtype)
+    shift = (0.1 * torch.randn(2, c, generator=g, device=dev)).to(dtype)
+    out, mean, rstd = gn.groupnorm_film_silu(x, gamma, beta, scale, shift, 8,
+                                             return_stats=True)
+    ref, rmean, rrstd = gn.groupnorm_film_reference(x, gamma, beta, scale, shift, 8, 1e-5,
+                                                    return_stats=True)
+    atol = 4e-5 if dtype == torch.float32 else 8e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(mean, rmean, atol=1e-4, rtol=0)
+    torch.testing.assert_close(rstd, rrstd, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [3, 7, 16])
+def test_cross_attention_kernel_matches_plain(dev, dtype, m):
+    g = torch.Generator(device=dev).manual_seed(m)
+    q = torch.randn(2, 1000, 8, 64, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, m, 8, 64, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, m, 8, 64, generator=g, device=dev).to(dtype)
+    out = xa.cross_attention(q, k, v, sm_scale=0.125)
+    ref = xa.cross_attention_reference(q, k, v, 0.125)
+    _assert_attention_close(out, ref, dtype, bf16_atol=1e-3)
+
+
+def test_cuda_wrappers_raise_instead_of_falling_back(dev):
+    x = torch.zeros(2, 8, 32, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fm.flash_mqa_fwd(x, x, x)  # fp16: not a kernel dtype
+    q = torch.zeros(1, 4, 8, 64, device=dev)
+    k = torch.zeros(1, 17, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        xa.cross_attention(q, k, k, sm_scale=1.0)
+    with pytest.raises(ValueError):
+        gn.groupnorm_film_silu(torch.zeros(1, 4, 24, device=dev), torch.ones(24, device=dev),
+                               torch.zeros(24, device=dev), groups=8)
