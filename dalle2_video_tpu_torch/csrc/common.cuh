@@ -34,6 +34,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// 16-byte vectors of T: N elements moved as one Raw load or store.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  using Raw = float4;
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Raw = uint4;
+};
+
 }  // namespace d2v
 
 // Every library exports the runtime's error text so the wrapper can raise

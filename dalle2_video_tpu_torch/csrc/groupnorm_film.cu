@@ -39,19 +39,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxG = 32;
 constexpr int kMaxC = 1024;
-
 template <typename T>
-struct Vec;  // 16-byte vectors
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  using Raw = float4;
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  using Raw = uint4;
-};
+using Vec = d2v::Vec16<T>;
 
 // Thread t always sees channels c0 .. c0 + N - 1 with c0 = (t * N) % C:
 // every stride below is a multiple of kThreads * N, which C divides.

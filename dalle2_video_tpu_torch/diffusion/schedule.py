@@ -1,9 +1,11 @@
-"""Gaussian diffusion schedule: the DDPM math the sampler needs (port of
-dalle2_video_tpu/diffusion/schedule.py).
+"""Gaussian diffusion schedule: the DDPM math of sampling and training
+(port of dalle2_video_tpu/diffusion/schedule.py).
 
 Buffers are computed in numpy float64 and stored as float32 tensors on the
-schedule's device, as the JAX package does. The training-side helpers (loss
-functions, p2 weights, the VLB terms) belong to the training slice.
+schedule's device, as the JAX package does. Training adds the random
+timesteps, the elementwise losses with p2 reweighting, and the
+Improved-DDPM VLB helpers (``normal_kl``, the discretized Gaussian
+log-likelihood).
 """
 
 from __future__ import annotations
@@ -13,7 +15,18 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["make_beta_schedule", "DiffusionSchedule", "extract"]
+__all__ = [
+    "make_beta_schedule",
+    "DiffusionSchedule",
+    "extract",
+    "normal_kl",
+    "approx_standard_normal_cdf",
+    "discretized_gaussian_log_likelihood",
+    "NAT",
+]
+
+# nats <-> bits conversion used by the Improved-DDPM VLB term.
+NAT = 1.0 / np.log(2.0)
 
 
 def make_beta_schedule(name: str, timesteps: int) -> np.ndarray:
@@ -63,11 +76,15 @@ class DiffusionSchedule:
     posterior_log_variance_clipped: torch.Tensor
     posterior_mean_coef1: torch.Tensor
     posterior_mean_coef2: torch.Tensor
+    p2_loss_weight: torch.Tensor
     num_timesteps: int
+    loss_type: str = "l2"
 
     @staticmethod
     def create(beta_schedule: str = "cosine", timesteps: int = 1000,
-               device: torch.device = torch.device("cpu")) -> "DiffusionSchedule":
+               device: torch.device = torch.device("cpu"), loss_type: str = "l2",
+               p2_loss_weight_gamma: float = 0.0,
+               p2_loss_weight_k: float = 1.0) -> "DiffusionSchedule":
         betas = make_beta_schedule(beta_schedule, timesteps)
         alphas = 1.0 - betas
         acp = np.cumprod(alphas)
@@ -92,10 +109,20 @@ class DiffusionSchedule:
             ),
             posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
             posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)),
+            p2_loss_weight=f32(
+                (p2_loss_weight_k + acp / (1.0 - acp)) ** -p2_loss_weight_gamma),
             num_timesteps=int(timesteps),
+            loss_type=str(loss_type),
         )
 
     # forward process ---------------------------------------------------- #
+    def sample_random_times(self, batch: int, generator: torch.Generator = None
+                            ) -> torch.Tensor:
+        """(batch,) int64 timesteps uniform in [0, T), on the schedule's
+        device."""
+        return torch.randint(0, self.num_timesteps, (batch,), generator=generator,
+                             device=self.betas.device)
+
     def q_sample(self, x_start, t, noise):
         nd = x_start.ndim
         return (extract(self.sqrt_alphas_cumprod, t, nd) * x_start
@@ -130,3 +157,44 @@ class DiffusionSchedule:
         nd = x_t.ndim
         return (extract(self.sqrt_alphas_cumprod, t, nd) * x_t
                 - extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * v)
+
+    # losses -------------------------------------------------------------- #
+    def loss_fn(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Elementwise l1 / l2 / huber(delta=1) loss, no reduction."""
+        if self.loss_type == "l1":
+            return (pred - target).abs()
+        if self.loss_type == "l2":
+            return (pred - target) ** 2
+        if self.loss_type == "huber":
+            d = pred - target
+            ad = d.abs()
+            return torch.where(ad < 1.0, 0.5 * d * d, ad - 0.5)
+        raise ValueError(f"unknown loss type {self.loss_type!r}")
+
+    def p2_reweigh_loss(self, loss: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return loss * extract(self.p2_loss_weight, t, loss.ndim)
+
+
+# Improved-DDPM VLB helpers ------------------------------------------------ #
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL(N(mean1, var1) || N(mean2, var2)) per element, in nats."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales, thres: float = 0.999):
+    """Log-likelihood of an image discretized to 256 bins under a Gaussian
+    (Ho et al.'s diffusion_utils_2)."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -thres, log_cdf_plus,
+                       torch.where(x > thres, log_one_minus_cdf_min, log_cdf_delta))

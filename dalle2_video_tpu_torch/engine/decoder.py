@@ -1,33 +1,44 @@
-"""VideoDecoder, the cascaded video diffusion sampler (port of the sampling
-half of dalle2_video_tpu/engine/decoder.py).
+"""VideoDecoder, the cascaded video diffusion model (port of
+dalle2_video_tpu/engine/decoder.py): the training loss and the samplers.
 
 Classifier-free guidance runs as ONE 2x-batched unet forward, as in the JAX
 package. With ``sample_compute_dtype="bfloat16"`` the unets run in bf16 (a
 bf16 copy of each unet is made at first use) while the diffusion math stays
 float32. The loops are Python loops over the static DDIM/DDPM time grid.
 
-Randomness comes from ``RowKeys`` (one generator per row, see
+Sampling randomness comes from ``RowKeys`` (one generator per row, see
 utils/keys.py). Every loop also takes injected draws -- the initial noise
 ``init_noise`` and, for DDPM, the per-step noises -- so tests can feed the
-port and the JAX package the same numbers.
+port and the JAX package the same numbers. The training loss draws from a
+``torch.Generator`` and takes every draw injected the same way (``draws``:
+times, noise, video keep mask, self-cond coin, blur coin, lowres noise
+levels and noise).
 
-Not ported yet: the training loss, DPM++, inpainting, negative prompts,
-latent (VAE) stages, random crops and long video.
+Not ported yet: DPM++, inpainting, negative prompts, latent (VAE) stages,
+random crops, text-encoding conditioning (so no text keep mask) and long
+video.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from dalle2_video_tpu_torch.diffusion import DiffusionSchedule, extract
+from dalle2_video_tpu_torch.diffusion import (
+    NAT,
+    DiffusionSchedule,
+    discretized_gaussian_log_likelihood,
+    extract,
+    normal_kl,
+)
 from dalle2_video_tpu_torch.engine.conditioner import (
     LowresConditionerConfig,
+    lowres_condition,
     make_noise_schedule,
     noise_video,
 )
@@ -147,12 +158,16 @@ class VideoDecoder(nn.Module):
         self.use_noise_for_lowres = (False, *unoise)
         self.use_blur_for_lowres = (False, *ublur)
 
+        self.random_crop_sizes = _cast_tuple(cfg.random_crop_sizes, n)
+
         bs = cfg.beta_schedule
         if bs is None:
             bs = ("cosine", *("cosine",) * max(n - 2, 0), *("linear",) * int(n > 1))
         self.schedules = tuple(
-            DiffusionSchedule.create(b, cfg.timesteps, device=self.device)
-            for b in _cast_tuple(bs, n)
+            DiffusionSchedule.create(b, cfg.timesteps, device=self.device,
+                                     loss_type=cfg.loss_type, p2_loss_weight_gamma=g,
+                                     p2_loss_weight_k=cfg.p2_loss_weight_k)
+            for b, g in zip(_cast_tuple(bs, n), _cast_tuple(cfg.p2_loss_weight_gamma, n))
         )
 
         self.unet_configs = tuple(
@@ -269,9 +284,10 @@ class VideoDecoder(nn.Module):
         return out.chunk(2, dim=-1)
 
     def _p_mean_variance(self, i: int, x, t, *, clip_denoised: bool = True,
-                         cond_scale: float = 1.0, **cond):
+                         cond_scale: float = 1.0, model_output=None, **cond):
         sched = self.schedules[i]
-        out = self._unet_apply(i, x, t, cond_scale=cond_scale, **cond)
+        out = (self._unet_apply(i, x, t, cond_scale=cond_scale, **cond)
+               if model_output is None else model_output)
         pred, var_frac = self._split_output(i, out)
         x_start = self._predict_x_start(i, x, t, pred)
         if clip_denoised:
@@ -286,6 +302,130 @@ class VideoDecoder(nn.Module):
             log_var = frac * max_log + (1.0 - frac) * min_log
             var = torch.exp(log_var)
         return mean, var, log_var, x_start
+
+    # ------------------------------------------------------------------ #
+    # training loss (JAX decoder.py loss / _p_losses)
+    # ------------------------------------------------------------------ #
+    def loss(self, video: torch.Tensor, *, video_embed: Optional[torch.Tensor] = None,
+             unet_number: int = 1, compute_dtype: Optional[torch.dtype] = None,
+             unet: Optional[Callable] = None,
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """One denoising-loss evaluation for one cascade stage (1-indexed
+        ``unet_number``), a 0-dim f32 tensor. ``video`` (b, T, H, W, C) in
+        [0, 1] at least the stage's frame size. ``compute_dtype`` (bf16)
+        runs the network in that dtype; the diffusion math stays f32.
+        ``unet`` replaces the stage's module as the network to call (the
+        trainer passes its bf16 functional call). ``draws`` injects any of
+        "times", "noise", "video_keep", "self_cond", "blur",
+        "lowres_noise_levels", "lowres_noise"; the rest come from
+        ``generator``."""
+        cfg = self.config
+        i = unet_number - 1
+        draws = draws or {}
+        if video.shape[-1] != cfg.channels:
+            raise ValueError(f"video has {video.shape[-1]} channels, not {cfg.channels}")
+        size, frames = cfg.frame_sizes[i], cfg.frame_numbers[i]
+        if video.shape[2] < size or video.shape[3] < size:
+            raise ValueError(f"video {tuple(video.shape)} smaller than frame size {size}")
+        if self.random_crop_sizes[i] is not None:
+            raise NotImplementedError("random crops are not ported yet")
+        video = video.to(self.device, torch.float32)
+        b = video.shape[0]
+        times = draws.get("times")
+        if times is None:
+            times = self.schedules[i].sample_random_times(b, generator)
+        times = times.to(self.device, torch.long)
+
+        lowres_video = lowres_level = None
+        if self.lowres_configs[i] is not None:
+            lowres_video, lowres_level = lowres_condition(
+                video, self.lowres_configs[i], target_frame_size=size,
+                downsample_frame_size=cfg.frame_sizes[i - 1],
+                target_frame_number=frames,
+                downsample_frame_number=cfg.frame_numbers[i - 1],
+                noise_schedule=self.lowres_noise_schedule, generator=generator,
+                blur=draws.get("blur"), noise_levels=draws.get("lowres_noise_levels"),
+                noise=draws.get("lowres_noise"))
+
+        video = resize_video_time(resize_video(video, size), frames)
+        return self._p_losses(
+            i, self.unets[i] if unet is None else unet, video, times,
+            video_embed=video_embed, lowres_cond_video=lowres_video,
+            lowres_noise_level=lowres_level, compute_dtype=compute_dtype,
+            generator=generator, draws=draws)
+
+    def _p_losses(self, i: int, unet: Callable, x_start, times, *, video_embed=None,
+                  lowres_cond_video=None, lowres_noise_level=None, compute_dtype=None,
+                  generator=None, draws=None) -> torch.Tensor:
+        cfg = self.config
+        sched = self.schedules[i]
+        b = x_start.shape[0]
+        dev = x_start.device
+        draws = draws or {}
+
+        def draw(name, fn):
+            v = draws.get(name)
+            return fn() if v is None else torch.as_tensor(v).to(dev)
+
+        noise = draw("noise", lambda: torch.randn(x_start.shape, generator=generator,
+                                                  device=dev))
+        x_start = self._normalize(x_start)
+        if lowres_cond_video is not None:
+            lowres_cond_video = self._normalize(lowres_cond_video)
+        x_noisy = sched.q_sample(x_start, times, noise)
+        video_keep = draw("video_keep", lambda: torch.rand(
+            b, generator=generator, device=dev) < 1.0 - cfg.video_cond_drop_prob)
+
+        # the network runs in compute_dtype; the diffusion math stays f32
+        cast = (lambda a: a) if compute_dtype is None else (
+            lambda a: None if a is None else a.to(compute_dtype))
+        x_in = cast(x_noisy)
+        kw = dict(video_embed=None if video_embed is None else cast(video_embed.to(dev)),
+                  lowres_cond_video=cast(lowres_cond_video),
+                  lowres_noise_level=lowres_noise_level)
+
+        # self-conditioning: half of the steps condition on a detached x0
+        # (or eps / v) estimate from an extra forward
+        self_cond = None
+        if self.unet_configs[i].self_cond:
+            coin = draw("self_cond", lambda: torch.rand(
+                (), generator=generator, device=dev) < 0.5)
+            if bool(coin):
+                with torch.no_grad():
+                    out = unet(x_in, times, video_keep_mask=torch.ones(
+                        b, dtype=torch.bool, device=dev), **kw)
+                self_cond = self._split_output(i, out.float())[0].detach()
+            else:
+                self_cond = torch.zeros_like(x_noisy)
+            self_cond = cast(self_cond)
+
+        out = unet(x_in, times, video_keep_mask=video_keep.bool(), self_cond=self_cond,
+                   enable_checkpoint=True, **kw).float()
+        pred, _ = self._split_output(i, out)
+        if self.predict_v[i]:
+            target = sched.calculate_v(x_start, times, noise)
+        elif self.predict_x_start[i]:
+            target = x_start
+        else:
+            target = noise
+        loss = sched.loss_fn(pred, target).reshape(b, -1).mean(-1)
+        loss = sched.p2_reweigh_loss(loss, times).mean()
+        if not self.learned_variance[i]:
+            return loss
+
+        # Improved-DDPM VLB term with the model mean detached
+        true_mean, _, true_log_var = sched.q_posterior(x_start, x_noisy, times)
+        model_mean, _, model_log_var, _ = self._p_mean_variance(
+            i, x_noisy, times, clip_denoised=False, model_output=out)
+        mean_d = model_mean.detach()
+        kl = normal_kl(true_mean, true_log_var, mean_d, model_log_var)
+        kl = kl.reshape(b, -1).mean(-1) * NAT
+        nll = -discretized_gaussian_log_likelihood(x_start, means=mean_d,
+                                                   log_scales=0.5 * model_log_var)
+        nll = nll.reshape(b, -1).mean(-1) * NAT
+        vb = torch.where(times == 0, nll, kl)
+        return loss + vb.mean() * cfg.vb_loss_weight
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -458,9 +598,10 @@ class VideoDecoder(nn.Module):
 
 def build_decoder(cfg: Dict, device: DeviceLike = None) -> VideoDecoder:
     """The cascade from the single-plane config (same keys as
-    scripts/train_decoder.py's build_decoder), plus the sampling knobs
-    ``unetN.groupnorm_impl``, ``unetN.cross_attention_impl`` and
-    ``flash_attention_sampling``."""
+    scripts/train_decoder.py's build_decoder, including the training knobs
+    ``memory_efficient``, ``checkpoint_during_training`` and
+    ``remat_policy``), plus the kernel knobs ``unetN.groupnorm_impl`` and
+    ``unetN.cross_attention_impl`` and ``flash_attention_sampling``."""
 
     def unet_cfg(section):
         return UNet3DConfig(
@@ -473,6 +614,8 @@ def build_decoder(cfg: Dict, device: DeviceLike = None) -> VideoDecoder:
             groupnorm_impl=section.get("groupnorm_impl", "xla"),
             cross_attention_impl=section.get("cross_attention_impl", "xla"),
             memory_efficient=section.get("memory_efficient", False),
+            checkpoint_during_training=section.get("checkpoint_during_training", False),
+            remat_policy=section.get("remat_policy", "nothing"),
             video_embed_dim=cfg["dim"],
             channels=cfg["channels"],
         )

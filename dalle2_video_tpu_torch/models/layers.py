@@ -12,9 +12,13 @@ norm) and ``"flash"`` (attention) are the hand-written CUDA kernels;
 ``"auto"`` picks flash on CUDA from 4096 joint tokens and the plain path
 below, as the JAX rule does.
 
-Weights are PyTorch's default initialisers plus N(0, 1) for the learned
-null embeddings; the training-time init of the JAX package (zero biases,
-zero output conv, ICNR upsample) belongs to the training slice.
+Initialisers are the JAX package's: Dense and conv kernels U(+-1/sqrt(fan_in))
+(``torch_kernel_init``), zero biases, N(0, 1) learned null embeddings, the
+ICNR upsample, and (in ``unet3d.py``) the zero output conv.
+
+The kernel paths are differentiable: ``groupnorm_film_silu`` and
+``mqa_attention`` run their backward kernels under autograd. The
+cross-attention kernel is forward-only (training uses ``impl="xla"``).
 """
 
 from __future__ import annotations
@@ -44,9 +48,22 @@ def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp_min(eps)
 
 
+def kernel_init_(weight: torch.Tensor, fan_in: int) -> None:
+    """U(+-1/sqrt(fan_in)): the JAX package's ``torch_kernel_init``
+    (variance_scaling(1/3, fan_in, uniform))."""
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        weight.uniform_(-bound, bound)
+
+
 class Dense(nn.Linear):
     """nn.Linear that casts its input to the parameter dtype (the bf16
-    sampling copy of a module takes f32 conditioning inputs)."""
+    sampling copy of a module takes f32 conditioning inputs); JAX init."""
+
+    def reset_parameters(self) -> None:
+        kernel_init_(self.weight, self.in_features)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
@@ -93,7 +110,8 @@ class SpatialConv(nn.Module):
     """Space-only (1, k, k) video conv as a 2D conv over the folded B*T."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, bias: bool = True, impl: str = "xla"):
+                 stride: int = 1, bias: bool = True, impl: str = "xla",
+                 zero_init: bool = False):
         super().__init__()
         if impl != "xla":
             raise NotImplementedError(f"SpatialConv impl {impl!r} is not ported yet")
@@ -102,6 +120,12 @@ class SpatialConv(nn.Module):
         self.pads = _same_pads(kernel_size, stride)
         self.Conv_0 = nn.Conv2d(in_features, features, kernel_size, stride,
                                 padding=0, bias=bias)
+        if zero_init:
+            nn.init.zeros_(self.Conv_0.weight)
+        else:
+            kernel_init_(self.Conv_0.weight, in_features * kernel_size * kernel_size)
+        if bias:
+            nn.init.zeros_(self.Conv_0.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
@@ -350,10 +374,10 @@ class PixelShuffleUpsample3D(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.dim_out = dim_out
-        w = torch.empty(dim_out, dim_in)
-        nn.init.kaiming_uniform_(w, a=math.sqrt(5))
+        w = torch.empty(dim_in, dim_out)
+        kernel_init_(w, dim_in)
         # ICNR: the four subpixels of each output channel start identical
-        self.conv = nn.Parameter(w.t().repeat_interleave(4, dim=1).contiguous())
+        self.conv = nn.Parameter(w.repeat_interleave(4, dim=1).contiguous())
         self.conv_bias = nn.Parameter(torch.zeros(dim_out * 4))
 
     def forward(self, x):

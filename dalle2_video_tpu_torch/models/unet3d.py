@@ -1,5 +1,4 @@
-"""UNet3D, the video denoiser (port of dalle2_video_tpu/models/unet3d.py,
-forward only).
+"""UNet3D, the video denoiser (port of dalle2_video_tpu/models/unet3d.py).
 
 ``UNet3DConfig`` has the JAX config's fields, and the module tree keeps its
 names (``init_conv``, ``time_cond``, ``down{i}_block{j}``, ``mid_attn``,
@@ -7,10 +6,19 @@ names (``init_conv``, ``time_cond``, ``down{i}_block{j}``, ``mid_attn``,
 builds the same model in both packages and ``weights.params_from_jax`` maps
 one onto the other. Input/output layout (B, T, H, W, C).
 
+Training: ``forward(..., enable_checkpoint=True)`` with
+``checkpoint_during_training`` runs every ResnetBlock3D under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the JAX
+``nn.remat`` with ``remat_policy: "nothing"`` (nothing saved inside a block;
+its forward is recomputed in the backward, kernels included, so each
+checkpointed block launches its forward kernels twice per step). The output
+conv starts at zero.
+
 Not ported yet (they raise): per-frame video embeds, text-encoding
 conditioning, ``sparse_attn`` (LinearAttention), ``temporal_attention``,
 nearest-upsample (``pixel_shuffle_upsample=False``), the ``temporal_conv``
-architecture, the opt-in Pallas conv paths and remat (training).
+architecture, the opt-in Pallas conv paths and remat policies other than
+"nothing".
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dalle2_video_tpu_torch.models.layers import (
     CrossEmbedLayer3D,
@@ -144,6 +153,8 @@ def _check_ported(cfg: UNet3DConfig) -> None:
         "pixel_shuffle_upsample=False": not cfg.pixel_shuffle_upsample,
         f"arch={cfg.arch!r}": cfg.arch != "unet3d",
     }
+    if cfg.checkpoint_during_training and cfg.remat_policy != "nothing":
+        unported[f"remat_policy={cfg.remat_policy!r}"] = True
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"UNet3D options not ported yet: {bad}")
@@ -269,7 +280,8 @@ class UNet3D(nn.Module):
             x_ch += len(up_dims) * cfg.dim
         self.final_resnet_block = resnet(x_ch + init_dim, cfg.dim, groups_per[0])
         out_in = cfg.dim + (cfg.channels if cfg.lowres_cond else 0)
-        self.to_out = SpatialConv(out_in, cfg.resolved_channels_out, cfg.final_conv_ksize)
+        self.to_out = SpatialConv(out_in, cfg.resolved_channels_out, cfg.final_conv_ksize,
+                                  zero_init=True)
 
     def forward(
         self,
@@ -281,10 +293,26 @@ class UNet3D(nn.Module):
         lowres_noise_level: Optional[torch.Tensor] = None,
         video_keep_mask: Optional[torch.Tensor] = None,
         self_cond: Optional[torch.Tensor] = None,
+        enable_checkpoint: bool = False,
     ) -> torch.Tensor:
         cfg = self.cfg
         b = x.shape[0]
         n_st = cfg.num_stages
+        remat = (cfg.checkpoint_during_training and enable_checkpoint
+                 and torch.is_grad_enabled())
+
+        def block(name, *args):
+            mod = getattr(self, name)
+            if not remat:
+                return mod(*args)
+            # the recompute runs in the backward, after any functional_call
+            # around this forward has restored the module's own parameters:
+            # hand it the tensors this forward used (e.g. the trainer's bf16
+            # casts of the f32 masters)
+            params = dict(mod.named_parameters())
+            return checkpoint(lambda *a: torch.func.functional_call(mod, params, a),
+                              *args, use_reentrant=False)
+
         if video_keep_mask is None:
             video_keep_mask = torch.ones(b, dtype=torch.bool, device=x.device)
 
@@ -331,33 +359,33 @@ class UNet3D(nn.Module):
         skip_scale = (2**-0.5) if cfg.scale_skip_connection else 1.0
 
         if cfg.memory_efficient:
-            x = self.init_resnet_block(x, t)
+            x = block("init_resnet_block", x, t)
         hiddens = []
         for ind in range(n_st):
             if cfg.memory_efficient:
                 x = getattr(self, f"down{ind}_pre")(x)
-            x = getattr(self, f"down{ind}_init_block")(x, t)
+            x = block(f"down{ind}_init_block", x, t)
             for j in range(self._nblocks[ind]):
-                x = getattr(self, f"down{ind}_block{j}")(x, t, c)
+                x = block(f"down{ind}_block{j}", x, t, c)
                 hiddens.append(x)
             if self._self_attn[ind]:
                 x = getattr(self, f"down{ind}_attn")(x)
             hiddens.append(x)
             x = getattr(self, f"down{ind}_post")(x)
 
-        x = self.mid_block1(x, t, mid_c)
+        x = block("mid_block1", x, t, mid_c)
         if cfg.attend_at_middle:
             x = self.mid_attn(x)
-        x = self.mid_block2(x, t, mid_c)
+        x = block("mid_block2", x, t, mid_c)
 
         up_hiddens = []
         for ind in range(n_st):
             st = n_st - 1 - ind
             x = torch.cat([x, hiddens.pop() * skip_scale], dim=-1)
-            x = getattr(self, f"up{ind}_init_block")(x, t, c)
+            x = block(f"up{ind}_init_block", x, t, c)
             for j in range(self._nblocks[st]):
                 x = torch.cat([x, hiddens.pop() * skip_scale], dim=-1)
-                x = getattr(self, f"up{ind}_block{j}")(x, t, c)
+                x = block(f"up{ind}_block{j}", x, t, c)
             if self._self_attn[st]:
                 x = getattr(self, f"up{ind}_attn")(x)
             up_hiddens.append(x)
@@ -366,7 +394,7 @@ class UNet3D(nn.Module):
 
         x = self.upsample_combiner(x, up_hiddens)
         x = torch.cat([x, r], dim=-1)
-        x = self.final_resnet_block(x, t)
+        x = block("final_resnet_block", x, t)
         if cfg.lowres_cond:
             x = torch.cat([x, lowres_cond_video.to(x.dtype)], dim=-1)
         return self.to_out(x)

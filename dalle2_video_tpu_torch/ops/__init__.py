@@ -1,8 +1,10 @@
-"""Video ops and the hand-written CUDA kernels of the serving path.
+"""Video ops and the hand-written CUDA kernels.
 
-Kernel modules (each holds a ``KERNEL`` with its launch count, the wrapper,
-and the plain PyTorch version the wrapper uses for CPU tensors):
-  * ``flash_mqa``      -- csrc/flash_mqa.cu
-  * ``groupnorm_film`` -- csrc/groupnorm_film.cu
-  * ``cross_attention`` -- csrc/cross_attention.cu
+Kernel modules (each holds its ``CudaKernel``s with their launch counts,
+the wrappers, and the plain PyTorch versions the wrappers use for CPU
+tensors):
+  * ``flash_mqa``      -- csrc/flash_mqa.cu (forward), csrc/flash_mqa_bwd.cu
+  * ``groupnorm_film`` -- csrc/groupnorm_film.cu (forward),
+                          csrc/groupnorm_film_bwd.cu
+  * ``cross_attention`` -- csrc/cross_attention.cu (forward only)
 """

@@ -157,6 +157,15 @@ def require_cuda(name: str, tensors: List, dtypes=None) -> None:
             raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
 
 
+def forbid_grad(name: str, tensors: List, hint: str) -> None:
+    """Raise where autograd would need a gradient through a raw kernel
+    launch: its output would silently carry none."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel call is not differentiable; {hint}")
+
+
 def dtype_code(dtype) -> int:
     import torch
 
@@ -174,10 +183,12 @@ def stream_ptr(device) -> int:
 
 
 def all_kernels() -> List["CudaKernel"]:
-    """Every kernel of the serving path (imports the op modules)."""
+    """Every kernel of the port: the serving path's forwards and the
+    training path's backwards (imports the op modules)."""
     from dalle2_video_tpu_torch.ops import cross_attention, flash_mqa, groupnorm_film
 
-    return [flash_mqa.KERNEL, groupnorm_film.KERNEL, cross_attention.KERNEL]
+    return [flash_mqa.KERNEL, flash_mqa.BWD_KERNEL, groupnorm_film.KERNEL,
+            groupnorm_film.BWD_KERNEL, cross_attention.KERNEL]
 
 
 def build_all(kernels: Optional[Sequence[CudaKernel]] = None) -> Dict[str, float]:

@@ -5,6 +5,11 @@ softmax(q k^T * sm_scale) v per (batch, head) with the whole context (m <= 16
 keys) held on chip. For a CUDA tensor the wrapper launches the kernel in
 ``csrc/cross_attention.cu``; for a CPU tensor it uses
 ``cross_attention_reference``, an einsum with softmax in float32.
+
+The kernel is forward-only by design, as in the JAX package (training keeps
+the plain path, ``cross_attention_impl: xla``). For a CUDA tensor that
+needs a gradient the wrapper raises rather than return a result that has
+silently lost it.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from dalle2_video_tpu_torch.ops._cuda import (
     CudaKernel,
     dtype_code,
+    forbid_grad,
     require_cuda,
     stream_ptr,
 )
@@ -52,6 +58,8 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"cross_attention: q {q.shape} and k {k.shape} disagree")
     if q.device.type == "cpu":
         return cross_attention_reference(q, k, v, sm_scale)
+    forbid_grad("cross_attention", [q, k, v],
+                "the CUDA kernel is forward-only; training uses cross_attention_impl: xla")
     k, v = k.contiguous(), v.contiguous()
     require_cuda("cross_attention", [q, k, v], (torch.float32, torch.bfloat16))
     if not (q.dtype == k.dtype == v.dtype):

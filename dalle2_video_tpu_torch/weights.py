@@ -14,6 +14,11 @@ PyTorch state dict: names are the ``.``-joined flax path, and
 land on exactly one parameter of the module and every parameter must be
 filled, with matching shapes, or it raises. The JAX side supplies the numpy
 tree (tests); the card never needs JAX.
+
+``load_train_state_from_jax(trainer, state)`` carries a whole JAX decoder
+``TrainState`` into a ``DecoderTrainer`` the same strict way: params, EMA
+shadows and steps, and the optax Adam moments ``mu`` / ``nu`` with their
+``count`` as AdamW's ``exp_avg`` / ``exp_avg_sq`` / ``step``.
 """
 
 from __future__ import annotations
@@ -59,20 +64,63 @@ def params_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]"
     return sd
 
 
-def load_from_jax(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.Module:
-    """Strict load; the module keeps its device and dtype."""
+def _strict(tree: Mapping[str, Any], own: Mapping[str, torch.Tensor],
+            what: str) -> "OrderedDict[str, torch.Tensor]":
+    """params_from_jax(tree), checked to fill every entry of ``own`` exactly
+    once with matching shapes."""
     sd = params_from_jax(tree)
-    own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     unused = sorted(set(sd) - set(own))
     if missing or unused:
         raise ValueError(
-            f"JAX tree does not match {type(module).__name__}: "
+            f"JAX tree does not match {what}: "
             f"missing {missing[:8]}{'...' if len(missing) > 8 else ''}, "
             f"unused {unused[:8]}{'...' if len(unused) > 8 else ''}"
         )
     for k, v in sd.items():
         if tuple(own[k].shape) != tuple(v.shape):
-            raise ValueError(f"{k}: JAX shape {tuple(v.shape)} vs {tuple(own[k].shape)}")
-    module.load_state_dict(sd, strict=True)
+            raise ValueError(f"{what} {k}: JAX shape {tuple(v.shape)} vs {tuple(own[k].shape)}")
+    return sd
+
+
+def load_from_jax(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.Module:
+    """Strict load; the module keeps its device and dtype."""
+    module.load_state_dict(_strict(tree, module.state_dict(), type(module).__name__),
+                           strict=True)
     return module
+
+
+@torch.no_grad()
+def load_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
+    """Strict load of a JAX decoder TrainState, given as numpy trees:
+    ``{"params": {"unet_<i>": flax params}, "opt_states": [{"mu", "nu":
+    flax trees, "count": int}] per unet, "ema": [{"params": tree, "step":
+    int} or None] per unet, "steps": [int] per unet}``."""
+    n = trainer.num_unets
+    for key in ("opt_states", "ema", "steps"):
+        if len(state[key]) != n:
+            raise ValueError(f"{key}: {len(state[key])} entries for {n} unets")
+    if set(state["params"]) != {f"unet_{i}" for i in range(n)}:
+        raise ValueError(f"params hold {sorted(state['params'])}, not unet_0..unet_{n - 1}")
+    for i, unet in enumerate(trainer.decoder.unets):
+        load_from_jax(unet, state["params"][f"unet_{i}"])
+        own = dict(unet.named_parameters())
+        opt = state["opt_states"][i]
+        mu = _strict(opt["mu"], own, f"unet_{i} mu")
+        nu = _strict(opt["nu"], own, f"unet_{i} nu")
+        adam = trainer.optimizers[i]
+        adam.state.clear()
+        step = float(np.asarray(opt["count"]))
+        for k, p in own.items():
+            adam.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
+                             "exp_avg": mu[k].to(p), "exp_avg_sq": nu[k].to(p)}
+        ema = state["ema"][i]
+        if (ema is None) != (trainer.ema[i] is None):
+            raise ValueError(f"unet_{i}: EMA present in one of state and trainer only")
+        if ema is not None:
+            shadow = _strict(ema["params"], trainer.ema[i].params, f"unet_{i} ema")
+            for k, v in shadow.items():
+                trainer.ema[i].params[k].copy_(v)
+            trainer.ema[i].step = int(np.asarray(ema["step"]))
+    trainer.steps = [int(np.asarray(s)) for s in state["steps"]]
+    trainer.decoder._sampling_unets.clear()

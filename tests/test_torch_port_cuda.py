@@ -6,14 +6,15 @@ import. Run on the card with
 
     python -m pytest -m cuda tests/test_torch_port_cuda.py
 
-Tolerances: f32 inputs 1e-5, 4e-5 for GroupNorm's sums over up to 80k
-values (same math, another summation order). bf16 attention outputs:
+Tolerances (forwards): f32 inputs 1e-5, 4e-5 for GroupNorm's sums over up
+to 80k values (same math, another summation order). bf16 attention outputs:
 |kernel - plain| <= atol + 1e-2 * |plain|. Both sides end in a bf16
 rounding, one step of which is at most 2^-7 = 7.8e-3 of the value, so the
 relative term admits one rounding flip at any magnitude; atol covers the
 work before the rounding: 1e-3 for cross-attention (f32 math), and for flash
 the bf16 probabilities of its second product (see the flash test). GroupNorm
-in bf16 keeps 8e-2 absolute on outputs of a few units.
+in bf16 keeps 8e-2 absolute on outputs of a few units. The backward
+kernels' tolerances sit with their tests below.
 """
 
 from __future__ import annotations
@@ -123,3 +124,97 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         gn.groupnorm_film_silu(torch.zeros(1, 4, 24, device=dev), torch.ones(24, device=dev),
                                torch.zeros(24, device=dev), groups=8)
+
+
+# ------------------------------------------------------ backward kernels
+# f32: the same f32 math as the plain version, summed in another order over
+# up to a few thousand terms: 2e-5 of the call's largest gradient value.
+# bf16: both sides round the f32 result once (rtol 1e-2 = one flip), atol
+# 1e-3 of the largest value for the f32 sums near zero (the chip_smoke.py
+# form). The scale is the call's, not each output's: at n_kv = 1 the
+# softmax is constant, dq and dk are exactly 0 and both sides return f32
+# residue of dP - delta there.
+def _assert_grads_close(outs, refs, dtype):
+    scale = max(float(r.float().abs().max()) for r in refs)
+    for o, r in zip(outs, refs):
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, r, atol=2e-5 * scale, rtol=0)
+        else:
+            torch.testing.assert_close(o.float(), r.float(), atol=1e-3 * scale, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_kv", [(333, 1), (333, 65), (1000, 5761)])
+def test_flash_bwd_kernel_matches_plain(dev, dtype, n_q, n_kv):
+    g = torch.Generator(device=dev).manual_seed(n_kv)
+    q, go = (torch.randn(2, n_q, 32, generator=g, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(2, n_kv, 32, generator=g, device=dev).to(dtype) for _ in range(2))
+    out, lse = fm.flash_mqa_fwd(q, k, v, sm_scale=32**-0.5, save_lse=True)
+    before = fm.BWD_KERNEL.launches
+    got = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=32**-0.5)
+    torch.cuda.synchronize()
+    assert fm.BWD_KERNEL.launches == before + 1
+    assert all(t.dtype == dtype for t in got)
+    _assert_grads_close(got, fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 32**-0.5), dtype)
+    # the query-split partials are summed in a fixed order: bit for bit again
+    again = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=32**-0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_autograd_on_cuda_matches_plain_autograd(dev):
+    """Gradients reach q, k, v through the Function (no silent drop)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(2, 200, 32, generator=g, device=dev, requires_grad=True)
+    k = torch.randn(2, 77, 32, generator=g, device=dev, requires_grad=True)
+    v = torch.randn(2, 77, 32, generator=g, device=dev, requires_grad=True)
+    go = torch.randn(2, 200, 32, generator=g, device=dev)
+    got = torch.autograd.grad(fm.flash_mqa(q, k, v, sm_scale=0.2), (q, k, v), go)
+    s = torch.einsum("bnd,bmd->bnm", q * 0.2, k)
+    want = torch.autograd.grad(torch.softmax(s, -1) @ v, (q, k, v), go)
+    _assert_grads_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,l", [(8, 40000), (64, 777), (512, 90), (128, 4097)])
+def test_groupnorm_bwd_kernel_matches_plain(dev, dtype, c, l):
+    g = torch.Generator(device=dev).manual_seed(c + 1)
+    x = (torch.randn(2, l, c, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    gy = torch.randn(2, l, c, generator=g, device=dev).to(dtype)
+    gamma, beta = (torch.randn(c, generator=g, device=dev).to(dtype) for _ in range(2))
+    scale, shift = ((0.1 * torch.randn(2, c, generator=g, device=dev)).to(dtype) for _ in range(2))
+    _, mean, rstd = gn.groupnorm_film_silu(x, gamma, beta, scale, shift, 8, return_stats=True)
+    a_vec, b_vec = gn.fold_ab(gamma, beta, scale, shift, dtype, 2)
+    before = gn.BWD_KERNEL.launches
+    got = gn.groupnorm_film_bwd(x, gy, a_vec, b_vec, mean, rstd, 8)
+    torch.cuda.synchronize()
+    assert gn.BWD_KERNEL.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    _assert_grads_close(got, gn.groupnorm_film_bwd_reference(x, gy, a_vec, b_vec, mean, rstd, 8),
+                        dtype)
+
+
+@pytest.mark.parametrize("film", [True, False])
+def test_groupnorm_autograd_on_cuda_gives_every_gradient(dev, film):
+    """All five gradients with FiLM, three without (scale / shift None, as
+    in a ResnetBlock3D's second block)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    ins = [torch.randn(2, 300, 64, generator=g, device=dev),
+           1 + 0.1 * torch.randn(64, generator=g, device=dev),
+           0.1 * torch.randn(64, generator=g, device=dev),
+           0.1 * torch.randn(2, 64, generator=g, device=dev),
+           0.1 * torch.randn(2, 64, generator=g, device=dev)]
+    ins = [t.requires_grad_() for t in ins[:5 if film else 3]]
+    args = ins + [None] * (5 - len(ins))
+    gy = torch.randn(2, 300, 64, generator=g, device=dev)
+    got = torch.autograd.grad(gn.groupnorm_film_silu(*args, groups=8), ins, gy)
+    want = torch.autograd.grad(gn.groupnorm_film_reference(*args, 8, 1e-5), ins, gy)
+    _assert_grads_close(got, want, torch.float32)
+
+
+def test_cross_attention_raises_under_grad_on_cuda(dev):
+    q = torch.zeros(1, 4, 8, 64, device=dev, requires_grad=True)
+    k = torch.zeros(1, 3, 8, 64, device=dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        xa.cross_attention(q, k, k, sm_scale=1.0)
+    with torch.no_grad():
+        assert xa.cross_attention(q, k, k, sm_scale=1.0).shape == q.shape
