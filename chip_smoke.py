@@ -11,24 +11,32 @@ Phases (any failure exits non-zero and prints no result line):
      the card, in bf16, at the shapes the serving path gives it, with
      kernel / plain / library times and the card's lower bound;
      The backward kernels are checked the same way at the training shapes
-     (bf16, and one f32 case each).
-  3. module check: a small UNet3D with the kernel impls against the same
+     (bf16, and one f32 case each), and so are the opt-in conv paths'
+     kernels (the 3x3 conv and its dx, its weight gradient, the conv + bias
+     + statistics forward, the fused block's GroupNorm backward) at the
+     slice's shapes;
+  3. module check: small UNet3Ds with the kernel impls against the same
      weights on the plain impls, f32 and bf16; then one loss's gradients
-     through both, bf16 compute over f32 masters;
+     through both, bf16 compute over f32 masters. Two cases: the serving /
+     training kernels, and the conv paths (groupnorm_impl fused,
+     spatial_conv_impl pallas_small);
   4. serve: the full-width celebv_text stack at the 90-frame recipe
-     (frame_numbers [90, 90], groupnorm_impl pallas, cross_attention_impl
-     flash, bf16 unets, random weights from a seed) behind GenerationEngine
-     with buckets (1, 2); REQUESTS requests at cond_scale 3.0 and STEPS DDIM
-     steps per stage must each return a finite (90, 128, 128, 3) video in
-     [0, 1], and every kernel's launch count over this run must equal what
-     the unet structure predicts (no backward kernel);
+     (frame_numbers [90, 90], cross_attention_impl flash, bf16 unets,
+     random weights from a seed) behind GenerationEngine with buckets
+     (1, 2), on each path of SERVE_PATHS: "serve" (groupnorm_impl pallas,
+     REQUESTS requests, STEPS DDIM steps per stage) and "serve_conv" (the
+     conv paths, fewer requests and steps). Every request must return a
+     finite (90, 128, 128, 3) video in [0, 1], and every kernel's launch
+     count over the path's run must equal what the unet structure predicts
+     (no backward kernel);
   5. train: the decoder training path at the same widths and recipe
-     (groupnorm_impl pallas, attention_impl auto -> flash at the 5760-token
-     bottlenecks, cross_attention_impl xla, bf16 compute, batch 2) on
-     synthetic 90x128x128 videos: TRAIN_STEPS steps of each unet, one
-     eval_loss each, a checkpoint round trip; finite losses, every
-     parameter moved, EMA step counts, and every step's launch counts as
-     the unet structure predicts. Prints ms per step, samples/s and peak
+     (attention_impl auto -> flash at the 5760-token bottlenecks,
+     cross_attention_impl xla, bf16 compute, batch 2) on synthetic
+     90x128x128 videos, on each path of TRAIN_PATHS: "train" (groupnorm_impl
+     pallas, with a checkpoint round trip) and "train_conv" (the conv
+     paths): its steps of each unet, one eval_loss each; finite losses,
+     every parameter moved, EMA step counts, and every step's launch counts
+     as the unet structure predicts. Prints ms per step, samples/s and peak
      memory.
 Then it prints the {"kernels": [...]} line, the card line, and as the last
 line {"ok": true, "device": {...}}.
@@ -125,6 +133,16 @@ def bound(bytes_moved: float, flops: float = 0.0, exps: float = 0.0):
     return t[by] * 1e3, by
 
 
+def rel(name, label, parts, outs, refs, rtol, atol_frac):
+    """check() on every output; atol is atol_frac of that output's largest
+    plain value (the f32 sums' order error scales with it)."""
+    errs = []
+    for part, o, r in zip(parts, outs, refs):
+        atol = atol_frac * float(r.float().abs().max())
+        errs.append(check(name, f"{label} {part}", o, r, atol=atol, rtol=rtol)[0])
+    return max(errs), f"{atol_frac:g}*max|ref| + {rtol:g}*|ref|"
+
+
 # --------------------------------------------------------------- phase 2
 def check_kernels(dev, torch):
     """Each kernel vs its plain version at serving shapes (bf16)."""
@@ -202,7 +220,9 @@ def check_kernels(dev, torch):
         k = torch.randn(b, m, h, d, generator=g, device=dev).to(bf)
         v = torch.randn(b, m, h, d, generator=g, device=dev).to(bf)
         out = xa.cross_attention(q, k, v, sm_scale=d**-0.5)
-        ref = xa.cross_attention_reference(q, k, v, d**-0.5)
+        # the plain version runs in its input dtype: an f32-math oracle is
+        # f32 copies of the same bf16 inputs, rounded once at the end
+        ref = xa.cross_attention_reference(q.float(), k.float(), v.float(), d**-0.5).to(bf)
         # f32 math on the same bf16 inputs: only the output rounding differs
         e, tol = check("cross_attention_fwd", f"{label} b={b} n={n} m={m}", out, ref,
                        atol=1e-3, rtol=1e-2)
@@ -212,7 +232,8 @@ def check_kernels(dev, torch):
             rows["cross_attention_fwd"] = dict(
                 max_abs_err=e, tolerance=tol, shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16",
                 ms=time_ms(lambda: xa.cross_attention(q, k, v, sm_scale=d**-0.5)),
-                plain_ms=time_ms(lambda: xa.cross_attention_reference(q, k, v, d**-0.5), iters=3),
+                plain_ms=time_ms(lambda: xa.cross_attention_reference(
+                    q.float(), k.float(), v.float(), d**-0.5).to(bf), iters=3),
                 library_ms=library_time("cross_attention_fwd",
                                         lambda: F.scaled_dot_product_attention(qt, kt, vt)),
                 bound_ms=bnd, bound_by=by)
@@ -233,15 +254,6 @@ def check_backward_kernels(dev, torch, rows):
 
     g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
-
-    def rel(name, label, parts, outs, refs, rtol, atol_frac):
-        """check() on every output; atol is atol_frac of that output's
-        largest plain value (the f32 sums' order error scales with it)."""
-        errs = []
-        for part, o, r in zip(parts, outs, refs):
-            atol = atol_frac * float(r.float().abs().max())
-            errs.append(check(name, f"{label} {part}", o, r, atol=atol, rtol=rtol)[0])
-        return max(errs), f"{atol_frac:g}*max|ref| + {rtol:g}*|ref|"
 
     # flash backward: the joint bottleneck of either unet at 90 frames, batch 2
     for dtype, (b, n_q, n_kv) in ((torch.float32, (2, 333, 65)),
@@ -328,6 +340,156 @@ def check_backward_kernels(dev, torch, rows):
     return rows
 
 
+def check_conv_kernels(dev, torch, rows):
+    """The opt-in conv paths' kernels (rows 6-9) vs their plain versions at
+    the slice's shapes in bf16, and one f32 case each. The JSON row of each
+    is unet 1's 64x64 stage at B*T = 180, where the fused block runs its
+    widest sums and the conv dx its largest launches; the other shapes are
+    logged. Tolerances are the backward kernels' form: f32 2e-5 of the
+    largest value (same products, another order); bf16 one rounding flip
+    (rtol 1e-2) plus 1e-3 of the largest value; the f32 weight gradient and
+    statistics 1e-4 / 1e-5 of their largest value."""
+    import math
+
+    import torch.nn.functional as F
+
+    from dalle2_video_tpu_torch.ops import fused_block as fb
+    from dalle2_video_tpu_torch.ops import groupnorm_film as gn
+    from dalle2_video_tpu_torch.ops import spatial_conv as sc
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    tol = {torch.float32: dict(rtol=0.0, atol_frac=2e-5), bf: dict(rtol=1e-2, atol_frac=1e-3)}
+    stage0 = (180, 64, 64, 64, 64)
+
+    def inputs(dtype, n, h, w, c, co):
+        x = torch.randn(n, h, w, c, generator=g, device=dev).to(dtype)
+        wt = (torch.randn(co, c, 3, 3, generator=g, device=dev) / math.sqrt(9 * c)).to(dtype)
+        return x, wt
+
+    def conv_flops(n, h, w, c, co):
+        return 2.0 * n * h * w * 9 * c * co
+
+    def cl(x, wt):  # the cuDNN yardstick's channels-last operands
+        return x.permute(0, 3, 1, 2), wt.contiguous(memory_format=torch.channels_last)
+
+    # row 6: the conv forward (pallas_small at the 8x8 512-wide sites) and
+    # its dx (every fused site; the dx of the 64-wide stage is this shape)
+    for dtype, label, shape in ((torch.float32, "f32 check", (6, 16, 16, 64, 128)),
+                                (bf, "unet1 mid (pallas_small)", (180, 8, 8, 512, 512)),
+                                (bf, "unet1 stage 0 (dx)", stage0)):
+        x, wt = inputs(dtype, *shape)
+        e, tl = rel("conv3x3", f"{label} {dtype} {shape}", ("y",), [sc.conv3x3(x, wt)],
+                    [sc.conv3x3_reference(x, wt)], **tol[dtype])
+        if dtype == bf:
+            n, h, w, c, co = shape
+            bnd, by = bound(2 * (x.numel() + wt.numel() + n * h * w * co),
+                            flops=conv_flops(*shape))
+            kms = time_ms(lambda: sc.conv3x3(x, wt))
+            xc, wc = cl(x, wt)
+            lib = library_time("conv3x3", lambda: F.conv2d(xc, wc, padding=1))
+            log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) cudnn_ms={lib}")
+            if shape == stage0:
+                rows["conv3x3"] = dict(
+                    max_abs_err=e, tolerance=tl, shape=f"x{tuple(x.shape)} w{tuple(wt.shape)} bf16",
+                    ms=kms, plain_ms=time_ms(lambda: sc.conv3x3_reference(x, wt), iters=3),
+                    library_ms=lib, bound_ms=bnd, bound_by=by)
+        del x, wt
+
+    # row 7: the weight gradient of every fused site. Its oracle is the
+    # plain version on f64 copies: over the 737,280 pixels of the 64x64
+    # stage the f32 plain version (cuDNN, one long sum per value) is itself
+    # off by ~1e-4 of the largest value, the kernel (split-K, short f32
+    # sums) by ~1e-5 (both logged below), so 1e-5 of the largest value.
+    for dtype, label, shape in ((torch.float32, "f32 check", (6, 16, 16, 64, 128)),
+                                (bf, "unet1 stage 2", (180, 16, 16, 256, 256)),
+                                (bf, "unet1 stage 0", stage0)):
+        x, _ = inputs(dtype, *shape)
+        dy = torch.randn(*shape[:3], shape[4], generator=g, device=dev).to(dtype)
+        got = sc.conv3x3_wgrad(x, dy)
+        want = sc.conv3x3_wgrad_reference(x.double(), dy.double())
+        e, tl = rel("conv3x3_wgrad", f"{label} {dtype} {shape}", ("dW",), [got], [want],
+                    rtol=0.0, atol_frac=1e-5)
+        scale = float(want.abs().max())
+        plain_e = float((sc.conv3x3_wgrad_reference(x, dy).double() - want).abs().max())
+        log(f"  against the f64 oracle, in units of its largest value: kernel "
+            f"{e / scale:.2e}, plain f32 version {plain_e / scale:.2e}")
+        del want
+        if not torch.equal(got, sc.conv3x3_wgrad(x, dy)):
+            raise AssertionError("conv3x3_wgrad: two calls differ (split-K order)")
+        if dtype == bf:
+            bnd, by = bound(2 * (x.numel() + dy.numel()) + 4 * got.numel(),
+                            flops=conv_flops(*shape))
+            kms = time_ms(lambda: sc.conv3x3_wgrad(x, dy))
+            xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            lib = library_time("conv3x3_wgrad", lambda: torch.nn.grad.conv2d_weight(
+                xc, tuple(got.shape), dyc, padding=1))
+            log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) library_ms={lib}")
+            if shape == stage0:
+                rows["conv3x3_wgrad"] = dict(
+                    max_abs_err=e, tolerance=tl, shape=f"x, dy{tuple(x.shape)} bf16 -> dW f32",
+                    ms=kms, plain_ms=time_ms(lambda: sc.conv3x3_wgrad_reference(x, dy), iters=3),
+                    library_ms=lib, bound_ms=bnd, bound_by=by)
+        del x, dy, got
+
+    # row 8: conv + bias + statistics of the fused forward, batch 2 rows
+    for dtype, label, shape in ((torch.float32, "f32 check (147-pixel rows)", (6, 7, 7, 64, 64)),
+                                (bf, "unet1 stage 0", stage0)):
+        x, wt = inputs(dtype, *shape)
+        bias = 0.5 * torch.randn(shape[4], generator=g, device=dev)
+        got, want = fb.conv_bias_stats(x, wt, bias, 2), fb.conv_bias_stats_reference(x, wt, bias, 2)
+        e, tl = rel("conv3x3_bias_stats", f"{label} {dtype} {shape} y", ("y",), got[:1],
+                    want[:1], **tol[dtype])
+        rel("conv3x3_bias_stats", f"{label} {dtype} {shape}", ("sum", "sum of squares"),
+            got[1:], want[1:], rtol=0.0, atol_frac=1e-5)
+        if not all(torch.equal(a, b) for a, b in zip(got, fb.conv_bias_stats(x, wt, bias, 2))):
+            raise AssertionError("conv3x3_bias_stats: two calls differ")
+        if dtype == bf:
+            n, h, w, c, co = shape
+            bnd, by = bound(2 * (x.numel() + wt.numel() + n * h * w * co) + 4 * (co + 4 * co),
+                            flops=conv_flops(*shape))
+            xc, wc = cl(x, wt)
+            rows["conv3x3_bias_stats"] = dict(
+                max_abs_err=e, tolerance=tl, shape=f"x{tuple(x.shape)} w{tuple(wt.shape)} bf16, "
+                                                   "2 batch rows",
+                ms=time_ms(lambda: fb.conv_bias_stats(x, wt, bias, 2)),
+                plain_ms=time_ms(lambda: fb.conv_bias_stats_reference(x, wt, bias, 2), iters=3),
+                # no one call computes conv + bias + the statistics; what the
+                # conv alone costs in cuDNN stands beside it
+                library_ms=None, conv_alone_ms=library_time(
+                    "conv3x3_bias_stats", lambda: F.conv2d(xc, wc, padding=1)),
+                bound_ms=bnd, bound_by=by)
+        del x, wt, got, want
+
+    # row 9: the fused block's GroupNorm-FiLM-SiLU backward on the conv
+    # output, the row-4 kernel counted under its own entry
+    for dtype, label, (b, l, c) in ((torch.float32, "f32 check", (2, 4097, 128)),
+                                    (bf, "unet1 stage 0", (2, 90 * 64 * 64, 64))):
+        y = (torch.randn(b, l, c, generator=g, device=dev) * 2 + 0.3).to(dtype)
+        gy = torch.randn(b, l, c, generator=g, device=dev).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+        beta = 0.1 * torch.randn(c, generator=g, device=dev)
+        s_, t_ = (0.1 * torch.randn(b, c, generator=g, device=dev) for _ in range(2))
+        sums = y.float().sum(1), (y.float() ** 2).sum(1)
+        mean, rstd = fb.stats_to_mean_rstd(*sums, 8, l * c // 8, 1e-5)
+        a_vec, b_vec = fb.fold_ab(gamma, beta, s_, t_, b)
+        args = (y, gy, a_vec, b_vec, mean, rstd, 8)
+        e, tl = rel("fused_block_gn_bwd", f"{label} {dtype} B={b} L={l} C={c}", ("dy", "dA", "dB"),
+                    gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL),
+                    gn.groupnorm_film_bwd_reference(*args),
+                    rtol=tol[dtype]["rtol"], atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
+        if dtype == bf:
+            bnd, by = bound(3 * y.numel() * 2)  # read y and g, write dy
+            rows["fused_block_gn_bwd"] = dict(
+                max_abs_err=e, tolerance=tl, shape=f"y{tuple(y.shape)} bf16",
+                ms=time_ms(lambda: gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL)),
+                plain_ms=time_ms(lambda: gn.groupnorm_film_bwd_reference(*args), iters=3),
+                library_ms=None, bound_ms=bnd, bound_by=by)
+        del y, gy
+    torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------------- phase 3
 def _small_unet(UNet3D, UNet3DConfig, kw, dev):
     """The module checks' UNet3D. Its output conv starts at zero (the JAX
@@ -341,16 +503,55 @@ def _small_unet(UNet3D, UNet3DConfig, kw, dev):
     return unet
 
 
-def check_modules(dev, torch):
+# The module checks' small UNet3Ds on the same weights as their plain twins:
+# the serving / training kernels, and the opt-in conv paths -- whose 64-wide
+# sites take the fused block and, in bf16, whose 512-wide 16x16 sites take
+# the conv kernel (pallas_small; in f32 the weight bound sends them to the
+# plain conv, as in the JAX package). Per case: the unet, the fast knobs,
+# and the kernels that must launch in a forward / a forward + backward.
+MODULE_CASES = {
+    "kernels": dict(
+        kw=dict(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, attn_heads=16,
+                attn_dim_head=32, video_embed_dim=32, cond_on_video_embeds=True),
+        fwd=dict(attention_impl="flash", groupnorm_impl="pallas", cross_attention_impl="flash"),
+        grad=dict(attention_impl="flash", groupnorm_impl="pallas"),
+        need_fwd=("flash_mqa_fwd", "groupnorm_film_silu_fwd", "cross_attention_fwd"),
+        need_grad=("flash_mqa_bwd", "groupnorm_film_silu_bwd")),
+    "conv paths": dict(
+        kw=dict(dim=64, dim_mults=(1, 8), num_resnet_blocks=1, attn_heads=4,
+                attn_dim_head=32, video_embed_dim=32, cond_on_video_embeds=True),
+        fwd=dict(groupnorm_impl="fused", spatial_conv_impl="pallas_small"),
+        grad=dict(groupnorm_impl="fused", spatial_conv_impl="pallas_small"),
+        need_fwd=("conv3x3_bias_stats",),
+        need_grad=("conv3x3_bias_stats", "fused_block_gn_bwd", "conv3x3", "conv3x3_wgrad")),
+}
+
+
+def _counted(torch, fn, need, label):
+    """Run fn; return what it returned and the kernel launches it made, and
+    fail if a kernel in ``need`` did not launch."""
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+
+    kernels = all_kernels()
+    before = {k.name: k.launches for k in kernels}
+    out = fn()
+    torch.cuda.synchronize()
+    used = {k.name: k.launches - before[k.name] for k in kernels if k.launches != before[k.name]}
+    missing = [n for n in need if n not in used]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} never launched ({used})")
+    return out, used
+
+
+def check_modules(dev, torch, case):
     """Small UNet3D: kernel impls vs plain impls on the same weights."""
     from dalle2_video_tpu_torch.models.unet3d import UNet3D, UNet3DConfig
 
-    kw = dict(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, attn_heads=16,
-              attn_dim_head=32, video_embed_dim=32, cond_on_video_embeds=True)
+    spec = MODULE_CASES[case]
+    kw = spec["kw"]
     torch.manual_seed(0)
     plain = _small_unet(UNet3D, UNet3DConfig, kw, dev)
-    fast = UNet3D(UNet3DConfig(**kw, attention_impl="flash", groupnorm_impl="pallas",
-                               cross_attention_impl="flash")).to(dev).eval()
+    fast = UNet3D(UNet3DConfig(**kw, **spec["fwd"])).to(dev).eval()
     fast.load_state_dict(plain.state_dict())
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(2, 4, 32, 32, 3, generator=g, device=dev)
@@ -360,40 +561,42 @@ def check_modules(dev, torch):
     for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 4e-2)):
         p, f = plain.to(dtype), fast.to(dtype)
         with torch.no_grad():
-            a = f(x.to(dtype), t, video_embed=ve.to(dtype)).float()
+            a, used = _counted(torch, lambda: f(x.to(dtype), t, video_embed=ve.to(dtype)).float(),
+                               spec["need_fwd"], f"UNet3D {case} ({dtype})")
             b = p(x.to(dtype), t, video_embed=ve.to(dtype)).float()
         e = float((a - b).abs().max())
         scale = max(1.0, float(b.abs().max()))
-        log(f"UNet3D kernels vs plain ({dtype}): max_abs_err={e:.3e} "
-            f"(tol {tol} x output scale {scale:.2f})")
+        log(f"UNet3D {case} vs plain ({dtype}): max_abs_err={e:.3e} "
+            f"(tol {tol} x output scale {scale:.2f}); launches {used}")
         if not (torch.isfinite(a).all() and e <= tol * scale):
             raise AssertionError("UNet3D with kernels disagrees with the plain impls")
 
 
 # relative L2 error per parameter tensor: f32 is the same math summed in
-# another order (1e-3); bf16 rounds activations and gradients (2^-8
-# relative) at other places on the two sides -- the flash forward's P, the
-# kernels' f32 sums -- and through ~20 layers that reaches 3e-2 on a
-# LayerNorm weight even on the CPU, where both sides run the plain
-# versions; 0.1 leaves room for it while a dropped or mis-scaled gradient
-# (error ~1) fails.
-GRAD_RTOL = {"float32": 1e-3, "bfloat16": 0.1}
+# another order (1e-3). In bf16 the two sides round at other places: the
+# plain attention computes its products and softmax in bf16, as the JAX
+# package's xla path does, while the flash kernel keeps f32 softmax state,
+# as the Pallas kernel does; the kernels' f32 sums. The JAX package's own
+# flash and xla paths differ by up to 8.7e-2 on this unet's gradients
+# (tests/measure_jax_flash_vs_xla_bf16_grads.py, two seeds, CPU); 0.2
+# leaves room for that while a dropped or mis-scaled gradient (error ~1)
+# fails.
+GRAD_RTOL = {"float32": 1e-3, "bfloat16": 0.2}
 
 
-def check_module_grads(dev, torch):
+def check_module_grads(dev, torch, case):
     """The same small UNet3D with gradients: one loss's gradients with the
-    kernel impls (flash attention and its backward, the fused GroupNorm and
-    its backward) and with the plain impls, on the same weights and the
-    same draws, in f32 and in bf16 compute over f32 masters (as the trainer
-    runs it). Every parameter tensor must get a nonzero gradient on both
-    sides, within GRAD_RTOL of the plain one."""
+    kernel impls (and their backward kernels) and with the plain impls, on
+    the same weights and the same draws, in f32 and in bf16 compute over
+    f32 masters (as the trainer runs it). Every parameter tensor must get a
+    nonzero gradient on both sides, within GRAD_RTOL of the plain one."""
     from dalle2_video_tpu_torch.models.unet3d import UNet3D, UNet3DConfig
 
-    kw = dict(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, attn_heads=16,
-              attn_dim_head=32, video_embed_dim=32, cond_on_video_embeds=True)
+    spec = MODULE_CASES[case]
+    kw = spec["kw"]
     torch.manual_seed(0)
     plain = _small_unet(UNet3D, UNet3DConfig, kw, dev)
-    fast = UNet3D(UNet3DConfig(**kw, attention_impl="flash", groupnorm_impl="pallas")).to(dev)
+    fast = UNet3D(UNet3DConfig(**kw, **spec["grad"])).to(dev)
     fast.load_state_dict(plain.state_dict())
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(2, 4, 32, 32, 3, generator=g, device=dev)
@@ -406,28 +609,58 @@ def check_module_grads(dev, torch):
         for unet in (plain, fast):
             unet.zero_grad(set_to_none=True)
             cast = {k: p.to(dtype) for k, p in unet.named_parameters()}
-            out = torch.func.functional_call(unet, cast, (x.to(dtype), t), dict(
-                video_embed=ve.to(dtype), video_keep_mask=keep))
-            ((out.float() - target) ** 2).mean().backward()
+
+            def step():
+                out = torch.func.functional_call(unet, cast, (x.to(dtype), t), dict(
+                    video_embed=ve.to(dtype), video_keep_mask=keep))
+                ((out.float() - target) ** 2).mean().backward()
+
+            if unet is fast:
+                used = _counted(torch, step, spec["need_grad"], f"UNet3D {case} grads")[1]
+            else:
+                step()
             grads.append({k: p.grad for k, p in unet.named_parameters()})
         worst, worst_name = 0.0, ""
         for name, gp in grads[0].items():
             gf = grads[1][name]
             if gp is None or gf is None or float(gp.norm()) == 0 or float(gf.norm()) == 0:
                 raise AssertionError(f"module grads: {name} has no gradient on one side")
-            rel = float((gf - gp).norm() / gp.norm())
-            if rel > worst:
-                worst, worst_name = rel, name
+            err = float((gf - gp).norm() / gp.norm())
+            if err > worst:
+                worst, worst_name = err, name
         tol = GRAD_RTOL[str(dtype).split(".")[-1]]
-        log(f"UNet3D gradients, kernels vs plain ({dtype} compute, f32 masters): "
+        log(f"UNet3D {case} gradients vs plain ({dtype} compute, f32 masters): "
             f"{len(grads[0])} tensors, worst relative L2 error {worst:.3e} ({worst_name}); "
-            f"tol {tol}")
+            f"tol {tol}; launches {used}")
         if not worst <= tol:
             raise AssertionError("UNet3D gradients with kernels disagree with the plain impls")
 
 
 # --------------------------------------------------------------- phase 4
-def serve(dev, torch, profile: bool = False):
+# The main paths: the full-width celebv_text cascade at the 90-frame recipe,
+# bf16 unets, CFG batch 2, driven through the serving engine. "serve" is
+# the kernel path of PRs 1-2 (groupnorm_impl pallas); "serve_conv" the
+# opt-in conv paths (groupnorm_impl fused, spatial_conv_impl pallas_small),
+# cut to fewer requests and steps to keep the script well inside its limit.
+# per_step: each kernel's launches per DDIM step of one group -- one CFG
+# forward per unet: flash once (mid_attn); GroupNorm twice per
+# ResnetBlock3D (27 / 33 blocks); cross-attention once per conditioned
+# block (17 / 22); on the conv paths the fused block at 44 / 19 sites and
+# the conv kernel at 7 / 0 (every other site is the plain conv and the
+# plain GroupNorm: tests/test_torch_port_convpaths.py counts them).
+SERVE_PATHS = {
+    "serve": dict(
+        knobs=["groupnorm_impl=pallas"], requests=REQUESTS, steps=STEPS,
+        per_step={"flash_mqa_fwd": 2, "groupnorm_film_silu_fwd": 54 + 66,
+                  "cross_attention_fwd": 17 + 22}),
+    "serve_conv": dict(
+        knobs=["groupnorm_impl=fused", "spatial_conv_impl=pallas_small"], requests=2, steps=20,
+        per_step={"flash_mqa_fwd": 2, "conv3x3_bias_stats": 44 + 19, "conv3x3": 7 + 0,
+                  "cross_attention_fwd": 17 + 22}),
+}
+
+
+def serve(dev, torch, path: str, profile: bool = False):
     import logging
     from concurrent.futures import wait
 
@@ -438,19 +671,21 @@ def serve(dev, torch, profile: bool = False):
     from dalle2_video_tpu_torch.serve.stack import build_generate_batch
     from dalle2_video_tpu_torch.utils.config import load_config
 
+    spec = SERVE_PATHS[path]
+    requests, steps = spec["requests"], spec["steps"]
+    knobs = [f"unet{u}.{k}" for u in (1, 2) for k in spec["knobs"]]
     cfg = load_config(None, [
-        "frame_numbers=[90,90]",
-        "unet1.groupnorm_impl=pallas", "unet2.groupnorm_impl=pallas",
+        "frame_numbers=[90,90]", *knobs,
         "unet1.cross_attention_impl=flash", "unet2.cross_attention_impl=flash",
         "sample_compute_dtype=bfloat16", "sample_seed=0",
     ])
     t0 = time.time()
     generate_batch = build_generate_batch(cfg, logging.getLogger("chip_smoke"), dev)
-    log(f"serve: stack built in {time.time() - t0:.1f} s "
+    log(f"{path}: stack built in {time.time() - t0:.1f} s "
         f"(frame_sizes {cfg['frame_sizes']}, frame_numbers {cfg['frame_numbers']}, "
-        f"unet dims {cfg['unet1']['dim']}/{cfg['unet2']['dim']})")
+        f"unet dims {cfg['unet1']['dim']}/{cfg['unet2']['dim']}, {' '.join(knobs)})")
     engine = GenerationEngine(generate_batch, buckets=(1, 2), max_wait_ms=50.0,
-                              default_cond_scale=3.0, default_ddim_steps=STEPS)
+                              default_cond_scale=3.0, default_ddim_steps=steps)
     kernels = all_kernels()
     try:
         for k in kernels:
@@ -458,11 +693,11 @@ def serve(dev, torch, profile: bool = False):
         torch.cuda.reset_peak_memory_stats()
         t_submit = time.time()
         futs = [engine.submit(GenRequest(f"a person smiling #{i}", seed=100 + i,
-                                         cond_scale=3.0, ddim_steps=STEPS))
-                for i in range(REQUESTS)]
+                                         cond_scale=3.0, ddim_steps=steps))
+                for i in range(requests)]
         done, _ = wait(futs, timeout=900)
-        if len(done) != REQUESTS:
-            raise AssertionError("serve: requests did not finish")
+        if len(done) != requests:
+            raise AssertionError(f"{path}: requests did not finish")
         results = [f.result() for f in futs]
         wall = time.time() - t_submit
         launches = {k.name: k.launches for k in kernels}
@@ -473,42 +708,61 @@ def serve(dev, torch, profile: bool = False):
     for i, res in enumerate(results):
         vid = res["video"]
         if vid.shape != (90, 128, 128, 3):
-            raise AssertionError(f"request {i}: shape {vid.shape}")
+            raise AssertionError(f"{path} request {i}: shape {vid.shape}")
         if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
-            raise AssertionError(f"request {i}: values not finite in [0, 1]")
-        log(f"request {i}: batch {res['batch_size']} (bucket {res['bucket']}) "
+            raise AssertionError(f"{path} request {i}: values not finite in [0, 1]")
+        log(f"{path} request {i}: batch {res['batch_size']} (bucket {res['bucket']}) "
             f"group time {res['device_ms'] / 1e3:.2f} s -> {90 / (res['device_ms'] / 1e3):.2f} "
             f"frames/s; mean {float(vid.mean()):.3f} std {float(vid.std()):.3f}")
     groups = stats["batches"]
-    # per forward: flash once per unet (mid_attn); GroupNorm twice per
-    # ResnetBlock3D (27 / 33 blocks); cross-attention once per conditioned
-    # block (17 / 22); one forward per DDIM step per stage
-    want = {"flash_mqa_fwd": groups * STEPS * 2, "flash_mqa_bwd": 0,
-            "groupnorm_film_silu_fwd": groups * STEPS * (54 + 66),
-            "groupnorm_film_silu_bwd": 0,
-            "cross_attention_fwd": groups * STEPS * (17 + 22)}
-    log(f"serve: {REQUESTS} requests in {groups} groups, {STEPS} DDIM steps per stage, "
-        f"wall {wall:.2f} s, {90 * REQUESTS / wall:.2f} frames/s overall, peak memory "
+    want = {k.name: groups * steps * spec["per_step"].get(k.name, 0) for k in kernels}
+    log(f"{path}: {requests} requests in {groups} groups, {steps} DDIM steps per stage, "
+        f"wall {wall:.2f} s, {90 * requests / wall:.2f} frames/s overall, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"serve: launches {launches} expected {want}")
+    log(f"{path}: launches {launches} expected {want}")
     if launches != want:
-        raise AssertionError("kernel launch counts differ from the unet structure's")
+        raise AssertionError(f"{path}: kernel launch counts differ from the unet structure's")
     diff = float(np.mean(results[0]["video"] != results[1]["video"]))
-    log(f"serve: share of values that differ between requests 0 and 1: {diff:.3f}")
+    log(f"{path}: share of values that differ between requests 0 and 1: {diff:.3f}")
     if profile:
-        profile_request(cfg, dev, torch, steps=10)
+        profile_request(cfg, dev, torch, steps=10, label=path)
     return launches
 
 
 # --------------------------------------------------------------- phase 5
-TRAIN_STEPS = 4  # optimizer steps per unet, one batch each
 TRAIN_BATCH = 2
-TRAIN_OVERRIDES = [
-    "frame_numbers=[90,90]",
-    "unet1.groupnorm_impl=pallas", "unet2.groupnorm_impl=pallas",
-    "unet1.cross_attention_impl=xla", "unet2.cross_attention_impl=xla",
-    "decoder.bf16_compute=true", f"decoder.batch_size={TRAIN_BATCH}",
-]
+# The training paths at the same widths and recipe (attention_impl auto ->
+# flash at the 5760-token bottlenecks, cross_attention_impl xla, bf16
+# compute over f32 masters, batch 2). Each has its knobs, its steps per
+# unet, and whether it makes the checkpoint round trip.
+TRAIN_PATHS = {
+    "train": dict(knobs=["groupnorm_impl=pallas"], steps=4, checkpoint=True),
+    "train_conv": dict(knobs=["groupnorm_impl=fused", "spatial_conv_impl=pallas_small"],
+                       steps=3, checkpoint=False),
+}
+CONV_SITES = {1: (44, 7), 2: (19, 0)}  # (fused blocks, pallas_small convs) per forward
+
+
+def train_expected(path, u, backward, recompute):
+    """One forward (and backward) of unet u: flash once (mid_attn) and its
+    backward; "train": GroupNorm twice per ResnetBlock3D (27 / 33 blocks)
+    and its backward; "train_conv": kernel 8 at each fused site, and in the
+    backward the GroupNorm backward (row 9), the conv dx (kernel 6) and the
+    weight gradient (kernel 7) there; kernel 6 forward at each pallas_small
+    site, whose backward is the plain conv's. A checkpointed block runs its
+    forward again in the backward."""
+    rf = 2 if recompute else 1
+    want = {"flash_mqa_fwd": 1, "flash_mqa_bwd": int(backward)}
+    if path == "train":
+        blocks = {1: 27, 2: 33}[u]
+        want.update(groupnorm_film_silu_fwd=2 * blocks * rf,
+                    groupnorm_film_silu_bwd=2 * blocks * int(backward))
+    else:
+        fused, small = CONV_SITES[u]
+        want.update(conv3x3_bias_stats=fused * rf, fused_block_gn_bwd=fused * int(backward),
+                    conv3x3=small * rf + fused * int(backward),
+                    conv3x3_wgrad=fused * int(backward))
+    return want
 
 
 def _same_state(a, b, path="state"):
@@ -532,13 +786,13 @@ def _same_state(a, b, path="state"):
         raise AssertionError(f"checkpoint: {path} differs after reload")
 
 
-def train(dev, torch, profile: bool = False):
-    """The decoder training path at the full celebv_text widths on 90-frame
-    synthetic videos (numpy, seeded): TRAIN_STEPS batches of TRAIN_BATCH,
-    each training unet 1 then unet 2 (as train_decoder does), one
-    eval_loss per unet, one checkpoint save -> load round trip. Every
-    kernel's launches are counted per step and must equal what the unet
-    structure predicts."""
+def train(dev, torch, path: str, profile: bool = False):
+    """A decoder training path at the full celebv_text widths on 90-frame
+    synthetic videos (numpy, seeded): its steps of TRAIN_BATCH, each
+    training unet 1 then unet 2 (as train_decoder does), one eval_loss per
+    unet, and (if the path says so) one checkpoint save -> load round trip.
+    Every kernel's launches are counted per step and must equal what the
+    unet structure predicts."""
     import tempfile
     from pathlib import Path
 
@@ -550,10 +804,17 @@ def train(dev, torch, profile: bool = False):
     from dalle2_video_tpu_torch.train.__main__ import SyntheticVideos, build_trainer
     from dalle2_video_tpu_torch.utils.config import load_config
 
-    cfg = load_config(None, TRAIN_OVERRIDES)
+    spec = TRAIN_PATHS[path]
+    n_steps = spec["steps"]
+    knobs = [f"unet{u}.{k}" for u in (1, 2) for k in spec["knobs"]]
+    cfg = load_config(None, [
+        "frame_numbers=[90,90]", *knobs,
+        "unet1.cross_attention_impl=xla", "unet2.cross_attention_impl=xla",
+        "decoder.bf16_compute=true", f"decoder.batch_size={TRAIN_BATCH}",
+    ])
     b = TRAIN_BATCH
     t0 = time.time()
-    data = SyntheticVideos(b * (TRAIN_STEPS + 1), cfg["frame_numbers"][-1],
+    data = SyntheticVideos(b * (n_steps + 1), cfg["frame_numbers"][-1],
                            cfg["frame_sizes"][-1], cfg["dim"], cfg["channels"], seed=0)
     torch.cuda.reset_peak_memory_stats()
     trainer = build_trainer(cfg, build_decoder(cfg, dev))
@@ -567,22 +828,17 @@ def train(dev, torch, profile: bool = False):
         w = unet.to_out.Conv_0.weight
         kernel_init_(w, w[0].numel())
     n_params = [sum(p.numel() for p in u.parameters()) for u in trainer.decoder.unets]
-    log(f"train: data and trainer built in {time.time() - t0:.1f} s; unet params "
+    log(f"{path}: data and trainer built in {time.time() - t0:.1f} s; unet params "
         f"{n_params[0] / 1e6:.2f}M / {n_params[1] / 1e6:.2f}M; batch {b} of "
-        f"{tuple(data.videos.shape[1:])} videos")
+        f"{tuple(data.videos.shape[1:])} videos; {' '.join(knobs)}")
     start = [{k: p.detach().clone() for k, p in trainer.params(i).items()} for i in range(2)]
     kernels = all_kernels()
 
     def expected(u, backward: bool):
-        """Per forward: flash once (mid_attn), GroupNorm twice per
-        ResnetBlock3D (27 / 33 blocks); a checkpointed block runs its
-        forward again in the backward."""
-        blocks = {1: 27, 2: 33}[u]
         recompute = backward and cfg[f"unet{u}"].get("checkpoint_during_training", False)
-        return {"flash_mqa_fwd": 1, "flash_mqa_bwd": int(backward),
-                "groupnorm_film_silu_fwd": 2 * blocks * (2 if recompute else 1),
-                "groupnorm_film_silu_bwd": 2 * blocks * int(backward),
-                "cross_attention_fwd": 0}
+        want = {k.name: 0 for k in kernels}
+        want.update(train_expected(path, u, backward, recompute))
+        return want
 
     def run(fn, want):
         for k in kernels:
@@ -594,13 +850,13 @@ def train(dev, torch, profile: bool = False):
         ms = (time.time() - t) * 1e3
         got = {k.name: k.launches for k in kernels}
         if got != want:
-            raise AssertionError(f"train: launches {got}, the unet structure predicts {want}")
+            raise AssertionError(f"{path}: launches {got}, the unet structure predicts {want}")
         return out, ms, got
 
     as_dev = lambda a: torch.as_tensor(a, device=dev)
     totals = {k.name: 0 for k in kernels}
     ms = {1: [], 2: []}
-    for step in range(TRAIN_STEPS):
+    for step in range(n_steps):
         batch = data.batch_items(np.arange(step * b, (step + 1) * b))
         vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
         for u in (1, 2):
@@ -608,47 +864,50 @@ def train(dev, torch, profile: bool = False):
                                   expected(u, backward=True))
             loss = float(loss)
             if not np.isfinite(loss):
-                raise AssertionError(f"train: unet {u} step {step} loss {loss}")
+                raise AssertionError(f"{path}: unet {u} step {step} loss {loss}")
             ms[u].append(t_ms)
             for k, v in got.items():
                 totals[k] += v
-            log(f"train: step {step} unet {u}: loss {loss:.4f}, {t_ms:.1f} ms")
-    batch = data.batch_items(np.arange(TRAIN_STEPS * b, (TRAIN_STEPS + 1) * b))
+            log(f"{path}: step {step} unet {u}: loss {loss:.4f}, {t_ms:.1f} ms")
+    batch = data.batch_items(np.arange(n_steps * b, (n_steps + 1) * b))
     vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
     for u in (1, 2):
         val, t_ms, _ = run(lambda: trainer.eval_loss(vid, video_embed=emb, unet_number=u),
                            expected(u, backward=False))
         if not np.isfinite(float(val)):
-            raise AssertionError(f"train: unet {u} eval loss {float(val)}")
-        log(f"train: eval_loss unet {u}: {float(val):.4f}, {t_ms:.1f} ms")
+            raise AssertionError(f"{path}: unet {u} eval loss {float(val)}")
+        log(f"{path}: eval_loss unet {u}: {float(val):.4f}, {t_ms:.1f} ms")
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    if trainer.steps != [TRAIN_STEPS] * 2 or [e.step for e in trainer.ema] != [TRAIN_STEPS] * 2:
-        raise AssertionError(f"train: steps {trainer.steps}, EMA steps "
+    if trainer.steps != [n_steps] * 2 or [e.step for e in trainer.ema] != [n_steps] * 2:
+        raise AssertionError(f"{path}: steps {trainer.steps}, EMA steps "
                              f"{[e.step for e in trainer.ema]}")
     for i in range(2):
         still = [k for k, p in trainer.params(i).items() if torch.equal(p.detach(), start[i][k])]
         if still:
-            raise AssertionError(f"train: unet {i + 1} params that never moved: {still[:5]}")
-    with tempfile.TemporaryDirectory() as tmp:
-        state = trainer.state_dict()
-        t = time.time()
-        save_checkpoint(str(Path(tmp) / "ckpt"), state)
-        _same_state(state, load_checkpoint(str(Path(tmp) / "ckpt"), map_location=dev))
-        log(f"train: checkpoint save -> load round trip equal ({time.time() - t:.1f} s)")
+            raise AssertionError(f"{path}: unet {i + 1} params that never moved: {still[:5]}")
+    if spec["checkpoint"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            state = trainer.state_dict()
+            t = time.time()
+            save_checkpoint(str(Path(tmp) / "ckpt"), state)
+            _same_state(state, load_checkpoint(str(Path(tmp) / "ckpt"), map_location=dev))
+            log(f"{path}: checkpoint save -> load round trip equal ({time.time() - t:.1f} s)")
 
     steady = {u: sum(ms[u][1:]) / max(len(ms[u]) - 1, 1) for u in (1, 2)}
-    log(f"train: ms per step (first, then mean of the rest): unet 1 {ms[1][0]:.1f} / "
+    log(f"{path}: ms per step (first, then mean of the rest): unet 1 {ms[1][0]:.1f} / "
         f"{steady[1]:.1f}, unet 2 {ms[2][0]:.1f} / {steady[2]:.1f}; samples/s unet 1 "
         f"{b / steady[1] * 1e3:.2f}, unet 2 {b / steady[2] * 1e3:.2f}, both "
         f"{b / (steady[1] + steady[2]) * 1e3:.2f}; peak memory {peak:.2f} GiB")
-    log(f"train: launches over {TRAIN_STEPS} + {TRAIN_STEPS} steps {totals}")
+    log(f"{path}: launches over {n_steps} + {n_steps} steps {totals}")
     if profile:
         batch = data.batch_items(np.arange(b))
         vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
         for u in (1, 2):
-            profile_device(f"train step unet {u}", torch, lambda: trainer.train_step(
+            profile_device(f"{path} step unet {u}", torch, lambda: trainer.train_step(
                 vid, video_embed=emb, unet_number=u))
+    del trainer
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -674,19 +933,26 @@ def profile_device(label, torch, fn):
         f"{100 * max(0.0, 1 - total / wall_ms):.1f}% ({sum(r[1] for r in rows)} kernel launches)")
     for ms, count, key in rows[:15]:
         log(f"  {ms:9.2f} ms {100 * ms / total:5.1f}% x{count:5d} {key[:100]}")
+    # each device kernel counts in the first family it matches
     groups = {"flash_mqa_fwd": ("flash_mqa_fwd",),
               "flash_mqa_bwd": ("flash_mqa_bwd",),
               "groupnorm_film_silu_fwd": ("gn_stats_kernel", "gn_apply_kernel"),
-              "groupnorm_film_silu_bwd": ("gn_bwd_",),
+              "groupnorm_film_silu_bwd / fused_block_gn_bwd": ("gn_bwd_",),
               "cross_attention_fwd": ("cross_attention_kernel",),
+              "conv3x3 / conv3x3_bias_stats": ("conv3x3_bf16_kernel", "conv3x3_f32_kernel",
+                                               "stats_reduce_kernel"),
+              "conv3x3_wgrad": ("wgrad_bf16_kernel", "wgrad_f32_kernel", "wgrad_reduce_kernel"),
               "convolution (cuDNN / cutlass)": ("cudnn", "conv2d", "xmma_fprop", "implicit_gemm",
                                                 "convolve", "dgrad", "wgrad")}
-    for name, pats in groups.items():
-        ms = sum(r[0] for r in rows if any(p in r[2] for p in pats))
+    family = {}
+    for _, _, key in rows:
+        family[key] = next((n for n, pats in groups.items() if any(p in key for p in pats)), None)
+    for name in groups:
+        ms = sum(r[0] for r in rows if family[r[2]] == name)
         log(f"  {name}: {ms:.2f} ms ({100 * ms / max(total, 1e-9):.1f}% of device time)")
 
 
-def profile_request(cfg, dev, torch, steps: int):
+def profile_request(cfg, dev, torch, steps: int, label: str):
     """One request (CFG batch 2) at the serving config: wall time of each
     layer (text tower, prior, each cascade stage), then the cascade under
     torch.profiler -- device time by kernel and the device's idle share."""
@@ -716,12 +982,13 @@ def profile_request(cfg, dev, torch, steps: int):
                                                    cond_scale=3.0, sample_timesteps=steps))
         _, t_s1 = timed(lambda: dec.sample_stage(1, k1, batch_size=1, prev_video=v0,
                                                   cond_scale=3.0, sample_timesteps=steps))
-        log(f"profile: 1 request, {steps} DDIM steps per stage: text tower {t_text:.1f} ms, "
+        log(f"profile: {label}: 1 request, {steps} DDIM steps per stage: text tower "
+            f"{t_text:.1f} ms, "
             f"prior ({cfg['prior']['sample_timesteps']} DDIM steps, best-of-2) {t_prior:.1f} ms, "
             f"stage 1 (64 px) "
             f"{t_s0:.1f} ms = {t_s0 / steps:.1f} ms/step, stage 2 (128 px) {t_s1:.1f} ms "
             f"= {t_s1 / steps:.1f} ms/step")
-        profile_device("cascade", torch, lambda: dec.sample(
+        profile_device(f"{label} cascade", torch, lambda: dec.sample(
             k_dec, video_embed=vemb, cond_scale=3.0, sample_timesteps=steps))
 
 
@@ -765,27 +1032,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
-    rows = check_backward_kernels(dev, torch, check_kernels(dev, torch))
-    check_modules(dev, torch)
-    check_module_grads(dev, torch)
-    served = serve(dev, torch, args.profile)
-    trained = train(dev, torch, args.profile)
+    rows = check_conv_kernels(dev, torch, check_backward_kernels(dev, torch,
+                                                                 check_kernels(dev, torch)))
+    for case in MODULE_CASES:
+        check_modules(dev, torch, case)
+        check_module_grads(dev, torch, case)
+    # each main path's own run: its counts set to 0 before it, read after it
+    runs = {path: serve(dev, torch, path, args.profile) for path in SERVE_PATHS}
+    runs.update({path: train(dev, torch, path, args.profile) for path in TRAIN_PATHS})
 
     out = []
     for k in _cuda.all_kernels():
         r = rows[k.name]
-        # launches: the training run where the kernel is on that path, else
-        # the serving run; both runs' counts beside it
-        out.append({"name": k.name, "route": "cuda",
-                    "source": f"dalle2_video_tpu_torch/csrc/{k.source}",
-                    "replaces": k.replaces,
-                    "launches": trained[k.name] or served.get(k.name, 0),
-                    "launches_by_run": {"serve": served.get(k.name, 0),
-                                        "train": trained[k.name]},
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                    "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]})
+        # launches: over every main path's run, each run's count beside it
+        row = {"name": k.name, "route": "cuda",
+               "source": f"dalle2_video_tpu_torch/csrc/{k.source}",
+               "replaces": k.replaces,
+               "launches": sum(counts[k.name] for counts in runs.values()),
+               "launches_by_run": {path: counts[k.name] for path, counts in runs.items()},
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]}
+        if "conv_alone_ms" in r:
+            row["conv_alone_ms"] = r["conv_alone_ms"]
+        out.append(row)
     log(json.dumps({"kernels": out}))
     log(card_line())  # name, power limit -- as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -600,7 +600,8 @@ def build_decoder(cfg: Dict, device: DeviceLike = None) -> VideoDecoder:
     """The cascade from the single-plane config (same keys as
     scripts/train_decoder.py's build_decoder, including the training knobs
     ``memory_efficient``, ``checkpoint_during_training`` and
-    ``remat_policy``), plus the kernel knobs ``unetN.groupnorm_impl`` and
+    ``remat_policy``), plus the kernel knobs ``unetN.groupnorm_impl``
+    (``pallas`` | ``fused``), ``unetN.spatial_conv_impl`` (``pallas_small``),
     ``unetN.cross_attention_impl`` and ``flash_attention_sampling``."""
 
     def unet_cfg(section):
@@ -612,6 +613,7 @@ def build_decoder(cfg: Dict, device: DeviceLike = None) -> VideoDecoder:
             attn_dim_head=section.get("attn_dim_head", 32),
             attention_impl=section.get("attention_impl", "xla"),
             groupnorm_impl=section.get("groupnorm_impl", "xla"),
+            spatial_conv_impl=section.get("spatial_conv_impl", "xla"),
             cross_attention_impl=section.get("cross_attention_impl", "xla"),
             memory_efficient=section.get("memory_efficient", False),
             checkpoint_during_training=section.get("checkpoint_during_training", False),

@@ -7,8 +7,9 @@ JAX layout costs no transpose.
 Module and parameter names follow the flax tree (``to_q``, ``null_kv``,
 ``project.Conv_0``, ``norm.LayerNorm_0`` ...), so ``weights.params_from_jax``
 maps the JAX parameters across by name. The ``impl`` knob strings are the
-JAX package's: ``"xla"`` is the plain PyTorch path; ``"pallas"`` (Block3D
-norm) and ``"flash"`` (attention) are the hand-written CUDA kernels;
+JAX package's: ``"xla"`` is the plain PyTorch path; ``"pallas"`` and
+``"fused"`` (Block3D norm), ``"pallas_small"`` (SpatialConv) and ``"flash"``
+(attention) are the hand-written CUDA kernels;
 ``"auto"`` picks flash on CUDA from 4096 joint tokens and the plain path
 below, as the JAX rule does.
 
@@ -16,9 +17,12 @@ Initialisers are the JAX package's: Dense and conv kernels U(+-1/sqrt(fan_in))
 (``torch_kernel_init``), zero biases, N(0, 1) learned null embeddings, the
 ICNR upsample, and (in ``unet3d.py``) the zero output conv.
 
-The kernel paths are differentiable: ``groupnorm_film_silu`` and
-``mqa_attention`` run their backward kernels under autograd. The
-cross-attention kernel is forward-only (training uses ``impl="xla"``).
+The kernel paths are differentiable: ``groupnorm_film_silu``,
+``mqa_attention`` and ``fused_block3d`` run their backward kernels under
+autograd, ``conv3x3_spatial_xbwd`` the plain conv's backward. The
+cross-attention kernel is forward-only (training uses ``impl="xla"``). The
+plain attention paths compute in the activation dtype, as the JAX package's
+do.
 """
 
 from __future__ import annotations
@@ -33,12 +37,15 @@ import torch.nn.functional as F
 from dalle2_video_tpu_torch.ops.cross_attention import (
     cross_attention,
     cross_attention_reference,
+    softmax_as_jax,
 )
 from dalle2_video_tpu_torch.ops.flash_mqa import mqa_attention
+from dalle2_video_tpu_torch.ops.fused_block import fused_block3d
 from dalle2_video_tpu_torch.ops.groupnorm_film import (
     groupnorm_film_reference,
     groupnorm_film_silu,
 )
+from dalle2_video_tpu_torch.ops.spatial_conv import conv3x3_spatial_xbwd
 from dalle2_video_tpu_torch.ops.video import resize_video
 
 FLASH_MIN_TOKENS = 4096  # "auto" threshold (JAX layers.py:538-544)
@@ -106,15 +113,49 @@ def _same_pads(k: int, stride: int) -> Tuple[int, int]:
     return (k - stride) // 2, (k - stride + 1) // 2  # torch-style floor pad
 
 
+# The opt-in conv paths' site rules, kept verbatim from the JAX package
+# (layers.py SpatialConv / Block3D). Their weight bounds come from the TPU's
+# VMEM (the packed (12C, 2Co) kernel matrix had to fit beside the A blocks)
+# and are kept for parity, so the same sites take the same path on the card;
+# revisiting them for Hopper is a performance change of its own.
+PALLAS_SMALL_MAX_BYTES = 13 * 1024 * 1024
+FUSED_MAX_BYTES = 8 * 1024 * 1024
+
+
+def _packed_matrix_bytes(c: int, co: int, dtype: torch.dtype) -> int:
+    return 12 * c * 2 * co * torch.empty((), dtype=dtype).element_size()
+
+
+def pallas_small_site(h: int, w: int, c: int, co: int, kernel_size: int,
+                      stride: int, dtype: torch.dtype) -> bool:
+    """SpatialConv(impl="pallas_small") takes the conv kernel here."""
+    return (kernel_size == 3 and stride == 1 and h * w <= 256 and w % 2 == 0
+            and c % 64 == 0 and co % 64 == 0
+            and _packed_matrix_bytes(c, co, dtype) <= PALLAS_SMALL_MAX_BYTES)
+
+
+def fused_site(w: int, c: int, co: int, groups: int, dtype: torch.dtype) -> bool:
+    """Block3D(norm_impl="fused") takes the fused block here."""
+    return (w % 2 == 0 and co % groups == 0 and c % 64 == 0 and co % 64 == 0
+            and _packed_matrix_bytes(c, co, dtype) <= FUSED_MAX_BYTES)
+
+
 class SpatialConv(nn.Module):
-    """Space-only (1, k, k) video conv as a 2D conv over the folded B*T."""
+    """Space-only (1, k, k) video conv as a 2D conv over the folded B*T.
+
+    impl "pallas_small" runs qualifying 3x3 sites (``pallas_small_site``)
+    through the conv kernel (ops/spatial_conv.py) with the plain conv's
+    backward, adding the bias after it in the promoted dtype, as the JAX
+    path does; every other site is the plain conv. Same parameters."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, bias: bool = True, impl: str = "xla",
                  zero_init: bool = False):
         super().__init__()
-        if impl != "xla":
+        if impl not in ("xla", "pallas_small"):
             raise NotImplementedError(f"SpatialConv impl {impl!r} is not ported yet")
+        self.impl = impl
+        self.kernel_size = kernel_size
         self.features = features
         self.stride = stride
         self.pads = _same_pads(kernel_size, stride)
@@ -130,6 +171,16 @@ class SpatialConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
         conv = self.Conv_0
+        if self.impl == "pallas_small":
+            # the JAX path promotes x, kernel and bias to one dtype
+            dt = torch.promote_types(x.dtype, conv.weight.dtype)
+            if conv.bias is not None:
+                dt = torch.promote_types(dt, conv.bias.dtype)
+            if pallas_small_site(h, w, c, self.features, self.kernel_size, self.stride, dt):
+                y = conv3x3_spatial_xbwd(x.reshape(b * t, h, w, c).to(dt), conv.weight.to(dt))
+                if conv.bias is not None:
+                    y = y + conv.bias.to(dt)
+                return y.reshape(b, t, h, w, self.features)
         y = x.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(conv.weight.dtype)
         lo, hi = self.pads
         if lo == hi:
@@ -144,19 +195,30 @@ class Block3D(nn.Module):
     """conv(1,3,3) -> GroupNorm -> FiLM scale/shift -> SiLU.
 
     norm_impl "pallas" runs the GroupNorm tail through the fused CUDA kernel
-    (ops/groupnorm_film.py); "xla" uses the same math in plain PyTorch."""
+    (ops/groupnorm_film.py); "xla" uses the same math in plain PyTorch;
+    "fused" runs the whole block -- conv, bias, statistics, normalise, FiLM,
+    SiLU -- through ops/fused_block.py at qualifying sites (``fused_site``)
+    and elsewhere falls back to ``SpatialConv(conv_impl)`` and the plain
+    GroupNorm, as the JAX block does. Same parameters on every path."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
                  norm_impl: str = "xla", conv_impl: str = "xla"):
         super().__init__()
-        if norm_impl not in ("xla", "pallas"):
+        if norm_impl not in ("xla", "pallas", "fused"):
             raise NotImplementedError(f"Block3D norm_impl {norm_impl!r} is not ported yet")
         self.groups = groups
         self.norm_impl = norm_impl
+        self.dim_out = dim_out
         self.project = SpatialConv(dim_in, dim_out, 3, impl=conv_impl)
         self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5)  # holds scale/bias
 
     def forward(self, x, scale_shift=None):
+        b, t, h, w, c = x.shape
+        if self.norm_impl == "fused" and fused_site(w, c, self.dim_out, self.groups, x.dtype):
+            conv = self.project.Conv_0
+            scale, shift = scale_shift if scale_shift is not None else (None, None)
+            return fused_block3d(x, conv.weight, conv.bias, self.norm.weight, self.norm.bias,
+                                 scale, shift, self.groups, 1e-5)
         x = self.project(x)
         b, t, h, w, c = x.shape
         scale, shift = scale_shift if scale_shift is not None else (None, None)
@@ -276,7 +338,9 @@ class Attention(nn.Module):
         if impl == "flash" and not self.causal and attn_bias is None:
             out = mqa_attention(q, k, v, sm_scale=scale)
         else:
-            sim = torch.einsum("bnhd,bmd->bhnm", q.float() * scale, k.float())
+            # in the activation dtype, as the JAX package (bf16 GEMMs
+            # accumulate in f32 and round their result)
+            sim = torch.einsum("bnhd,bmd->bhnm", q * scale, k)
             if attn_bias is not None:
                 # bias covers the real tokens; the null kv column gets zero
                 sim = sim + F.pad(attn_bias.float(), (1, 0))[None]
@@ -284,8 +348,8 @@ class Attention(nn.Module):
                 i = torch.arange(n, device=x.device)[:, None]
                 j = torch.arange(n + 1, device=x.device)[None, :]
                 sim = sim.masked_fill(~(j <= i + 1), torch.finfo(sim.dtype).min)
-            attn = torch.softmax(sim, dim=-1)
-            out = torch.einsum("bhnm,bmd->bnhd", attn, v.float()).to(q.dtype)
+            attn = softmax_as_jax(sim, dim=-1)
+            out = torch.einsum("bhnm,bmd->bnhd", attn, v.to(attn.dtype)).to(q.dtype)
         out = self.to_out(out.reshape(b, n, h * d))
         return self.out_norm(out)
 

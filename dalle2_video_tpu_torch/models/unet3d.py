@@ -17,8 +17,13 @@ conv starts at zero.
 Not ported yet (they raise): per-frame video embeds, text-encoding
 conditioning, ``sparse_attn`` (LinearAttention), ``temporal_attention``,
 nearest-upsample (``pixel_shuffle_upsample=False``), the ``temporal_conv``
-architecture, the opt-in Pallas conv paths and remat policies other than
-"nothing".
+architecture and remat policies other than "nothing".
+
+The opt-in conv paths are the JAX knobs: ``groupnorm_impl: fused`` (the
+fused Block3D kernels at qualifying sites, the plain conv and GroupNorm
+elsewhere) and ``spatial_conv_impl: pallas_small`` (the conv kernel at the
+small 3x3 Block3D sites); see ``layers.fused_site`` and
+``layers.pallas_small_site``.
 """
 
 from __future__ import annotations
@@ -100,8 +105,10 @@ class UNet3DConfig:
     joint_time_attention: bool = True
     # "xla" | "flash" | "auto" (flash on CUDA from 4096 joint tokens)
     attention_impl: str = "xla"
-    # "xla" | "pallas" (the fused GroupNorm-FiLM-SiLU CUDA kernel)
+    # "xla" | "pallas" (the fused GroupNorm-FiLM-SiLU CUDA kernel) |
+    # "fused" (conv + bias + GroupNorm + FiLM + SiLU kernels)
     groupnorm_impl: str = "xla"
+    # "xla" | "pallas_small" (the 3x3 conv kernel at small-spatial sites)
     spatial_conv_impl: str = "xla"
     # "xla" | "flash" (the tiny-context cross-attention CUDA kernel)
     cross_attention_impl: str = "xla"

@@ -183,12 +183,20 @@ def stream_ptr(device) -> int:
 
 
 def all_kernels() -> List["CudaKernel"]:
-    """Every kernel of the port: the serving path's forwards and the
-    training path's backwards (imports the op modules)."""
-    from dalle2_video_tpu_torch.ops import cross_attention, flash_mqa, groupnorm_film
+    """Every kernel of the port, one entry per TPU kernel it replaces: the
+    serving path's forwards, the training path's backwards and the opt-in
+    conv paths' kernels (imports the op modules)."""
+    from dalle2_video_tpu_torch.ops import (
+        cross_attention,
+        flash_mqa,
+        fused_block,
+        groupnorm_film,
+        spatial_conv,
+    )
 
     return [flash_mqa.KERNEL, flash_mqa.BWD_KERNEL, groupnorm_film.KERNEL,
-            groupnorm_film.BWD_KERNEL, cross_attention.KERNEL]
+            groupnorm_film.BWD_KERNEL, cross_attention.KERNEL, spatial_conv.KERNEL,
+            spatial_conv.WGRAD_KERNEL, fused_block.KERNEL, fused_block.GN_BWD_KERNEL]
 
 
 def build_all(kernels: Optional[Sequence[CudaKernel]] = None) -> Dict[str, float]:

@@ -4,7 +4,7 @@ dalle2_video_tpu/ops/pallas/cross_attention.py).
 softmax(q k^T * sm_scale) v per (batch, head) with the whole context (m <= 16
 keys) held on chip. For a CUDA tensor the wrapper launches the kernel in
 ``csrc/cross_attention.cu``; for a CPU tensor it uses
-``cross_attention_reference``, an einsum with softmax in float32.
+``cross_attention_reference``, einsums and a softmax in the input dtype.
 
 The kernel is forward-only by design, as in the JAX package (training keeps
 the plain path, ``cross_attention_impl: xla``). For a CUDA tensor that
@@ -38,11 +38,20 @@ MAX_M = 16  # kMaxM in csrc/cross_attention.cu
 SUPPORTED_D = (32, 64)
 
 
+def softmax_as_jax(s: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax`` in the input dtype: exp(s - max) rounded to it,
+    the sum accumulated in f32 and rounded (``jnp.sum`` upcasts bf16), the
+    quotient rounded."""
+    e = torch.exp(s - s.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True)
+
+
 def cross_attention_reference(q, k, v, sm_scale: float) -> torch.Tensor:
-    """Plain version: q (b, n, h, d), k/v (b, m, h, d); math in f32."""
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float() * sm_scale, k.float())
-    out = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, dim=-1), v.float())
-    return out.to(q.dtype)
+    """Plain version: q (b, n, h, d), k/v (b, m, h, d), in their dtype as the
+    JAX package's plain path computes it (bf16 products accumulate in f32
+    and round). The kernel checks on the card pass f32 copies and round."""
+    s = torch.einsum("bnhd,bmhd->bhnm", q * sm_scale, k)
+    return torch.einsum("bhnm,bmhd->bnhd", softmax_as_jax(s, dim=-1), v)
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -175,10 +175,13 @@ def _forward(x, gamma, beta, scale, shift, groups, eps):
     return y, mean, rstd
 
 
-def groupnorm_film_bwd(x, g, a_vec, b_vec, mean, rstd, groups: int
+def groupnorm_film_bwd(x, g, a_vec, b_vec, mean, rstd, groups: int,
+                       kernel: CudaKernel = BWD_KERNEL
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dx (x.dtype), dA, dB (B, C) f32 of the fused forward, given g =
-    dL/dy, A, B and the forward's per-channel mean / rstd (all (B, C) f32)."""
+    dL/dy, A, B and the forward's per-channel mean / rstd (all (B, C) f32).
+    ``kernel`` is the entry that counts the launch: the fused Block3D's
+    backward launches the same kernel under its own table row."""
     b, l, c = x.shape
     if g.shape != x.shape:
         raise ValueError(f"groupnorm_film_bwd: g {g.shape} vs x {x.shape}")
@@ -199,7 +202,7 @@ def groupnorm_film_bwd(x, g, a_vec, b_vec, mean, rstd, groups: int
     da = torch.empty((b, c), device=x.device, dtype=torch.float32)
     db = torch.empty_like(da)
     partial = torch.empty((b, n_chunks, 2, c), device=x.device, dtype=torch.float32)
-    BWD_KERNEL.launch(
+    kernel.launch(
         x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in vecs),
         dx.data_ptr(), da.data_ptr(), db.data_ptr(), partial.data_ptr(),
         b, l, c, groups, n_chunks, dx_blocks, dtype_code(x.dtype),

@@ -5,7 +5,9 @@
 
 Same config keys as scripts/serve.py (the built-in celebv_text settings
 when no YAML is given), plus ``device`` (default cuda) and the sampling
-knobs ``unetN.groupnorm_impl=pallas``, ``unetN.cross_attention_impl=flash``
+knobs ``unetN.groupnorm_impl=pallas`` (or ``fused``: the fused conv +
+GroupNorm block kernels), ``unetN.spatial_conv_impl=pallas_small`` (the 3x3
+conv kernel at small-spatial sites), ``unetN.cross_attention_impl=flash``
 and ``flash_attention_sampling=true``. Endpoints: POST /v1/generate,
 GET /healthz, GET /v1/stats.
 """

@@ -9,7 +9,12 @@ are trained on every batch, then a validation pass; a rolling checkpoint
 (newest K, best 1 by summed val loss, every ``ckpt_keep_period``-th step)
 is written each epoch and ``resume=true`` restarts from the newest one.
 SIGTERM saves a checkpoint and exits 143. ``max_steps`` (optional) stops
-after that many batches. Runs on CUDA unless ``device=cpu``.
+after that many batches. Runs on CUDA unless ``device=cpu``. The unets'
+kernel knobs train through their backward kernels:
+``unetN.attention_impl=auto`` (flash), ``unetN.groupnorm_impl=pallas`` or
+``fused`` (conv + GroupNorm block kernels), ``unetN.spatial_conv_impl=
+pallas_small`` (conv kernel forward, plain conv backward); training keeps
+``unetN.cross_attention_impl=xla`` (that kernel is forward-only).
 
 Not ported yet (they raise): the CelebV-Text dataset reader (the data files
 are not in the repository; ``smoke=true`` trains on synthetic videos), and

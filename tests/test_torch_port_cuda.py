@@ -25,9 +25,14 @@ import shutil
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from dalle2_video_tpu_torch.ops import cross_attention as xa
 from dalle2_video_tpu_torch.ops import flash_mqa as fm
+from dalle2_video_tpu_torch.ops import fused_block as fb
 from dalle2_video_tpu_torch.ops import groupnorm_film as gn
+from dalle2_video_tpu_torch.ops import spatial_conv as sc
+from dalle2_video_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
 
@@ -40,7 +45,7 @@ def dev():
 
     if CUDA_HOME is None and shutil.which("nvcc") is None:
         pytest.skip("needs nvcc to build the kernels")
-    return torch.device("cuda")
+    return resolve_device("cuda")  # and the port's f32 policy: no TF32
 
 
 def _assert_attention_close(out, ref, dtype, bf16_atol):
@@ -109,7 +114,9 @@ def test_cross_attention_kernel_matches_plain(dev, dtype, m):
     k = torch.randn(2, m, 8, 64, generator=g, device=dev).to(dtype)
     v = torch.randn(2, m, 8, 64, generator=g, device=dev).to(dtype)
     out = xa.cross_attention(q, k, v, sm_scale=0.125)
-    ref = xa.cross_attention_reference(q, k, v, 0.125)
+    # the plain version runs in its input dtype: f32 copies give the f32-math
+    # oracle, rounded once
+    ref = xa.cross_attention_reference(q.float(), k.float(), v.float(), 0.125).to(dtype)
     _assert_attention_close(out, ref, dtype, bf16_atol=1e-3)
 
 
@@ -218,3 +225,130 @@ def test_cross_attention_raises_under_grad_on_cuda(dev):
         xa.cross_attention(q, k, k, sm_scale=1.0)
     with torch.no_grad():
         assert xa.cross_attention(q, k, k, sm_scale=1.0).shape == q.shape
+
+
+# ------------------------------------------------------ conv-path kernels
+# f32: the same f32 products summed in another order (9 C terms per output,
+# up to ~2000 pixels per weight gradient): 2e-5 of the call's largest
+# value. bf16: both sides round one f32 result (rtol 1e-2 = one flip), atol
+# 1e-3 of the largest value for the f32 sums near zero. The weight gradient
+# is f32 from bf16 inputs: no rounding, so 1e-4 of its largest value.
+CONV_CASES = [(3, 16, 16, 64, 128), (2, 8, 8, 512, 512), (5, 7, 9, 32, 64),
+              (1, 4, 160, 64, 64)]  # Co != C, the deep 8x8, odd H/W, a wide row
+
+
+def _conv_inputs(dev, dtype, n, h, w, c, co, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, h, w, c, generator=g, device=dev).to(dtype)
+    wt = (torch.randn(co, c, 3, 3, generator=g, device=dev) / math.sqrt(9 * c)).to(dtype)
+    return g, x, wt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,co", CONV_CASES)
+def test_conv3x3_kernel_matches_plain(dev, dtype, n, h, w, c, co):
+    _, x, wt = _conv_inputs(dev, dtype, n, h, w, c, co, n * h + c)
+    before = sc.KERNEL.launches
+    out = sc.conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert sc.KERNEL.launches == before + 1 and out.dtype == dtype
+    _assert_grads_close([out], [sc.conv3x3_reference(x, wt)], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,co", [(3, 16, 16, 64, 128), (2, 8, 8, 512, 64),
+                                        (7, 9, 10, 64, 64)])
+def test_conv3x3_wgrad_kernel_matches_plain_bit_for_bit_twice(dev, dtype, n, h, w, c, co):
+    g, x, _ = _conv_inputs(dev, dtype, n, h, w, c, co, n + c)
+    dy = torch.randn(n, h, w, co, generator=g, device=dev).to(dtype)
+    before = sc.WGRAD_KERNEL.launches
+    got = sc.conv3x3_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert sc.WGRAD_KERNEL.launches == before + 1 and got.dtype == torch.float32
+    want = sc.conv3x3_wgrad_reference(x, dy)
+    torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
+    # split-K partials summed in a fixed order
+    assert torch.equal(got, sc.conv3x3_wgrad(x, dy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,t,h,w,c,co", [(2, 3, 7, 7, 64, 64), (2, 90, 8, 8, 256, 512),
+                                              (3, 2, 16, 16, 128, 64)])
+def test_conv_bias_stats_kernel_matches_plain(dev, dtype, batch, t, h, w, c, co):
+    """At 3 x 7 x 7 = 147 pixels per batch row a row ends inside the second
+    128-pixel (bf16) or third 64-pixel (f32) tile: tiles are per batch row,
+    so no partial sum straddles two rows. The sums are f32 over the row's
+    f32 values on both sides: 1e-5 of their largest value."""
+    g, x, wt = _conv_inputs(dev, dtype, batch * t, h, w, c, co, t + c)
+    bias = 0.5 * torch.randn(co, generator=g, device=dev)
+    before = fb.KERNEL.launches
+    y, s, ss = fb.conv_bias_stats(x, wt, bias, batch)
+    torch.cuda.synchronize()
+    assert fb.KERNEL.launches == before + 1
+    ry, rs, rss = fb.conv_bias_stats_reference(x, wt, bias, batch)
+    _assert_grads_close([y], [ry], dtype)
+    for got, want in ((s, rs), (ss, rss)):
+        torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+    again = fb.conv_bias_stats(x, wt, bias, batch)
+    assert all(torch.equal(a, b) for a, b in zip((y, s, ss), again))
+
+
+def _plain_block(x, w, bias, gamma, beta, scale, shift, groups):
+    """Conv + bias, GroupNorm, FiLM, SiLU in plain f32 PyTorch (autograd)."""
+    b, t, h, wd, c = x.shape
+    y = F.conv2d(x.reshape(b * t, h, wd, c).permute(0, 3, 1, 2), w, bias, padding=1)
+    y = y.permute(0, 2, 3, 1).reshape(b, t * h * wd, -1)
+    return gn.groupnorm_film_reference(y, gamma, beta, scale, shift, groups, 1e-5).reshape(
+        b, t, h, wd, -1)
+
+
+@pytest.mark.parametrize("film", [True, False])
+def test_fused_block3d_autograd_on_cuda_matches_plain_autograd(dev, film):
+    """Forward and all seven gradients of fused_block3d on the card (f32:
+    kernel 8 forward; GroupNorm backward, conv dx and weight-gradient
+    kernels backward) vs plain f32 autograd, each kernel launched once."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, t, h, wd, c, co = 2, 3, 8, 8, 64, 128
+    ins = [torch.randn(b, t, h, wd, c, generator=g, device=dev),
+           torch.randn(co, c, 3, 3, generator=g, device=dev) / 24,
+           0.3 * torch.randn(co, generator=g, device=dev),
+           1 + 0.1 * torch.randn(co, generator=g, device=dev),
+           0.1 * torch.randn(co, generator=g, device=dev),
+           0.1 * torch.randn(b, co, generator=g, device=dev),
+           0.1 * torch.randn(b, co, generator=g, device=dev)]
+    ins = [a.requires_grad_() for a in ins[:7 if film else 5]]
+    args = ins + [None] * (7 - len(ins))
+    gy = torch.randn(b, t, h, wd, co, generator=g, device=dev)
+    kernels = (fb.KERNEL, fb.GN_BWD_KERNEL, sc.KERNEL, sc.WGRAD_KERNEL, gn.BWD_KERNEL)
+    before = [k.launches for k in kernels]
+    out = fb.fused_block3d(*args, groups=8)
+    got = torch.autograd.grad(out, ins, gy)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 1, 1, 0]
+    ref = _plain_block(*args, 8)
+    want = torch.autograd.grad(ref, ins, gy)
+    torch.testing.assert_close(out.detach(), ref.detach(),
+                               atol=2e-5 * float(ref.detach().abs().max()), rtol=0)
+    _assert_grads_close(got, want, torch.float32)
+
+
+def test_conv3x3_xbwd_launches_forward_only(dev):
+    """pallas_small's conv: kernel forward, the plain conv's backward."""
+    _, x, wt = _conv_inputs(dev, torch.float32, 2, 8, 8, 64, 64, 1)
+    x, wt = x.requires_grad_(), wt.requires_grad_()
+    before = (sc.KERNEL.launches, sc.WGRAD_KERNEL.launches)
+    out = sc.conv3x3_spatial_xbwd(x, wt)
+    got = torch.autograd.grad(out, (x, wt), torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert (sc.KERNEL.launches, sc.WGRAD_KERNEL.launches) == (before[0] + 1, before[1])
+    want = torch.autograd.grad(F.conv2d(x.permute(0, 3, 1, 2), wt, padding=1).sum(), (x, wt))
+    _assert_grads_close(got, want, torch.float32)
+
+
+def test_conv_wrappers_raise_instead_of_falling_back(dev):
+    x = torch.zeros(1, 8, 8, 24, device=dev)
+    with pytest.raises(ValueError, match="C % 32"):
+        sc.conv3x3(x, torch.zeros(64, 24, 3, 3, device=dev))
+    with pytest.raises(ValueError, match="dtype"):  # fp16: not a kernel dtype
+        sc.conv3x3(torch.zeros(1, 8, 8, 64, device=dev, dtype=torch.float16),
+                   torch.zeros(64, 64, 3, 3, device=dev))

@@ -32,7 +32,9 @@ from dalle2_video_tpu.ops.pallas.groupnorm_film import (
 from dalle2_video_tpu_torch.ops import cross_attention as port_cross
 from dalle2_video_tpu_torch.ops._cuda import CSRC, all_kernels as _all_kernels
 from dalle2_video_tpu_torch.ops import flash_mqa as port_flash
+from dalle2_video_tpu_torch.ops import fused_block as port_fb
 from dalle2_video_tpu_torch.ops import groupnorm_film as port_gn
+from dalle2_video_tpu_torch.ops import spatial_conv as port_sc
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -280,7 +282,7 @@ def test_backward_kernel_records_and_cpu_grads_count_no_launch():
     port_gn.groupnorm_film_silu(x, torch.ones(8), torch.zeros(8)).sum().backward()
     assert q.grad is not None and x.grad is not None
     assert {k.name: k.launches for k in _all_kernels()} == before
-    assert len(_all_kernels()) == 5
+    assert len(_all_kernels()) == 9
 
 
 def _meta_calls():
@@ -290,6 +292,7 @@ def _meta_calls():
     q, kv, lse = m(1, 8, 16), m(1, 5, 16), m(1, 8)
     x, c = m(1, 10, 8), m(8)
     bc = m(1, 8)
+    cx, cw, cb = m(2, 4, 4, 64), m(64, 64, 3, 3), m(64)
     return {
         "cross_attention": ([q4], lambda: port_cross.cross_attention(q4, k4, k4, sm_scale=0.125)),
         "flash_mqa_fwd": ([q], lambda: port_flash.flash_mqa_fwd(q, kv, kv, sm_scale=0.25)),
@@ -298,11 +301,15 @@ def _meta_calls():
         "groupnorm_film_silu": ([x], lambda: port_gn.groupnorm_film_silu(
             x, c, c, groups=8, return_stats=True)),
         "groupnorm_film_bwd": ([x], lambda: port_gn.groupnorm_film_bwd(x, x, bc, bc, bc, bc, 8)),
+        "conv3x3": ([cx], lambda: port_sc.conv3x3(cx, cw)),
+        "conv3x3_wgrad": ([cx], lambda: port_sc.conv3x3_wgrad(cx, cx)),
+        "conv_bias_stats": ([cx], lambda: port_fb.conv_bias_stats(cx, cw, cb, 1)),
     }
 
 
 @pytest.mark.parametrize("name", ["cross_attention", "flash_mqa_fwd", "flash_mqa_bwd",
-                                  "groupnorm_film_silu", "groupnorm_film_bwd"])
+                                  "groupnorm_film_silu", "groupnorm_film_bwd", "conv3x3",
+                                  "conv3x3_wgrad", "conv_bias_stats"])
 def test_kernel_wrappers_refuse_grad_off_the_cpu(name):
     """A raw kernel call off the CPU whose input needs a gradient raises
     (meta tensors stand in for CUDA ones here) instead of returning a
