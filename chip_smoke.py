@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
      parallel nvcc build of every kernel under dalle2_video_tpu_torch/csrc/;
   2. kernels: each hand-written kernel against its plain PyTorch version on
      the card, in bf16, at the shapes the serving path gives it, with
-     kernel / plain / library times and the card's lower bound;
+     kernel / plain / library times and the card's lower bound; the flash
+     forward and backward also at the cascade's and the probes' shapes
+     (FLASH_FWD_CASES, FLASH_BWD_CASES);
      The backward kernels are checked the same way at the training shapes
      (bf16, and one f32 case each), and so are the opt-in conv paths'
      kernels (the 3x3 conv and its dx, its weight gradient, the conv + bias
@@ -37,9 +39,29 @@ Phases (any failure exits non-zero and prints no result line):
      paths): its steps of each unet, one eval_loss each; finite losses,
      every parameter moved, EMA step counts, and every step's launch counts
      as the unet structure predicts. Prints ms per step, samples/s and peak
-     memory.
-Then it prints the {"kernels": [...]} line, the card line, and as the last
-line {"ok": true, "device": {...}}.
+     memory;
+  6. probes: the flash probes' variants (rows 10 and 11: the r2 forward and
+     the inner-kv forward, inner 2 / 4 x chain / par) against their plain
+     versions at the probes' geometry (bf16, q (2, 368640, 32), kv
+     (2, 23041, 32)) and at probe 9's check_small (f32, against exact
+     softmax); then the probes' own rows
+     (dalle2_video_tpu_torch/probes/perf_r3_probe{8,9}.py: r2, the fused
+     forward, with lse, the full VJP, inner 2 / 4 x chain / par, SDPA) with
+     exact launch counts;
+  7. cascade: configs/cascade_sr.yaml with the JAX package's recipe
+     (engine/decoder.py::cascade_sr_overrides), full width: "serve_cascade"
+     (1 request, DDIM cut to CASCADE_STEPS per stage, cond_scale 3.0: a
+     finite (64, 128, 128, 3) video in [0, 1], row 1 at both sampling unets
+     and nothing else) and "train_cascade" (batch 4, bf16 compute, the SR
+     unet's remat_policy conv: 3 steps of each unet and one eval_loss, row 1
+     and row 2 once per SR-unet step). The module checks also hold the
+     temporal-SR layers (TemporalAttention, LinearAttention,
+     NearestUpsample3D, the temporal_conv unet) on the card to the same
+     modules on the CPU, and the remat policies' gradients (bit for bit on
+     the conv kernel's route, REMAT_CASES) and recompute launches on the
+     conv paths' kernels.
+Then it prints the phase times, the {"kernels": [...]} line, the card line,
+and as the last line {"ok": true, "device": {...}}.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations /
 peak: 989 TFLOP/s for the products (H100 SXM, dense bf16), and for the
@@ -59,12 +81,19 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
+try:
+    from dalle2_video_tpu_torch.engine.decoder import cascade_sr_overrides
+    from dalle2_video_tpu_torch.probes import card_line, time_ms
+except ImportError as exc:
+    print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
+    sys.exit(2)
+
 REQUESTS = 3  # served as a group of 2 and a group of 1
 STEPS = 50  # DDIM steps per stage, sized to the 1200 s limit
+CASCADE_STEPS = 10  # DDIM steps per stage of serve_cascade (the recipe: 64)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 EXP_PER_S = 132 * 16 * 1.98e9
@@ -72,36 +101,6 @@ EXP_PER_S = 132 * 16 * 1.98e9
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Device time per call: CUDA events around ``iters`` back-to-back calls.
-    A ~50 ms spin kernel is queued first so the host has enqueued every call
-    before the device reaches them; the events then time the device, not
-    the wrappers' host cost."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def library_time(name: str, fn):
@@ -144,6 +143,34 @@ def rel(name, label, parts, outs, refs, rtol, atol_frac):
 
 
 # --------------------------------------------------------------- phase 2
+# The flash forward (row 1) at the other shapes the main paths and the
+# probes give it, checked untimed: serve_cascade's two sampling bottlenecks
+# (CFG batch 2; unet 1 at 16x8x8 tokens, unet 2 at 64x8x8), train_cascade's
+# SR-unet forward (batch 4, with the lse), and the probes' geometry (23,040
+# tokens; with and without the lse). (label, batch, tokens, save_lse)
+FLASH_FWD_CASES = [("serve_cascade unet 1", 2, 16 * 8 * 8, False),
+                   ("serve_cascade unet 2", 2, 64 * 8 * 8, False),
+                   ("train_cascade unet 2", 4, 64 * 8 * 8, True),
+                   ("probe geometry", 2, 23040, False),
+                   ("probe geometry", 2, 23040, True)]
+# The flash backward (row 2): (dtype, label, (batch, query rows, keys)); the
+# second case is timed for the kernel row
+FLASH_BWD_CASES = [("float32", "f32 check", (2, 333, 65)),
+                   ("bfloat16", "train celebv", (2, 90 * 8 * 8 * 16, 90 * 8 * 8 + 1)),
+                   ("bfloat16", "train_cascade unet 2", (4, 64 * 8 * 8 * 16, 64 * 8 * 8 + 1)),
+                   ("bfloat16", "probe 8 VJP", (2, 23040 * 16, 23041))]
+
+
+def flash_fwd_by_rows(torch, fm, q, k, v, sc, save_lse, rows=8192):
+    """The plain forward on slices of q's rows (each query row attends on
+    its own), so that the probe geometry's scores fit on the card."""
+    parts = [fm.flash_mqa_reference(q[:, r:r + rows], k, v, sc, save_lse)
+             for r in range(0, q.shape[1], rows)]
+    if save_lse:
+        return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(2))
+    return torch.cat(parts, dim=1)
+
+
 def check_kernels(dev, torch):
     """Each kernel vs its plain version at serving shapes (bf16)."""
     import torch.nn.functional as F
@@ -182,6 +209,20 @@ def check_kernels(dev, torch):
             qh, kh, vh, scale=sc)),
         bound_ms=bnd, bound_by=by)
     del q, k, v, out, ref, qh, kh, vh
+    for label, b, n, save_lse in FLASH_FWD_CASES:
+        q = torch.randn(b, n * h, d, generator=g, device=dev).to(bf)
+        k = torch.randn(b, n + 1, d, generator=g, device=dev).to(bf)
+        v = torch.randn(b, n + 1, d, generator=g, device=dev).to(bf)
+        got = fm.flash_mqa_fwd(q, k, v, sm_scale=sc, save_lse=save_lse)
+        want = flash_fwd_by_rows(torch, fm, q, k, v, sc, save_lse)
+        shape = f"{label} b={b} n_q={n * h} n_kv={n + 1} d={d}"
+        if save_lse:
+            check("flash_mqa_fwd", f"{shape} out", got[0], want[0], atol=5e-4, rtol=1e-2)
+            # f32 on both sides: the same max and sum in another order
+            check("flash_mqa_fwd", f"{shape} lse", got[1], want[1], atol=1e-4, rtol=0.0)
+        else:
+            check("flash_mqa_fwd", shape, got, want, atol=5e-4, rtol=1e-2)
+        del q, k, v, got, want
 
     # GroupNorm-FiLM-SiLU: largest L of each unet, C = 8 and the widest C
     gn_cases = [("unet2 stage 0", 2, 90 * 128 * 128, 8),
@@ -255,9 +296,10 @@ def check_backward_kernels(dev, torch, rows):
     g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
 
-    # flash backward: the joint bottleneck of either unet at 90 frames, batch 2
-    for dtype, (b, n_q, n_kv) in ((torch.float32, (2, 333, 65)),
-                                  (bf, (2, 90 * 8 * 8 * 16, 90 * 8 * 8 + 1))):
+    # flash backward: the joint bottleneck of either unet at 90 frames, batch
+    # 2 (timed), then the cascade's SR unet and the probes' VJP
+    for i, (dtype, label, (b, n_q, n_kv)) in enumerate(FLASH_BWD_CASES):
+        dtype = getattr(torch, dtype)
         d = 32
         q = torch.randn(b, n_q, d, generator=g, device=dev).to(dtype)
         k = torch.randn(b, n_kv, d, generator=g, device=dev).to(dtype)
@@ -271,10 +313,10 @@ def check_backward_kernels(dev, torch, rows):
         # terms): 1e-5 of the largest value. bf16: both sides round the f32
         # result once (rtol 1e-2 admits one flip, 2^-7 of the value); atol
         # 1e-3 of the largest value covers the f32 sums near zero.
-        e, tol = rel("flash_mqa_bwd", f"{dtype} b={b} n_q={n_q} n_kv={n_kv} d={d}",
+        e, tol = rel("flash_mqa_bwd", f"{label} {dtype} b={b} n_q={n_q} n_kv={n_kv} d={d}",
                      ("dq", "dk", "dv"), got, want, rtol=0.0 if dtype == torch.float32 else 1e-2,
                      atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
-        if dtype == bf:
+        if i == 1:
             # five (n_q x n_kv x d) products; P formed once
             bnd, by = bound(2 * (4 * q.numel() + 4 * k.numel()) + 8 * b * n_q,
                             flops=5 * 2.0 * b * n_q * n_kv * d, exps=float(b * n_q * n_kv))
@@ -490,6 +532,58 @@ def check_conv_kernels(dev, torch, rows):
     return rows
 
 
+def check_probe_kernels(dev, torch, rows):
+    """Rows 10 and 11 (the r2 and inner-kv flash forwards) vs their plain
+    versions at the probes' geometry, bf16: the plain version runs with the
+    kernel's tile (flash_variants.KERNEL_BLOCK_K), so both pad and take
+    running maxima alike; the tolerance is the flash forward's (one bf16
+    rounding flip, plus 5e-4 for the bf16 probabilities of the second
+    product). Then probe 9's check_small on the kernels (f32, against exact
+    softmax, < 1e-4). The bound is the flash forward's: the exponentials
+    of b x n_q x n_kv real logits (padded columns are the kernels' extra
+    work, not the function's)."""
+    from dalle2_video_tpu_torch.ops import flash_variants as fv
+    from dalle2_video_tpu_torch.probes import SCALE, inputs, sdpa_row
+    from dalle2_video_tpu_torch.probes.perf_r3_probe9 import check_small
+
+    q, k, v = inputs(dev)
+    b, n_q, d = q.shape
+    n_kv = k.shape[1]
+    bk = fv.KERNEL_BLOCK_K[q.dtype]
+    qs = (q.float() * SCALE).to(q.dtype)
+    bnd, by = bound(2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * b * n_q * n_kv * d,
+                    exps=float(b * n_q * n_kv))
+    shape = f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16"
+    library = library_time("flash variants (SDPA)", sdpa_row(q, k, v))
+    e, tol = check("flash_r2_fwd", shape, fv.r2_fwd(qs, k, v, block_k=bk),
+                   fv.r2_fwd_reference(qs, k, v, block_k=bk), atol=5e-4, rtol=1e-2)
+    rows["flash_r2_fwd"] = dict(
+        max_abs_err=e, tolerance=tol, shape=shape,
+        ms=time_ms(lambda: fv.r2_fwd(qs, k, v, block_k=bk)),
+        plain_ms=time_ms(lambda: fv.r2_fwd_reference(qs, k, v, block_k=bk), iters=2),
+        library_ms=library, bound_ms=bnd, bound_by=by)
+    variants = {}
+    for inner, merge in ((2, "chain"), (4, "chain"), (2, "par"), (4, "par")):
+        run = lambda: fv.inner_fwd(q, k, v, sm_scale=SCALE, block_k=bk, inner=inner, merge=merge)
+        e, tol = check("flash_inner_fwd", f"inner={inner} merge={merge} {shape}", run(),
+                       fv.inner_fwd_reference(q, k, v, sm_scale=SCALE, block_k=bk, inner=inner,
+                                              merge=merge), atol=5e-4, rtol=1e-2)
+        variants[f"inner{inner}_{merge}"] = dict(ms=time_ms(run), max_abs_err=e)
+        log(f"  inner={inner} merge={merge}: ms={variants[f'inner{inner}_{merge}']['ms']:.3f}")
+    first = variants["inner2_chain"]
+    rows["flash_inner_fwd"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in variants.values()), tolerance=tol,
+        shape=shape + ", inner2_chain timed (every variant in variants)", ms=first["ms"],
+        plain_ms=time_ms(lambda: fv.inner_fwd_reference(q, k, v, sm_scale=SCALE, block_k=bk),
+                         iters=2),
+        library_ms=library, bound_ms=bnd, bound_by=by, variants=variants)
+    errs = check_small(dev)
+    log(f"check_small (f32, kernels vs exact softmax): {errs}")
+    del q, k, v, qs
+    torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------------- phase 3
 def _small_unet(UNet3D, UNet3DConfig, kw, dev):
     """The module checks' UNet3D. Its output conv starts at zero (the JAX
@@ -636,6 +730,141 @@ def check_module_grads(dev, torch, case):
             raise AssertionError("UNet3D gradients with kernels disagree with the plain impls")
 
 
+def check_temporal_sr_layers(dev, torch):
+    """The temporal-SR layers and the temporal_conv unet on the card (f32,
+    the port's TF32-off policy) against the same modules on the CPU in f64:
+    f32 math summed in another order, 2e-5 of the output scale (the CPU's
+    own f32 error is logged beside it)."""
+    import copy
+
+    from dalle2_video_tpu_torch.engine.decoder import build_unet
+    from dalle2_video_tpu_torch.models import layers
+    from dalle2_video_tpu_torch.models.layers import kernel_init_
+    from dalle2_video_tpu_torch.models.unet3d import UNet3DConfig
+
+    torch.manual_seed(0)
+    unet_cfg = UNet3DConfig(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, attn_heads=2,
+                            attn_dim_head=16, video_embed_dim=16, cond_on_video_embeds=True,
+                            arch="temporal_conv", temporal_attention=True, sparse_attn=True,
+                            pixel_shuffle_upsample=False)
+    unet = build_unet(unet_cfg)
+    # the zero-init output conv and temporal conv, redrawn so both count
+    kernel_init_(unet.unet2d.to_out.Conv_0.weight, unet.unet2d.to_out.Conv_0.weight[0].numel())
+    for p_ in unet.temporal_conv.parameters():
+        torch.nn.init.normal_(p_, std=0.1)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 8, 16, 16, 32, generator=g)
+    vid, ve = torch.randn(2, 8, 32, 32, 3, generator=g), torch.randn(2, 16, generator=g)
+    t = torch.tensor([10, 700])
+    cases = {
+        "TemporalAttention": (layers.TemporalAttention(32, heads=2, dim_head=16), (x,), {}),
+        "LinearAttention": (layers.LinearAttention(32, heads=2, dim_head=16), (x,), {}),
+        "NearestUpsample3D": (layers.NearestUpsample3D(32, 16), (x,), {}),
+        "UnetTemporalConv": (unet, (vid, t), dict(video_embed=ve)),
+    }
+    f64 = lambda a: a.double() if a.is_floating_point() else a
+    for name, (mod, args, kw) in cases.items():
+        with torch.no_grad():
+            mod.eval()
+            want = copy.deepcopy(mod).double()(*map(f64, args),
+                                               **{k: f64(v) for k, v in kw.items()})
+            cpu_e = float((mod(*args, **kw).double() - want).abs().max())
+            mod.to(dev)
+            got = mod(*(a.to(dev) for a in args), **{k: v.to(dev) for k, v in kw.items()}).cpu()
+        e = float((got.double() - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        log(f"{name} card (f32) vs CPU (f64): max_abs_err={e:.3e} (tol 2e-5 x scale "
+            f"{scale:.2f}); the CPU in f32: {cpu_e:.3e}")
+        if not (torch.isfinite(got).all() and e <= 2e-5 * scale):
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+
+
+# The remat checks' two routes through the conv paths' small UNet3D: the
+# conv kernel (pallas_small, bf16) with the plain GroupNorm, where nothing
+# in the forward or backward is nondeterministic, so every policy must give
+# the unremat gradients bit for bit; and the fused blocks (f32), whose
+# GroupNorm backward (csrc/groupnorm_film_bwd.cu) sums each group's dA / dB
+# with float atomics in the order the blocks finish, so two runs differ in
+# the last bits: 1e-5 relative L2 there, about 10x what that order costs in
+# f32. (name, knobs, compute dtype, tolerance)
+REMAT_CASES = [("conv kernel", dict(spatial_conv_impl="pallas_small"), "bfloat16", 0.0),
+               ("fused blocks", dict(groupnorm_impl="fused"), "float32", 1e-5)]
+
+
+def check_remat_policies(dev, torch):
+    """The conv paths' small UNet3D trained one backward under each remat
+    policy (cuDNN held to deterministic algorithms), on each route of
+    REMAT_CASES: the gradients of the same unet without remat -- the
+    policies change what is saved, not the arithmetic -- and what each
+    policy replays: under "nothing" every forward kernel of a checkpointed
+    block launches again in the backward, under "conv" the conv kernel
+    (its output is saved) does not."""
+    from dalle2_video_tpu_torch.models.unet3d import UNet3D, UNet3DConfig
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x, target = (torch.randn(2, 4, 32, 32, 3, generator=g, device=dev) for _ in range(2))
+    ve = torch.randn(2, 32, generator=g, device=dev)
+    t = torch.tensor([10, 700], device=dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for case, knobs, dtype, tol in REMAT_CASES:
+            dtype = getattr(torch, dtype)
+            kw = dict(MODULE_CASES["conv paths"]["kw"], **knobs)
+            torch.manual_seed(0)
+            base = _small_unet(UNet3D, UNet3DConfig, kw, dev)
+            results = {}
+            for policy in (None, "again", "nothing", "conv", "dots", "conv_attn"):
+                cfg = (dict(kw) if policy in (None, "again")
+                       else dict(kw, checkpoint_during_training=True, remat_policy=policy))
+                unet = UNet3D(UNet3DConfig(**cfg)).to(dev)
+                unet.load_state_dict(base.state_dict())
+                cast = {k: p.to(dtype) for k, p in unet.named_parameters()}
+
+                def step():
+                    out = torch.func.functional_call(unet, cast, (x.to(dtype), t), dict(
+                        video_embed=ve.to(dtype), enable_checkpoint=True))
+                    ((out.float() - target) ** 2).mean().backward()
+
+                used = _counted(torch, step, (), f"remat {case} {policy}")[1]
+                results[policy] = ({k: p.grad for k, p in unet.named_parameters()}, used)
+            check_remat_case(case, tol, results)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def check_remat_case(case, tol, results):
+    ref, ref_used = results[None]
+
+    def worst(grads):
+        return max(float((grads[k] - ref[k]).norm() / ref[k].norm().clamp_min(1e-30))
+                   for k in ref)
+
+    for policy, (grads, used) in results.items():
+        same = all(grads[k].equal(ref[k]) for k in ref)
+        log(f"remat {case} {policy}: gradients vs no remat: bit for bit {same}, worst relative "
+            f"L2 {worst(grads):.2e} (tol {tol:g}); launches {used}")
+        if not (same if tol == 0 else worst(grads) <= tol):
+            raise AssertionError(f"remat {case} {policy}: gradients differ from the unremat ones")
+    if case == "fused blocks":
+        # the fused blocks' forward kernel runs again under "nothing"
+        fused = ref_used.get("conv3x3_bias_stats", 0)
+        if not 0 < fused < results["nothing"][1].get("conv3x3_bias_stats", 0):
+            raise AssertionError("remat nothing: the fused blocks' forward kernel was not replayed")
+        return
+    # the conv kernel: "nothing" replays every pallas_small forward, "conv"
+    # none (its backward is cuDNN's, so every launch here is a forward)
+    small = ref_used.get("conv3x3", 0)
+    log(f"  conv3x3 forwards: no remat {small}, nothing {results['nothing'][1].get('conv3x3', 0)}, "
+        f"conv {results['conv'][1].get('conv3x3', 0)}")
+    if small <= 0:
+        raise AssertionError(f"remat {case}: no conv kernel site launched")
+    if results["conv"][1].get("conv3x3", 0) != small:
+        raise AssertionError("remat conv: the conv kernel's forward ran again in the backward")
+    if results["nothing"][1].get("conv3x3", 0) != 2 * small:
+        raise AssertionError("remat nothing: the conv kernel's forward was not replayed")
+
+
 # --------------------------------------------------------------- phase 4
 # The main paths: the full-width celebv_text cascade at the 90-frame recipe,
 # bf16 unets, CFG batch 2, driven through the serving engine. "serve" is
@@ -648,16 +877,40 @@ def check_module_grads(dev, torch, case):
 # block (17 / 22); on the conv paths the fused block at 44 / 19 sites and
 # the conv kernel at 7 / 0 (every other site is the plain conv and the
 # plain GroupNorm: tests/test_torch_port_convpaths.py counts them).
+# "serve_cascade" is configs/cascade_sr.yaml with the JAX package's recipe
+# (16 x 64^2 -> 64 x 128^2): both sampling unets run flash at their joint
+# bottleneck (flash_attention_sampling), 16 x 8 x 8 = 1024 tokens (unet 1)
+# and 64 x 8 x 8 = 4096 (unet 2, memory-efficient); groupnorm and
+# cross-attention are the plain impls, so no other kernel launches.
+def both_unets(*knobs):
+    return [f"unet{u}.{k}" for u in (1, 2) for k in knobs]
+
+
+# the celebv_text settings at the 90-frame recipe, bf16 sampling
+SERVE_90 = ["frame_numbers=[90,90]", "sample_compute_dtype=bfloat16"]
 SERVE_PATHS = {
     "serve": dict(
-        knobs=["groupnorm_impl=pallas"], requests=REQUESTS, steps=STEPS,
+        overrides=[*SERVE_90, *both_unets("groupnorm_impl=pallas", "cross_attention_impl=flash")],
+        requests=REQUESTS, steps=STEPS,
         per_step={"flash_mqa_fwd": 2, "groupnorm_film_silu_fwd": 54 + 66,
                   "cross_attention_fwd": 17 + 22}),
     "serve_conv": dict(
-        knobs=["groupnorm_impl=fused", "spatial_conv_impl=pallas_small"], requests=2, steps=20,
+        overrides=[*SERVE_90, *both_unets("groupnorm_impl=fused", "spatial_conv_impl=pallas_small",
+                                          "cross_attention_impl=flash")],
+        requests=2, steps=20,
         per_step={"flash_mqa_fwd": 2, "conv3x3_bias_stats": 44 + 19, "conv3x3": 7 + 0,
                   "cross_attention_fwd": 17 + 22}),
+    "serve_cascade": dict(config="configs/cascade_sr.yaml", overrides=cascade_sr_overrides(),
+                          requests=1, steps=CASCADE_STEPS, per_step={"flash_mqa_fwd": 2}),
 }
+
+
+def path_config(spec):
+    """A path's config (its config file, else the celebv_text settings)
+    under the path's overrides, and the overrides."""
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    return load_config(spec.get("config"), spec["overrides"]), spec["overrides"]
 
 
 def serve(dev, torch, path: str, profile: bool = False):
@@ -669,16 +922,12 @@ def serve(dev, torch, path: str, profile: bool = False):
     from dalle2_video_tpu_torch.ops._cuda import all_kernels
     from dalle2_video_tpu_torch.serve.engine import GenerationEngine, GenRequest
     from dalle2_video_tpu_torch.serve.stack import build_generate_batch
-    from dalle2_video_tpu_torch.utils.config import load_config
 
     spec = SERVE_PATHS[path]
     requests, steps = spec["requests"], spec["steps"]
-    knobs = [f"unet{u}.{k}" for u in (1, 2) for k in spec["knobs"]]
-    cfg = load_config(None, [
-        "frame_numbers=[90,90]", *knobs,
-        "unet1.cross_attention_impl=flash", "unet2.cross_attention_impl=flash",
-        "sample_compute_dtype=bfloat16", "sample_seed=0",
-    ])
+    cfg, knobs = path_config(spec)
+    cfg["sample_seed"] = 0
+    frames, size = cfg["frame_numbers"][-1], cfg["frame_sizes"][-1]
     t0 = time.time()
     generate_batch = build_generate_batch(cfg, logging.getLogger("chip_smoke"), dev)
     log(f"{path}: stack built in {time.time() - t0:.1f} s "
@@ -707,23 +956,25 @@ def serve(dev, torch, path: str, profile: bool = False):
 
     for i, res in enumerate(results):
         vid = res["video"]
-        if vid.shape != (90, 128, 128, 3):
+        if vid.shape != (frames, size, size, 3):
             raise AssertionError(f"{path} request {i}: shape {vid.shape}")
         if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
             raise AssertionError(f"{path} request {i}: values not finite in [0, 1]")
         log(f"{path} request {i}: batch {res['batch_size']} (bucket {res['bucket']}) "
-            f"group time {res['device_ms'] / 1e3:.2f} s -> {90 / (res['device_ms'] / 1e3):.2f} "
-            f"frames/s; mean {float(vid.mean()):.3f} std {float(vid.std()):.3f}")
+            f"group time {res['device_ms'] / 1e3:.2f} s -> "
+            f"{frames / (res['device_ms'] / 1e3):.2f} frames/s; shape {vid.shape} "
+            f"mean {float(vid.mean()):.3f} std {float(vid.std()):.3f}")
     groups = stats["batches"]
     want = {k.name: groups * steps * spec["per_step"].get(k.name, 0) for k in kernels}
     log(f"{path}: {requests} requests in {groups} groups, {steps} DDIM steps per stage, "
-        f"wall {wall:.2f} s, {90 * requests / wall:.2f} frames/s overall, peak memory "
+        f"wall {wall:.2f} s, {frames * requests / wall:.2f} frames/s overall, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"{path}: launches {launches} expected {want}")
     if launches != want:
         raise AssertionError(f"{path}: kernel launch counts differ from the unet structure's")
-    diff = float(np.mean(results[0]["video"] != results[1]["video"]))
-    log(f"{path}: share of values that differ between requests 0 and 1: {diff:.3f}")
+    if requests > 1:
+        diff = float(np.mean(results[0]["video"] != results[1]["video"]))
+        log(f"{path}: share of values that differ between requests 0 and 1: {diff:.3f}")
     if profile:
         profile_request(cfg, dev, torch, steps=10, label=path)
     return launches
@@ -733,12 +984,22 @@ def serve(dev, torch, path: str, profile: bool = False):
 TRAIN_BATCH = 2
 # The training paths at the same widths and recipe (attention_impl auto ->
 # flash at the 5760-token bottlenecks, cross_attention_impl xla, bf16
-# compute over f32 masters, batch 2). Each has its knobs, its steps per
+# compute over f32 masters, batch 2). Each has its overrides, its steps per
 # unet, and whether it makes the checkpoint round trip.
+TRAIN_90 = ["frame_numbers=[90,90]", "decoder.bf16_compute=true",
+            f"decoder.batch_size={TRAIN_BATCH}", *both_unets("cross_attention_impl=xla")]
 TRAIN_PATHS = {
-    "train": dict(knobs=["groupnorm_impl=pallas"], steps=4, checkpoint=True),
-    "train_conv": dict(knobs=["groupnorm_impl=fused", "spatial_conv_impl=pallas_small"],
+    "train": dict(overrides=[*TRAIN_90, *both_unets("groupnorm_impl=pallas")], steps=4,
+                  checkpoint=True),
+    "train_conv": dict(overrides=[*TRAIN_90, *both_unets("groupnorm_impl=fused",
+                                                         "spatial_conv_impl=pallas_small")],
                        steps=3, checkpoint=False),
+    # configs/cascade_sr.yaml with the recipe: batch 4, bf16 compute, the SR
+    # unet memory-efficient with remat_policy conv (the file's)
+    "train_cascade": dict(config="configs/cascade_sr.yaml",
+                          overrides=[*cascade_sr_overrides(), "decoder.batch_size=4",
+                                     "decoder.bf16_compute=true"],
+                          steps=3, checkpoint=False),
 }
 CONV_SITES = {1: (44, 7), 2: (19, 0)}  # (fused blocks, pallas_small convs) per forward
 
@@ -752,6 +1013,11 @@ def train_expected(path, u, backward, recompute):
     site, whose backward is the plain conv's. A checkpointed block runs its
     forward again in the backward."""
     rf = 2 if recompute else 1
+    if path == "train_cascade":
+        # flash at the SR unet's 4096-token bottleneck (mid_attn: outside the
+        # checkpointed blocks, so never replayed); unet 1's 1024 tokens take
+        # the plain attention
+        return {"flash_mqa_fwd": int(u == 2), "flash_mqa_bwd": int(u == 2 and backward)}
     want = {"flash_mqa_fwd": 1, "flash_mqa_bwd": int(backward)}
     if path == "train":
         blocks = {1: 27, 2: 33}[u]
@@ -787,12 +1053,13 @@ def _same_state(a, b, path="state"):
 
 
 def train(dev, torch, path: str, profile: bool = False):
-    """A decoder training path at the full celebv_text widths on 90-frame
-    synthetic videos (numpy, seeded): its steps of TRAIN_BATCH, each
-    training unet 1 then unet 2 (as train_decoder does), one eval_loss per
-    unet, and (if the path says so) one checkpoint save -> load round trip.
-    Every kernel's launches are counted per step and must equal what the
-    unet structure predicts."""
+    """A decoder training path at full width on synthetic videos at the
+    last stage's frames and size (numpy, seeded): its steps of its batch
+    (decoder.batch_size), each training unet 1
+    then unet 2 (as train_decoder does), one eval_loss per unet, and (if
+    the path says so) one checkpoint save -> load round trip. Every
+    kernel's launches are counted per step and must equal what the unet
+    structure predicts."""
     import tempfile
     from pathlib import Path
 
@@ -802,17 +1069,11 @@ def train(dev, torch, path: str, profile: bool = False):
     from dalle2_video_tpu_torch.ops._cuda import all_kernels
     from dalle2_video_tpu_torch.train import load_checkpoint, save_checkpoint
     from dalle2_video_tpu_torch.train.__main__ import SyntheticVideos, build_trainer
-    from dalle2_video_tpu_torch.utils.config import load_config
 
     spec = TRAIN_PATHS[path]
     n_steps = spec["steps"]
-    knobs = [f"unet{u}.{k}" for u in (1, 2) for k in spec["knobs"]]
-    cfg = load_config(None, [
-        "frame_numbers=[90,90]", *knobs,
-        "unet1.cross_attention_impl=xla", "unet2.cross_attention_impl=xla",
-        "decoder.bf16_compute=true", f"decoder.batch_size={TRAIN_BATCH}",
-    ])
-    b = TRAIN_BATCH
+    cfg, knobs = path_config(spec)
+    b = cfg["decoder"]["batch_size"]
     t0 = time.time()
     data = SyntheticVideos(b * (n_steps + 1), cfg["frame_numbers"][-1],
                            cfg["frame_sizes"][-1], cfg["dim"], cfg["channels"], seed=0)
@@ -911,6 +1172,36 @@ def train(dev, torch, path: str, profile: bool = False):
     return totals
 
 
+# --------------------------------------------------------------- phase 6
+def probes(dev, torch):
+    """The flash probes' rows (dalle2_video_tpu_torch/probes), counts set to
+    0 before them and read after: each timed call runs 2 warm-up calls and
+    ITERS (the VJP 5) timed ones."""
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.probes import ITERS, perf_r3_probe8, perf_r3_probe9
+
+    calls = ITERS + 2
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    card = card_line()
+    records = perf_r3_probe8.rows(dev, card) + perf_r3_probe9.rows(dev, card)
+    launches = {k.name: k.launches for k in kernels}
+    failed = [r["name"] for r in records if "error" in r]
+    if failed:
+        raise AssertionError(f"probe rows failed: {failed}")
+    # r2 once; the fused forward: probe 8's two rows and the VJP's forward,
+    # probe 9's control and wide2048; the backward in the VJP; inner x 4
+    want = {k.name: 0 for k in kernels}
+    want.update(flash_r2_fwd=calls, flash_inner_fwd=4 * calls, flash_mqa_fwd=4 * calls + 7,
+                flash_mqa_bwd=7)
+    log(f"probes: launches {launches} expected {want}")
+    if launches != want:
+        raise AssertionError("probes: kernel launch counts differ from the rows'")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_device(label, torch, fn):
     """fn under torch.profiler: wall time, device busy time and idle share,
     the top kernels, and the share of each of the port's kernel families."""
@@ -1004,13 +1295,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    try:
-        from dalle2_video_tpu_torch.ops import _cuda
-    except ImportError as exc:
-        print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
-        return 2
+    from dalle2_video_tpu_torch.ops import _cuda
     from dalle2_video_tpu_torch.utils.device import resolve_device
 
+    t_start = time.time()
     dev = resolve_device("cuda")
     card = card_line()
     log(f"card: {card}")
@@ -1032,14 +1320,35 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
-    rows = check_conv_kernels(dev, torch, check_backward_kernels(dev, torch,
-                                                                 check_kernels(dev, torch)))
-    for case in MODULE_CASES:
-        check_modules(dev, torch, case)
-        check_module_grads(dev, torch, case)
+    phases = {}
+
+    def phase(name, fn, *a):
+        t = time.time()
+        out = fn(*a)
+        phases[name] = time.time() - t
+        log(f"phase {name}: {phases[name]:.1f} s")
+        return out
+
+    rows = phase("kernels", lambda: check_probe_kernels(dev, torch, check_conv_kernels(
+        dev, torch, check_backward_kernels(dev, torch, check_kernels(dev, torch)))))
+
+    def module_checks():
+        for case in MODULE_CASES:
+            check_modules(dev, torch, case)
+            check_module_grads(dev, torch, case)
+        check_temporal_sr_layers(dev, torch)
+        check_remat_policies(dev, torch)
+
+    phase("module checks", module_checks)
     # each main path's own run: its counts set to 0 before it, read after it
-    runs = {path: serve(dev, torch, path, args.profile) for path in SERVE_PATHS}
-    runs.update({path: train(dev, torch, path, args.profile) for path in TRAIN_PATHS})
+    runs = {}
+    for path in SERVE_PATHS:
+        runs[path] = phase(path, serve, dev, torch, path, args.profile)
+    for path in TRAIN_PATHS:
+        runs[path] = phase(path, train, dev, torch, path, args.profile)
+    runs["probes"] = phase("probes", probes, dev, torch)
+    log("phase times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
+        + f"; total since start {time.time() - t_start:.1f}")
 
     out = []
     for k in _cuda.all_kernels():
@@ -1054,8 +1363,9 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]}
-        if "conv_alone_ms" in r:
-            row["conv_alone_ms"] = r["conv_alone_ms"]
+        for extra in ("conv_alone_ms", "variants"):
+            if extra in r:
+                row[extra] = r[extra]
         out.append(row)
     log(json.dumps({"kernels": out}))
     log(card_line())  # name, power limit -- as nvidia-smi prints them

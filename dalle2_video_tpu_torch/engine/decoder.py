@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,6 +44,7 @@ from dalle2_video_tpu_torch.engine.conditioner import (
 )
 from dalle2_video_tpu_torch.models.layers import JointSpaceTimeAttention
 from dalle2_video_tpu_torch.models.unet3d import UNet3D, UNet3DConfig
+from dalle2_video_tpu_torch.models.unet_temporal import UnetTemporalConv
 from dalle2_video_tpu_torch.ops.video import resize_video, resize_video_time
 from dalle2_video_tpu_torch.utils.device import DeviceLike, dtype_from_name, resolve_device
 from dalle2_video_tpu_torch.utils.keys import RowKeys
@@ -54,6 +55,13 @@ def ddim_time_pairs(total: int, timesteps: int):
     times = np.linspace(-1, total - 1, timesteps + 1).astype(int)
     times = list(reversed(times.tolist()))
     return [(a, b) for a, b in zip(times[:-1], times[1:]) if a > b]
+
+
+def build_unet(cfg: UNet3DConfig) -> nn.Module:
+    """The denoiser a cascade slot's ``arch`` names (JAX decoder.py:248-253)."""
+    if cfg.arch == "temporal_conv":
+        return UnetTemporalConv(cfg)
+    return UNet3D(cfg)
 
 
 def _cast_tuple(v, length: int):
@@ -181,7 +189,7 @@ class VideoDecoder(nn.Module):
             )
             for i, ucfg in enumerate(cfg.unets)
         )
-        self.unets = nn.ModuleList(UNet3D(c) for c in self.unet_configs)
+        self.unets = nn.ModuleList(build_unet(c) for c in self.unet_configs)
         self.unets.to(self.device).eval()
         self._sampling_unets: Dict[int, nn.Module] = {}
 
@@ -594,6 +602,16 @@ class VideoDecoder(nn.Module):
             if stop_at_unet_number is not None and stop_at_unet_number == i + 1:
                 break
         return vid
+
+
+def cascade_sr_overrides() -> List[str]:
+    """The overrides laid over configs/cascade_sr.yaml to give the JAX
+    package's cascade recipe (scripts/bench_all.py::_cascade_decoder): flash
+    attention in the SR unet (``auto``: from 4096 joint tokens), DDIM 64 on
+    both stages, flash attention and bf16 unets when sampling.
+    ``load_config("configs/cascade_sr.yaml", cascade_sr_overrides())``."""
+    return ["unet2.attention_impl=auto", "sample_timesteps=[64,64]",
+            "flash_attention_sampling=true", "sample_compute_dtype=bfloat16"]
 
 
 def build_decoder(cfg: Dict, device: DeviceLike = None) -> VideoDecoder:

@@ -17,6 +17,11 @@ Initialisers are the JAX package's: Dense and conv kernels U(+-1/sqrt(fan_in))
 (``torch_kernel_init``), zero biases, N(0, 1) learned null embeddings, the
 ICNR upsample, and (in ``unet3d.py``) the zero output conv.
 
+The remat tags (``models/remat.py``, the JAX ``checkpoint_name`` sites)
+are ops the policies see: a SpatialConv output is ``aten.convolution`` on
+the plain route and ``d2v::conv3x3_xbwd`` on the conv kernel's; the outputs
+of Attention and CrossAttention pass through ``remat.attn_out``.
+
 The kernel paths are differentiable: ``groupnorm_film_silu``,
 ``mqa_attention`` and ``fused_block3d`` run their backward kernels under
 autograd, ``conv3x3_spatial_xbwd`` the plain conv's backward. The
@@ -34,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dalle2_video_tpu_torch.models.remat import attn_out
 from dalle2_video_tpu_torch.ops.cross_attention import (
     cross_attention,
     cross_attention_reference,
@@ -270,7 +276,7 @@ class CrossAttention(nn.Module):
         else:
             out = cross_attention_reference(q, k, v, scale)
         out = self.to_out(out.reshape(b, n, h * d))
-        return self.out_norm(out)
+        return attn_out(self.out_norm(out))
 
 
 def rotary_embed(x: torch.Tensor, rot_dim: Optional[int] = None) -> torch.Tensor:
@@ -351,7 +357,7 @@ class Attention(nn.Module):
             attn = softmax_as_jax(sim, dim=-1)
             out = torch.einsum("bhnm,bmd->bnhd", attn, v.to(attn.dtype)).to(q.dtype)
         out = self.to_out(out.reshape(b, n, h * d))
-        return self.out_norm(out)
+        return attn_out(self.out_norm(out))
 
 
 class JointSpaceTimeAttention(nn.Module):
@@ -376,6 +382,50 @@ class JointSpaceTimeAttention(nn.Module):
             impl = ("flash" if tokens.shape[1] >= FLASH_MIN_TOKENS and x.is_cuda
                     else "xla")
         out = self.attn(tokens, impl=impl)
+        return x + out.reshape(b, t, h, w, c)
+
+
+class TemporalAttention(nn.Module):
+    """Per-pixel attention over the frame axis (plain Attention), residual:
+    the factorized temporal attention of temporal-SR cascades."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32,
+                 cosine_sim: bool = False):
+        super().__init__()
+        self.attn = Attention(dim, heads=heads, dim_head=dim_head, cosine_sim=cosine_sim)
+
+    def forward(self, x):
+        b, t, h, w, c = x.shape
+        tokens = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
+        out = self.attn(tokens).reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
+        return x + out
+
+
+class LinearAttention(nn.Module):
+    """Linear attention over each frame's spatial tokens (``sparse_attn``):
+    q softmax over the head dim (times d^-1/2), k softmax over the tokens,
+    scale-only LayerNorms around it, residual. The softmaxes follow
+    ``jax.nn.softmax`` in the activation dtype."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        self.norm = ScaleOnlyLayerNorm(dim)
+        self.to_qkv = Dense(dim, 3 * heads * dim_head, bias=False)
+        self.to_out = Dense(heads * dim_head, dim, bias=False)
+        self.out_norm = ScaleOnlyLayerNorm(dim)
+
+    def forward(self, x):
+        b, t, h, w, c = x.shape
+        hd, d = self.heads, self.dim_head
+        tokens = x.reshape(b * t, h * w, c)
+        q, k, v = (a.reshape(b * t, h * w, hd, d)
+                   for a in self.to_qkv(self.norm(tokens)).chunk(3, dim=-1))
+        q = softmax_as_jax(q, dim=-1) * (d**-0.5)
+        k = softmax_as_jax(k, dim=1)
+        ctx = torch.einsum("bnhd,bnhe->bhde", k, v)
+        out = torch.einsum("bnhd,bhde->bnhe", q, ctx).reshape(b * t, h * w, hd * d)
+        out = self.out_norm(self.to_out(out))
         return x + out.reshape(b, t, h, w, c)
 
 
@@ -426,6 +476,18 @@ class Downsample3D(nn.Module):
 
     def forward(self, x):
         return self.conv(x)
+
+
+class NearestUpsample3D(nn.Module):
+    """Nearest 2x spatial upsample (``nearest-exact``, the JAX resize's
+    rounding) + a 3x3 conv (``pixel_shuffle_upsample: false``)."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.conv = SpatialConv(dim_in, dim_out, 3)
+
+    def forward(self, x):
+        return self.conv(resize_video(x, x.shape[2] * 2))
 
 
 class PixelShuffleUpsample3D(nn.Module):

@@ -7,17 +7,19 @@ builds the same model in both packages and ``weights.params_from_jax`` maps
 one onto the other. Input/output layout (B, T, H, W, C).
 
 Training: ``forward(..., enable_checkpoint=True)`` with
-``checkpoint_during_training`` runs every ResnetBlock3D under
-``torch.utils.checkpoint`` (non-reentrant), the counterpart of the JAX
-``nn.remat`` with ``remat_policy: "nothing"`` (nothing saved inside a block;
-its forward is recomputed in the backward, kernels included, so each
-checkpointed block launches its forward kernels twice per step). The output
-conv starts at zero.
+``checkpoint_during_training`` rematerialises every ResnetBlock3D under its
+``remat_policy`` (``models/remat.py``), the counterpart of the JAX
+``nn.remat(ResnetBlock3D, policy=...)``: "nothing" saves nothing inside a
+block and runs its whole forward again in the backward, kernels included;
+"conv" keeps every conv output, so the recomputation runs only what lies
+between the convs; and so on. The output conv starts at zero.
 
-Not ported yet (they raise): per-frame video embeds, text-encoding
-conditioning, ``sparse_attn`` (LinearAttention), ``temporal_attention``,
-nearest-upsample (``pixel_shuffle_upsample=False``), the ``temporal_conv``
-architecture and remat policies other than "nothing".
+``sparse_attn`` (LinearAttention at stages without self-attention),
+``temporal_attention`` (TemporalAttention after each attention site) and
+``pixel_shuffle_upsample=False`` (NearestUpsample3D) are the JAX options;
+``engine/decoder.build_unet`` also builds the ``temporal_conv``
+architecture (``models/unet_temporal.py``). Not ported yet: text-encoding
+conditioning (raises here) and per-frame video embeds (raise at the call).
 
 The opt-in conv paths are the JAX knobs: ``groupnorm_impl: fused`` (the
 fused Block3D kernels at qualifying sites, the plain conv and GroupNorm
@@ -34,7 +36,6 @@ from typing import List, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from dalle2_video_tpu_torch.models.layers import (
     CrossEmbedLayer3D,
@@ -42,13 +43,17 @@ from dalle2_video_tpu_torch.models.layers import (
     Downsample3D,
     JointSpaceTimeAttention,
     LayerNorm,
+    LinearAttention,
+    NearestUpsample3D,
     PixelShuffleUpsample3D,
     ResnetBlock3D,
     SpatialConv,
+    TemporalAttention,
     TimeConditioning,
     UpsampleCombiner,
     sinusoidal_pos_emb,
 )
+from dalle2_video_tpu_torch.models.remat import checkpoint_block, saved_ops
 
 
 def _cast_tuple(v, length: int) -> Tuple:
@@ -153,18 +158,11 @@ class UNet3DConfig:
 
 
 def _check_ported(cfg: UNet3DConfig) -> None:
-    unported = {
-        "cond_on_text_encodings": cfg.cond_on_text_encodings,
-        "sparse_attn": cfg.sparse_attn,
-        "temporal_attention": cfg.temporal_attention,
-        "pixel_shuffle_upsample=False": not cfg.pixel_shuffle_upsample,
-        f"arch={cfg.arch!r}": cfg.arch != "unet3d",
-    }
-    if cfg.checkpoint_during_training and cfg.remat_policy != "nothing":
-        unported[f"remat_policy={cfg.remat_policy!r}"] = True
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"UNet3D options not ported yet: {bad}")
+    if cfg.cond_on_text_encodings:
+        raise NotImplementedError("UNet3D options not ported yet: ['cond_on_text_encodings']")
+    if cfg.arch not in ("unet3d", "temporal_conv"):
+        raise ValueError(f"unknown arch {cfg.arch!r}")
+    saved_ops(cfg.remat_policy)  # unknown policy names raise, as in JAX
     if cfg.cond_on_video_embeds and cfg.video_embed_dim is None:
         raise ValueError("cond_on_video_embeds needs video_embed_dim")
 
@@ -184,7 +182,7 @@ class UNet3D(nn.Module):
         self_attn = _cast_tuple(cfg.self_attn, n_st)
         groups_per = _cast_tuple(cfg.resnet_groups, n_st)
         nblocks_per = _cast_tuple(cfg.num_resnet_blocks, n_st)
-        self._self_attn, self._nblocks = self_attn, nblocks_per
+        self._nblocks = nblocks_per
 
         def resnet(d_in, d_out, groups, cond=None):
             return ResnetBlock3D(
@@ -200,6 +198,19 @@ class UNet3D(nn.Module):
                 cosine_sim=cfg.cosine_sim_self_attn,
                 joint_time=cfg.joint_time_attention, impl=cfg.attention_impl,
             )
+
+        def add_stage_attn(name, d, sa):
+            # self-attention, else linear attention (sparse_attn), then the
+            # temporal attention; the JAX module names
+            if sa:
+                self.add_module(f"{name}_attn", stage_attn(d))
+            elif cfg.sparse_attn:
+                self.add_module(f"{name}_attn", LinearAttention(
+                    d, heads=cfg.attn_heads, dim_head=cfg.attn_dim_head))
+            if cfg.temporal_attention:
+                self.add_module(f"{name}_temporal_attn", TemporalAttention(
+                    d, heads=cfg.attn_heads, dim_head=cfg.attn_dim_head,
+                    cosine_sim=cfg.cosine_sim_self_attn))
 
         def downsample(d_in, d_out):
             if cfg.cross_embed_downsample:
@@ -247,8 +258,7 @@ class UNet3D(nn.Module):
                 self.add_module(f"down{ind}_block{j}",
                                 resnet(d_layer, d_layer, groups, layer_cond))
                 skips.append(d_layer)
-            if sa:
-                self.add_module(f"down{ind}_attn", stage_attn(d_layer))
+            add_stage_attn(f"down{ind}", d_layer, sa)
             skips.append(d_layer)
             if not is_last and not cfg.memory_efficient:
                 self.add_module(f"down{ind}_post", downsample(d_layer, d_out))
@@ -259,7 +269,7 @@ class UNet3D(nn.Module):
         mid = in_out[-1][1]
         self.mid_block1 = resnet(mid, mid, groups_per[-1], cond_dim)
         if cfg.attend_at_middle:
-            self.mid_attn = stage_attn(mid)
+            add_stage_attn("mid", mid, True)
         self.mid_block2 = resnet(mid, mid, groups_per[-1], cond_dim)
 
         up_dims = []
@@ -274,11 +284,12 @@ class UNet3D(nn.Module):
             for j in range(nb):
                 self.add_module(f"up{ind}_block{j}",
                                 resnet(x_ch + skips.pop(), d_out, groups, layer_cond))
-            if sa:
-                self.add_module(f"up{ind}_attn", stage_attn(d_out))
+            add_stage_attn(f"up{ind}", d_out, sa)
             up_dims.append(d_out)
             if not is_last or cfg.memory_efficient:
-                self.add_module(f"up{ind}_upsample", PixelShuffleUpsample3D(d_out, d_in))
+                upsample = (PixelShuffleUpsample3D if cfg.pixel_shuffle_upsample
+                            else NearestUpsample3D)
+                self.add_module(f"up{ind}_upsample", upsample(d_out, d_in))
                 x_ch = d_in
 
         self.upsample_combiner = UpsampleCombiner(
@@ -317,8 +328,15 @@ class UNet3D(nn.Module):
             # hand it the tensors this forward used (e.g. the trainer's bf16
             # casts of the f32 masters)
             params = dict(mod.named_parameters())
-            return checkpoint(lambda *a: torch.func.functional_call(mod, params, a),
-                              *args, use_reentrant=False)
+            return checkpoint_block(lambda *a: torch.func.functional_call(mod, params, a),
+                                    args, cfg.remat_policy)
+
+        def attend(name, x):
+            # the stage's attention (self or linear), then its temporal one
+            for n in (f"{name}_attn", f"{name}_temporal_attn"):
+                if hasattr(self, n):
+                    x = getattr(self, n)(x)
+            return x
 
         if video_keep_mask is None:
             video_keep_mask = torch.ones(b, dtype=torch.bool, device=x.device)
@@ -375,14 +393,13 @@ class UNet3D(nn.Module):
             for j in range(self._nblocks[ind]):
                 x = block(f"down{ind}_block{j}", x, t, c)
                 hiddens.append(x)
-            if self._self_attn[ind]:
-                x = getattr(self, f"down{ind}_attn")(x)
+            x = attend(f"down{ind}", x)
             hiddens.append(x)
             x = getattr(self, f"down{ind}_post")(x)
 
         x = block("mid_block1", x, t, mid_c)
         if cfg.attend_at_middle:
-            x = self.mid_attn(x)
+            x = attend("mid", x)
         x = block("mid_block2", x, t, mid_c)
 
         up_hiddens = []
@@ -393,8 +410,7 @@ class UNet3D(nn.Module):
             for j in range(self._nblocks[st]):
                 x = torch.cat([x, hiddens.pop() * skip_scale], dim=-1)
                 x = block(f"up{ind}_block{j}", x, t, c)
-            if self._self_attn[st]:
-                x = getattr(self, f"up{ind}_attn")(x)
+            x = attend(f"up{ind}", x)
             up_hiddens.append(x)
             if hasattr(self, f"up{ind}_upsample"):
                 x = getattr(self, f"up{ind}_upsample")(x)

@@ -184,11 +184,13 @@ def stream_ptr(device) -> int:
 
 def all_kernels() -> List["CudaKernel"]:
     """Every kernel of the port, one entry per TPU kernel it replaces: the
-    serving path's forwards, the training path's backwards and the opt-in
-    conv paths' kernels (imports the op modules)."""
+    serving path's forwards, the training path's backwards, the opt-in
+    conv paths' kernels and the flash probes' variants (imports the op
+    modules)."""
     from dalle2_video_tpu_torch.ops import (
         cross_attention,
         flash_mqa,
+        flash_variants,
         fused_block,
         groupnorm_film,
         spatial_conv,
@@ -196,7 +198,8 @@ def all_kernels() -> List["CudaKernel"]:
 
     return [flash_mqa.KERNEL, flash_mqa.BWD_KERNEL, groupnorm_film.KERNEL,
             groupnorm_film.BWD_KERNEL, cross_attention.KERNEL, spatial_conv.KERNEL,
-            spatial_conv.WGRAD_KERNEL, fused_block.KERNEL, fused_block.GN_BWD_KERNEL]
+            spatial_conv.WGRAD_KERNEL, fused_block.KERNEL, fused_block.GN_BWD_KERNEL,
+            flash_variants.R2_KERNEL, flash_variants.INNER_KERNEL]
 
 
 def build_all(kernels: Optional[Sequence[CudaKernel]] = None) -> Dict[str, float]:

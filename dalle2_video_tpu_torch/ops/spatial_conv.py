@@ -176,23 +176,6 @@ class _Conv3x3(torch.autograd.Function):
         return dx, dw
 
 
-class _Conv3x3XBwd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return conv3x3(x, w)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        dx, dw, _ = torch.ops.aten.convolution_backward(
-            _nchw(g.to(x.dtype)), _nchw(x), w.to(x.dtype), None, [1, 1], [1, 1],
-            [1, 1], False, [0, 0], 1, [need[0], need[1], False])
-        return (dx.permute(0, 2, 3, 1) if need[0] else None,
-                dw.to(w.dtype) if need[1] else None)
-
-
 def _differentiable(fn, x, w):
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return fn.apply(x, w)
@@ -205,7 +188,31 @@ def conv3x3_spatial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _differentiable(_Conv3x3, x, w)
 
 
+@torch.library.custom_op("d2v::conv3x3_xbwd", mutates_args=())
 def conv3x3_spatial_xbwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (N, H, W, C), w OIHW -> (N, H, W, Co): kernel forward, the plain
-    conv's backward (cuDNN on the card) under autograd."""
-    return _differentiable(_Conv3x3XBwd, x, w)
+    conv's backward (cuDNN on the card) under autograd. A dispatcher op, so
+    that the remat policies (models/remat.py) can save its output."""
+    return conv3x3(x, w)
+
+
+@conv3x3_spatial_xbwd.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:3], w.shape[0]))
+
+
+def _xbwd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _xbwd_backward(ctx, g):
+    x, w = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        _nchw(g.to(x.dtype)), _nchw(x), w.to(x.dtype), None, [1, 1], [1, 1],
+        [1, 1], False, [0, 0], 1, [need[0], need[1], False])
+    return (dx.permute(0, 2, 3, 1) if need[0] else None,
+            dw.to(w.dtype) if need[1] else None)
+
+
+conv3x3_spatial_xbwd.register_autograd(_xbwd_backward, setup_context=_xbwd_setup)

@@ -5,6 +5,8 @@ PyTorch state dict: names are the ``.``-joined flax path, and
 
   * ``kernel`` (2-D, flax Dense ``(in, out)``) -> ``weight`` ``(out, in)``;
   * ``kernel`` (4-D, flax conv HWIO)          -> ``weight`` OIHW;
+  * ``kernel`` (3-D, flax 1-D conv (k, in, out), the temporal conv of
+    ``arch: temporal_conv``)                    -> ``weight`` (out, in, k);
   * ``scale`` (LayerNorm / GroupNorm)         -> ``weight``;
   * every other leaf keeps its name and layout (``bias``, ``null_kv``,
     ``PixelShuffleUpsample3D.conv`` -- its ``(C, 4*dim_out)`` matrix, which
@@ -52,6 +54,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]"
                 arr = arr.T
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)
             else:
                 raise ValueError(f"{name}: kernel of rank {arr.ndim}")
             leaf = "weight"

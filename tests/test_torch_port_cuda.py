@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from dalle2_video_tpu_torch.ops import cross_attention as xa
 from dalle2_video_tpu_torch.ops import flash_mqa as fm
+from dalle2_video_tpu_torch.ops import flash_variants as fv
 from dalle2_video_tpu_torch.ops import fused_block as fb
 from dalle2_video_tpu_torch.ops import groupnorm_film as gn
 from dalle2_video_tpu_torch.ops import spatial_conv as sc
@@ -352,3 +353,75 @@ def test_conv_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="dtype"):  # fp16: not a kernel dtype
         sc.conv3x3(torch.zeros(1, 8, 8, 64, device=dev, dtype=torch.float16),
                    torch.zeros(64, 64, 3, 3, device=dev))
+
+
+# ------------------------------------ rows 10 and 11: the probes' variants
+# Each kernel against its plain version run with the kernel's own tile
+# (fv.KERNEL_BLOCK_K): the same padding, the same running maxima. f32: the
+# same math in another order, 1e-5. bf16: both sides round the
+# probabilities to bf16 for the second product and the output once; the
+# flash forward's tolerance form (one rounding flip, plus the bf16 P's error
+# before the rounding, which scales with sqrt(e / n_kv)).
+VARIANTS = [("r2", 0, "")] + [("inner", i, m) for i in (2, 4) for m in fv.MERGES]
+
+
+def _variant(kind, inner, merge, q, k, v, sc, plain):
+    bk = fv.KERNEL_BLOCK_K[q.dtype]
+    if kind == "r2":
+        qs = (q.float() * sc).to(q.dtype)
+        return fv.r2_fwd_reference(qs, k, v, block_k=bk) if plain else fv.r2_fwd(qs, k, v)
+    if plain:
+        return fv.inner_fwd_reference(q, k, v, sm_scale=sc, block_k=bk, inner=inner, merge=merge)
+    return fv.inner_fwd(q, k, v, sm_scale=sc, inner=inner, merge=merge)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n_q,n_kv", [(2, 700, 515), (2, 92160, 5761)])
+@pytest.mark.parametrize("kind,inner,merge", VARIANTS)
+def test_flash_variant_kernel_matches_plain(dev, dtype, b, n_q, n_kv, kind, inner, merge):
+    g = torch.Generator(device=dev).manual_seed(n_kv + inner)
+    q, k, v = (torch.randn(b, n, 32, generator=g, device=dev).to(dtype)
+               for n in (n_q, n_kv, n_kv))
+    kernel = fv.R2_KERNEL if kind == "r2" else fv.INNER_KERNEL
+    before = kernel.launches
+    out = _variant(kind, inner, merge, q, k, v, 32**-0.5, plain=False)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = _variant(kind, inner, merge, q, k, v, 32**-0.5, plain=True)
+    bf16_atol = min(2.5e-3, max(5e-4, 1.15e-2 * math.sqrt(math.e / n_kv)))
+    _assert_attention_close(out, ref, dtype, bf16_atol)
+
+
+@pytest.mark.parametrize("kind,inner,merge", VARIANTS)
+def test_flash_variant_kernel_negative_logits_and_check_small(dev, kind, inner, merge):
+    """Every real logit near -5: the zero-padded column holds the running
+    max, and the kernel must still give the plain version's (here also the
+    exact) answer. Then the probe's check_small geometry in f32 against
+    exact softmax, max error < 1e-4 (scripts/perf_r3_probe9.py:162)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.full((1, 40, 32), 1.0, device=dev)
+    k = torch.full((1, 37, 32), -0.88, device=dev) + 0.05 * torch.randn(1, 37, 32, generator=g,
+                                                                       device=dev)
+    v = torch.randn(1, 37, 32, generator=g, device=dev)
+    s = (q * 32**-0.5) @ k.transpose(1, 2)
+    assert float(s.max()) < -4.0 and float(s.min()) > -6.0
+    out = _variant(kind, inner, merge, q, k, v, 32**-0.5, plain=False)
+    torch.testing.assert_close(out, _variant(kind, inner, merge, q, k, v, 32**-0.5, plain=True),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(out, fm.flash_mqa_reference(q, k, v, 32**-0.5), atol=1e-5, rtol=0)
+    q, k, v = (torch.randn(2, n, 32, generator=g, device=dev) for n in (700, 515, 515))
+    err = (_variant(kind, inner, merge, q, k, v, 32**-0.5, plain=False)
+           - fm.flash_mqa_reference(q, k, v, 32**-0.5)).abs().max()
+    assert float(err) < 1e-4
+
+
+def test_flash_variant_wrappers_raise_instead_of_falling_back(dev):
+    x = torch.zeros(2, 8, 32, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fv.r2_fwd(x, x, x)  # fp16: not a kernel dtype
+    y = torch.zeros(2, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fv.inner_fwd(y, y, y, sm_scale=1.0)
+    z = torch.zeros(2, 8, 32, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        fv.r2_fwd(z, z, z)

@@ -40,6 +40,16 @@ torch.set_num_threads(1)
 ATOL = 2e-5
 
 
+# the interpret-mode kernels are jitted and compiled at XLA's lowest
+# optimisation level: less compile time, the same f32 kernels
+_O0 = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def _o0(fn, *args):
+    args = [jnp.asarray(a) for a in args]
+    return jax.jit(fn).lower(*args).compile(compiler_options=_O0)(*args)
+
+
 def _np(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
@@ -55,9 +65,8 @@ def test_flash_fwd_unaligned_kv_with_lse(n_kv):
     d = 32
     q, k, v = _np(rng, 2, 96, d), _np(rng, 2, n_kv, d), _np(rng, 2, n_kv, d)
     scale = d**-0.5
-    want, want_lse = _flash_mqa_fwd_only(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sm_scale=scale,
-        block_q=64, block_k=64, interpret=True, save_lse=True)
+    want, want_lse = _o0(lambda q, k, v: _flash_mqa_fwd_only(
+        q, k, v, sm_scale=scale, block_q=64, block_k=64, interpret=True, save_lse=True), q, k, v)
     got, lse = port_flash.flash_mqa_fwd(_t(q), _t(k), _t(v), sm_scale=scale,
                                         save_lse=True, block_q=64, block_k=64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
@@ -76,9 +85,8 @@ def test_flash_fwd_all_logits_below_minus_87():
     scale = d**-0.5
     s = np.einsum("bnd,bmd->bnm", q * scale, k)
     assert s.max() < -87.0
-    want, want_lse = _flash_mqa_fwd_only(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sm_scale=scale,
-        block_q=32, block_k=32, interpret=True, save_lse=True)
+    want, want_lse = _o0(lambda q, k, v: _flash_mqa_fwd_only(
+        q, k, v, sm_scale=scale, block_q=32, block_k=32, interpret=True, save_lse=True), q, k, v)
     got, lse = port_flash.flash_mqa_fwd(_t(q), _t(k), _t(v), sm_scale=scale,
                                         save_lse=True)
     assert torch.isfinite(got).all()
@@ -93,8 +101,8 @@ def test_mqa_attention_heads_fold_matches_jax():
     rng = np.random.default_rng(7)
     b, n, h, d = 2, 40, 4, 16
     q, k, v = _np(rng, b, n, h, d), _np(rng, b, n + 1, d), _np(rng, b, n + 1, d)
-    want = jax_mqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sm_scale=d**-0.5,
-                   block_q=32, block_k=32, interpret=True)
+    want = _o0(lambda q, k, v: jax_mqa(q, k, v, sm_scale=d**-0.5, block_q=32, block_k=32,
+                                       interpret=True), q, k, v)
     got = port_flash.mqa_attention(_t(q), _t(k), _t(v), sm_scale=d**-0.5)
     assert got.shape == (b, n, h, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
@@ -112,8 +120,7 @@ def test_groupnorm_film_silu_matches_jax(c, groups, l):
     beta = _np(rng, c) * 0.1
     scale = _np(rng, b, c) * 0.1
     shift = _np(rng, b, c) * 0.1
-    args = [jnp.asarray(a) for a in (x, gamma, beta, scale, shift)]
-    want = jax_gn(*args, groups, 1e-5, 64, True)
+    want = _o0(lambda *a: jax_gn(*a, groups, 1e-5, 64, True), x, gamma, beta, scale, shift)
     got = port_gn.groupnorm_film_silu(*[_t(a) for a in (x, gamma, beta, scale, shift)],
                                       groups=groups, eps=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
@@ -126,8 +133,8 @@ def test_groupnorm_stats_and_no_film_match_jax():
     b, l, c, g = 2, 50, 16, 4
     x, gamma, beta = _np(rng, b, l, c), _np(rng, c), _np(rng, c)
     zeros = np.zeros((b, c), np.float32)
-    out, mean, rstd = jax_gn_fwd(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta),
-                                 jnp.asarray(zeros), jnp.asarray(zeros), g, 1e-5, 64, True)
+    out, mean, rstd = _o0(lambda *a: jax_gn_fwd(*a, g, 1e-5, 64, True),
+                          x, gamma, beta, zeros, zeros)
     got, gm, gr = port_gn.groupnorm_film_silu(_t(x), _t(gamma), _t(beta), None, None,
                                               groups=g, return_stats=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=ATOL)
@@ -141,8 +148,8 @@ def test_cross_attention_matches_jax(m):
     rng = np.random.default_rng(m)
     b, n, h, d = 2, 100, 8, 64
     q, k, v = _np(rng, b, n, h, d), _np(rng, b, m, h, d), _np(rng, b, m, h, d)
-    want = jax_cross(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                     sm_scale=d**-0.5, block_n=32, interpret=True)
+    want = _o0(lambda q, k, v: jax_cross(q, k, v, sm_scale=d**-0.5, block_n=32, interpret=True),
+               q, k, v)
     got = port_cross.cross_attention(_t(q), _t(k), _t(v), sm_scale=d**-0.5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
@@ -195,7 +202,7 @@ def _jax_flash_grads(q, k, v, g, scale, block):
                         bwd_block_k=block)
         return jnp.sum(out * g)
 
-    return jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    return _o0(jax.grad(f, argnums=(0, 1, 2)), q, k, v)
 
 
 @pytest.mark.parametrize("n_kv", [37, 130])  # ragged kv tails (n + 1 style)
@@ -249,8 +256,8 @@ def test_groupnorm_bwd_plain_matches_pallas_backward(c, l):
     scale, shift = _np(rng, b, c) * 0.1, _np(rng, b, c) * 0.1
     g = _np(rng, b, l, c)
     args = [jnp.asarray(a) for a in (x, gamma, beta, scale, shift)]
-    want = jax.grad(lambda *a: jnp.sum(jax_gn(*a, groups, 1e-5, 64, True) * g),
-                    argnums=(0, 1, 2, 3, 4))(*args)
+    want = _o0(jax.grad(lambda *a: jnp.sum(jax_gn(*a, groups, 1e-5, 64, True) * g),
+                        argnums=(0, 1, 2, 3, 4)), *args)
     ins = [_t(a).requires_grad_() for a in (x, gamma, beta, scale, shift)]
     y = port_gn.groupnorm_film_silu(*ins, groups=groups, eps=1e-5)
     got = torch.autograd.grad(y, ins, _t(g))
@@ -282,7 +289,7 @@ def test_backward_kernel_records_and_cpu_grads_count_no_launch():
     port_gn.groupnorm_film_silu(x, torch.ones(8), torch.zeros(8)).sum().backward()
     assert q.grad is not None and x.grad is not None
     assert {k.name: k.launches for k in _all_kernels()} == before
-    assert len(_all_kernels()) == 9
+    assert len(_all_kernels()) == 11
 
 
 def _meta_calls():

@@ -38,6 +38,15 @@ torch.set_num_threads(1)
 ATOL = 2e-4
 
 
+# the JAX references are jitted and compiled at XLA's lowest optimisation
+# level: less compile time, the same f32 arithmetic
+_O0 = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def _o0(fn, *args, **kwargs):
+    return jax.jit(fn).lower(*args, **kwargs).compile(compiler_options=_O0)(*args, **kwargs)
+
+
 def redraw(params, seed, std=0.2):
     """Every leaf (arrays or shape structs) redrawn from N(0, std^2)."""
     leaves, tree = jax.tree_util.tree_flatten(params)
@@ -97,7 +106,7 @@ def test_unet3d_forward_matches_jax(case):
     shapes = jax.eval_shape(ju.init, jax.random.PRNGKey(0), jnp.asarray(x),
                             jnp.asarray(time), **jargs)
     params = redraw(shapes, 1)
-    want = np.asarray(jax.jit(ju.apply)(params, jnp.asarray(x), jnp.asarray(time), **jargs))
+    want = np.asarray(_o0(ju.apply, params, jnp.asarray(x), jnp.asarray(time), **jargs))
     tu = load_from_jax(UNet3D(UNet3DConfig(**kw)), params)
     with torch.no_grad():
         got = tu(torch.from_numpy(x), torch.from_numpy(time).long(), **targs).numpy()
@@ -168,8 +177,8 @@ def test_prior_network_matches_jax():
     jn = JaxPriorNet(JaxPriorCfg(**kw))
     params = redraw(jax.eval_shape(jn.init, jax.random.PRNGKey(1), jnp.asarray(x),
                                    jnp.asarray(time), text_embed=jnp.asarray(te)), 2)
-    want = np.asarray(jn.apply(params, jnp.asarray(x), jnp.asarray(time),
-                               text_embed=jnp.asarray(te), text_keep_mask=jnp.asarray(keep)))
+    want = np.asarray(_o0(jn.apply, params, jnp.asarray(x), jnp.asarray(time),
+                          text_embed=jnp.asarray(te), text_keep_mask=jnp.asarray(keep)))
     tn = load_from_jax(DiffusionPriorNetwork(PriorNetworkConfig(**kw)), params)
     with torch.no_grad():
         got = tn(torch.from_numpy(x), torch.from_numpy(time).long(),
@@ -185,7 +194,8 @@ def test_clip_text_tower_matches_jax():
     jt = JaxCLIP(JaxCLIPConfig(**cfg))
     params = redraw(jax.eval_shape(jt.init, jax.random.PRNGKey(2), jnp.asarray(tokens)),
                     3, std=0.1)
-    want_e, want_x = jt.apply(params, jnp.asarray(tokens), return_encodings=True)
+    want_e, want_x = _o0(lambda p, t: jt.apply(p, t, return_encodings=True),
+                         params, jnp.asarray(tokens))
     tt = load_from_jax(CLIPTextEncoder(CLIPTextConfig(**cfg)), params)
     with torch.no_grad():
         got_e, got_x = tt(torch.from_numpy(tokens), return_encodings=True)
