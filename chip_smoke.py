@@ -16,7 +16,8 @@ Phases (any failure exits non-zero and prints no result line):
      (bf16, and one f32 case each), and so are the opt-in conv paths'
      kernels (the 3x3 conv and its dx, its weight gradient, the conv + bias
      + statistics forward, the fused block's GroupNorm backward) at the
-     slice's shapes;
+     slice's shapes, the weight gradient at every shape train_conv gives
+     it (WGRAD_STAGES);
   3. module check: small UNet3Ds with the kernel impls against the same
      weights on the plain impls, f32 and bf16; then one loss's gradients
      through both, bf16 compute over f32 masters. Two cases: the serving /
@@ -37,8 +38,9 @@ Phases (any failure exits non-zero and prints no result line):
      90x128x128 videos, on each path of TRAIN_PATHS: "train" (groupnorm_impl
      pallas, with a checkpoint round trip) and "train_conv" (the conv
      paths): its steps of each unet, one eval_loss each; finite losses,
-     every parameter moved, EMA step counts, and every step's launch counts
-     as the unet structure predicts. Prints ms per step, samples/s and peak
+     every parameter moved, EMA step counts, every step's launch counts
+     as the unet structure predicts, and no weight-gradient shape that
+     phase 2 did not check. Prints ms per step, samples/s and peak
      memory;
   6. probes: the flash probes' variants (rows 10 and 11: the r2 forward and
      the inner-kv forward, inner 2 / 4 x chain / par) against their plain
@@ -112,6 +114,17 @@ def library_time(name: str, fn):
         return None
 
 
+def sdpa_backward_alone(torch, qh, kh, vh, goh, sc):
+    """A call of SDPA's flash backward alone
+    (``aten._scaled_dot_product_flash_attention_backward``), fed with its
+    forward's saved outputs."""
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, False, False,
+                                                             scale=sc)
+    out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        goh, qh, kh, vh, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset, scale=sc)
+
+
 def check(name, label, out, ref, atol, rtol):
     """max |out - ref| and the worst share of atol + rtol*|ref| it uses;
     raises if any element is outside the tolerance."""
@@ -153,12 +166,17 @@ FLASH_FWD_CASES = [("serve_cascade unet 1", 2, 16 * 8 * 8, False),
                    ("train_cascade unet 2", 4, 64 * 8 * 8, True),
                    ("probe geometry", 2, 23040, False),
                    ("probe geometry", 2, 23040, True)]
-# The flash backward (row 2): (dtype, label, (batch, query rows, keys)); the
-# second case is timed for the kernel row
-FLASH_BWD_CASES = [("float32", "f32 check", (2, 333, 65)),
-                   ("bfloat16", "train celebv", (2, 90 * 8 * 8 * 16, 90 * 8 * 8 + 1)),
-                   ("bfloat16", "train_cascade unet 2", (4, 64 * 8 * 8 * 16, 64 * 8 * 8 + 1)),
-                   ("bfloat16", "probe 8 VJP", (2, 23040 * 16, 23041))]
+# The flash backward (row 2): (dtype, label, (batch, query rows, keys)) and
+# the route it takes (ops/flash_mqa.py::bwd_rounds, the JAX "auto" rule:
+# bf16 at batch >= 2 on the tensor cores, else all f32 on the CUDA cores);
+# the "train celebv" case is timed for the kernel row
+FLASH_BWD_CASES = [("float32", "f32 check", (2, 333, 65), "cuda_cores"),
+                   ("bfloat16", "batch 1 (f32 math)", (1, 1000, 5761), "cuda_cores"),
+                   ("bfloat16", "train celebv", (2, 90 * 8 * 8 * 16, 90 * 8 * 8 + 1),
+                    "tensor_cores"),
+                   ("bfloat16", "train_cascade unet 2", (4, 64 * 8 * 8 * 16, 64 * 8 * 8 + 1),
+                    "tensor_cores"),
+                   ("bfloat16", "probe 8 VJP", (2, 23040 * 16, 23041), "tensor_cores")]
 
 
 def flash_fwd_by_rows(torch, fm, q, k, v, sc, save_lse, rows=8192):
@@ -297,8 +315,11 @@ def check_backward_kernels(dev, torch, rows):
     bf = torch.bfloat16
 
     # flash backward: the joint bottleneck of either unet at 90 frames, batch
-    # 2 (timed), then the cascade's SR unet and the probes' VJP
-    for i, (dtype, label, (b, n_q, n_kv)) in enumerate(FLASH_BWD_CASES):
+    # 2 (timed), then the cascade's SR unet and the probes' VJP; each on the
+    # route the JAX rule gives it, bit for bit again on a second call
+    import torch.nn.functional as F
+
+    for dtype, label, (b, n_q, n_kv), route in FLASH_BWD_CASES:
         dtype = getattr(torch, dtype)
         d = 32
         q = torch.randn(b, n_q, d, generator=g, device=dev).to(dtype)
@@ -307,41 +328,58 @@ def check_backward_kernels(dev, torch, rows):
         go = torch.randn(b, n_q, d, generator=g, device=dev).to(dtype)
         sc = d**-0.5
         out, lse = fm.flash_mqa_fwd(q, k, v, sm_scale=sc, save_lse=True)
+        before = dict(fm.BWD_KERNEL.routes)
         got = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=sc)
+        took = {r: n - before.get(r, 0) for r, n in fm.BWD_KERNEL.routes.items()
+                if n != before.get(r, 0)}
+        if took != {route: 1}:
+            raise AssertionError(f"flash_mqa_bwd {label}: routes {took}, the JAX rule gives {route}")
         want = fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, sc)
         # f32: same f32 math in another summation order (sums of up to 92k
         # terms): 1e-5 of the largest value. bf16: both sides round the f32
         # result once (rtol 1e-2 admits one flip, 2^-7 of the value); atol
         # 1e-3 of the largest value covers the f32 sums near zero.
-        e, tol = rel("flash_mqa_bwd", f"{label} {dtype} b={b} n_q={n_q} n_kv={n_kv} d={d}",
+        shape = f"{label} {dtype} b={b} n_q={n_q} n_kv={n_kv} d={d} ({route})"
+        e, tol = rel("flash_mqa_bwd", shape,
                      ("dq", "dk", "dv"), got, want, rtol=0.0 if dtype == torch.float32 else 1e-2,
                      atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
-        if i == 1:
-            # five (n_q x n_kv x d) products; P formed once
-            bnd, by = bound(2 * (4 * q.numel() + 4 * k.numel()) + 8 * b * n_q,
-                            flops=5 * 2.0 * b * n_q * n_kv * d, exps=float(b * n_q * n_kv))
+        del want
+        again = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=sc)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"flash_mqa_bwd {shape}: two calls differ")
+        del again
+        kms = time_ms(lambda: fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=sc))
+        # five (n_q x n_kv x d) products, P formed once; the two-pass
+        # design's own floor: 2 exponentials per probability
+        bnd, by = bound(2 * (4 * q.numel() + 4 * k.numel()) + 8 * b * n_q,
+                        flops=5 * 2.0 * b * n_q * n_kv * d, exps=float(b * n_q * n_kv))
+        exp_floor = 2.0 * b * n_q * n_kv / EXP_PER_S * 1e3
+        log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) two-pass exponential floor "
+            f"{exp_floor:.4f} ms")
+        if label == "train celebv":
             h = 16
-            qh = q.view(b, n_q // h, h, d).transpose(1, 2).detach().requires_grad_()
-            kh = k[:, None].expand(b, h, n_kv, d).contiguous().requires_grad_()
-            vh = v[:, None].expand(b, h, n_kv, d).contiguous().requires_grad_()
+            qh = q.view(b, n_q // h, h, d).transpose(1, 2)
+            kh = k[:, None].expand(b, h, n_kv, d).contiguous()
+            vh = v[:, None].expand(b, h, n_kv, d).contiguous()
             goh = go.view(b, n_q // h, h, d).transpose(1, 2)
-            import torch.nn.functional as F
+            alone = time_ms(sdpa_backward_alone(torch, qh, kh, vh, goh, sc))
+            qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
 
-            def sdpa_bwd():
-                o = F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
-                torch.autograd.grad(o, (qh, kh, vh), goh)
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qg, kg, vg, scale=sc)
+                torch.autograd.grad(o, (qg, kg, vg), goh)
 
+            fwd_bwd = library_time("flash_mqa_bwd (SDPA forward + backward)", sdpa_fwd_bwd)
+            log(f"  SDPA (kv expanded per head): backward alone {alone} ms "
+                "(aten._scaled_dot_product_flash_attention_backward on the forward's saved "
+                f"outputs), forward + backward {fwd_bwd} ms")
             rows["flash_mqa_bwd"] = dict(
                 max_abs_err=e, tolerance=tol,
-                shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16",
-                ms=time_ms(lambda: fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=sc)),
+                shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 ({route})", ms=kms,
                 plain_ms=time_ms(lambda: fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, sc),
                                  iters=2),
-                # forward + backward of SDPA with kv expanded per head: a
-                # yardstick only (it recomputes the forward)
-                library_ms=library_time("flash_mqa_bwd", sdpa_bwd),
-                bound_ms=bnd, bound_by=by)
-        del q, k, v, go, out, lse, got, want
+                library_ms=alone, library_fwd_bwd_ms=fwd_bwd, bound_ms=bnd, bound_by=by)
+        del q, k, v, go, out, lse, got
 
     # GroupNorm backward: the training path's largest L at C = 8, C = 64 and
     # the widest C
@@ -438,14 +476,18 @@ def check_conv_kernels(dev, torch, rows):
                     library_ms=lib, bound_ms=bnd, bound_by=by)
         del x, wt
 
-    # row 7: the weight gradient of every fused site. Its oracle is the
-    # plain version on f64 copies: over the 737,280 pixels of the 64x64
-    # stage the f32 plain version (cuDNN, one long sum per value) is itself
-    # off by ~1e-4 of the largest value, the kernel (split-K, short f32
-    # sums) by ~1e-5 (both logged below), so 1e-5 of the largest value.
-    for dtype, label, shape in ((torch.float32, "f32 check", (6, 16, 16, 64, 128)),
-                                (bf, "unet1 stage 2", (180, 16, 16, 256, 256)),
-                                (bf, "unet1 stage 0", stage0)):
+    # row 7: the weight gradient at every shape train_conv's fused sites
+    # give it (WGRAD_STAGES; its train run checks that no other reaches the
+    # kernel), each with its own plan (ops/spatial_conv.py::wgrad_plan).
+    # Its oracle is the plain version on f64 copies: over the 737,280
+    # pixels of the 64x64 stage the f32 plain version (cuDNN, one long sum
+    # per value) is itself off by ~1e-4 of the largest value, the kernel
+    # (split-K, short f32 sums) by ~1e-5 (both logged below), so 1e-5 of
+    # the largest value.
+    wgrad_cases = [(torch.float32, "f32 check", (6, 16, 16, 64, 128))]
+    wgrad_cases += [(bf, f"unet{u} {h}x{w} {c}->{co}", (WGRAD_BT, h, w, c, co))
+                    for u, stages in WGRAD_STAGES.items() for h, w, c, co in stages]
+    for dtype, label, shape in wgrad_cases:
         x, _ = inputs(dtype, *shape)
         dy = torch.randn(*shape[:3], shape[4], generator=g, device=dev).to(dtype)
         got = sc.conv3x3_wgrad(x, dy)
@@ -466,7 +508,8 @@ def check_conv_kernels(dev, torch, rows):
             xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
             lib = library_time("conv3x3_wgrad", lambda: torch.nn.grad.conv2d_weight(
                 xc, tuple(got.shape), dyc, padding=1))
-            log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) library_ms={lib}")
+            log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) library_ms={lib} plan "
+                f"(rows, seg, groups, splits) {sc.wgrad_plan(*shape)}")
             if shape == stage0:
                 rows["conv3x3_wgrad"] = dict(
                     max_abs_err=e, tolerance=tl, shape=f"x, dy{tuple(x.shape)} bf16 -> dW f32",
@@ -938,7 +981,7 @@ def serve(dev, torch, path: str, profile: bool = False):
     kernels = all_kernels()
     try:
         for k in kernels:
-            k.launches = 0
+            k.reset()
         torch.cuda.reset_peak_memory_stats()
         t_submit = time.time()
         futs = [engine.submit(GenRequest(f"a person smiling #{i}", seed=100 + i,
@@ -1002,6 +1045,53 @@ TRAIN_PATHS = {
                           steps=3, checkpoint=False),
 }
 CONV_SITES = {1: (44, 7), 2: (19, 0)}  # (fused blocks, pallas_small convs) per forward
+# Every (H, W, C, Co) that train_conv's fused sites hand the weight
+# gradient (row 7) per unet, at B*T = batch 2 x 90 frames: unet 1's 44
+# sites a step, unet 2's 19. check_conv_kernels holds each against the
+# f64 oracle; train() fails if another shape reaches the kernel.
+WGRAD_BT = TRAIN_BATCH * 90
+WGRAD_STAGES = {
+    1: [(64, 64, 64, 64), (64, 64, 128, 64), (32, 32, 64, 64), (32, 32, 128, 128),
+        (32, 32, 192, 128), (16, 16, 128, 128), (16, 16, 256, 256), (16, 16, 384, 256),
+        (8, 8, 256, 256)],
+    2: [(16, 16, 64, 64), (8, 8, 64, 64), (8, 8, 128, 128), (8, 8, 192, 128)],
+}
+
+
+class WgradShapes:
+    """Records the shapes that reach ops/spatial_conv.py::conv3x3_wgrad
+    while it is entered (the fused block calls it through the module)."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def __enter__(self):
+        from dalle2_video_tpu_torch.ops import spatial_conv as sc
+
+        self._orig = orig = sc.conv3x3_wgrad
+
+        def recording(x, dy):
+            self.seen.add((*x.shape, dy.shape[3]))
+            return orig(x, dy)
+
+        sc.conv3x3_wgrad = recording
+        return self
+
+    def __exit__(self, *exc):
+        from dalle2_video_tpu_torch.ops import spatial_conv as sc
+
+        sc.conv3x3_wgrad = self._orig
+
+
+def check_bwd_routes(label, launches):
+    """Every flash backward of a main path is bf16 at batch >= 2: the
+    tensor-core route (the JAX package's _bwd_pallas arithmetic)."""
+    from dalle2_video_tpu_torch.ops.flash_mqa import BWD_KERNEL
+
+    n = launches.get(BWD_KERNEL.name, 0)
+    if n and BWD_KERNEL.routes != {"tensor_cores": n}:
+        raise AssertionError(f"{label}: flash backward routes {BWD_KERNEL.routes}, "
+                             f"expected {n} on the tensor cores")
 
 
 def train_expected(path, u, backward, recompute):
@@ -1103,7 +1193,7 @@ def train(dev, torch, path: str, profile: bool = False):
 
     def run(fn, want):
         for k in kernels:
-            k.launches = 0
+            k.reset()
         torch.cuda.synchronize()
         t = time.time()
         out = fn()
@@ -1112,24 +1202,31 @@ def train(dev, torch, path: str, profile: bool = False):
         got = {k.name: k.launches for k in kernels}
         if got != want:
             raise AssertionError(f"{path}: launches {got}, the unet structure predicts {want}")
+        check_bwd_routes(path, got)
         return out, ms, got
 
     as_dev = lambda a: torch.as_tensor(a, device=dev)
     totals = {k.name: 0 for k in kernels}
     ms = {1: [], 2: []}
-    for step in range(n_steps):
-        batch = data.batch_items(np.arange(step * b, (step + 1) * b))
-        vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
-        for u in (1, 2):
-            loss, t_ms, got = run(lambda: trainer.train_step(vid, video_embed=emb, unet_number=u),
-                                  expected(u, backward=True))
-            loss = float(loss)
-            if not np.isfinite(loss):
-                raise AssertionError(f"{path}: unet {u} step {step} loss {loss}")
-            ms[u].append(t_ms)
-            for k, v in got.items():
-                totals[k] += v
-            log(f"{path}: step {step} unet {u}: loss {loss:.4f}, {t_ms:.1f} ms")
+    with WgradShapes() as wgrad:
+        for step in range(n_steps):
+            batch = data.batch_items(np.arange(step * b, (step + 1) * b))
+            vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
+            for u in (1, 2):
+                loss, t_ms, got = run(
+                    lambda: trainer.train_step(vid, video_embed=emb, unet_number=u),
+                    expected(u, backward=True))
+                loss = float(loss)
+                if not np.isfinite(loss):
+                    raise AssertionError(f"{path}: unet {u} step {step} loss {loss}")
+                ms[u].append(t_ms)
+                for k, v in got.items():
+                    totals[k] += v
+                log(f"{path}: step {step} unet {u}: loss {loss:.4f}, {t_ms:.1f} ms")
+    checked = {(WGRAD_BT, *st) for stages in WGRAD_STAGES.values() for st in stages}
+    if wgrad.seen != (checked if path == "train_conv" else set()):
+        raise AssertionError(f"{path}: the weight gradient took shapes {sorted(wgrad.seen)}; "
+                             f"check_conv_kernels checks {sorted(checked)} for train_conv")
     batch = data.batch_items(np.arange(n_steps * b, (n_steps + 1) * b))
     vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
     for u in (1, 2):
@@ -1160,7 +1257,8 @@ def train(dev, torch, path: str, profile: bool = False):
         f"{steady[1]:.1f}, unet 2 {ms[2][0]:.1f} / {steady[2]:.1f}; samples/s unet 1 "
         f"{b / steady[1] * 1e3:.2f}, unet 2 {b / steady[2] * 1e3:.2f}, both "
         f"{b / (steady[1] + steady[2]) * 1e3:.2f}; peak memory {peak:.2f} GiB")
-    log(f"{path}: launches over {n_steps} + {n_steps} steps {totals}")
+    log(f"{path}: launches over {n_steps} + {n_steps} steps {totals} (every flash backward "
+        f"on the tensor cores)")
     if profile:
         batch = data.batch_items(np.arange(b))
         vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
@@ -1183,7 +1281,7 @@ def probes(dev, torch):
     calls = ITERS + 2
     kernels = all_kernels()
     for k in kernels:
-        k.launches = 0
+        k.reset()
     card = card_line()
     records = perf_r3_probe8.rows(dev, card) + perf_r3_probe9.rows(dev, card)
     launches = {k.name: k.launches for k in kernels}
@@ -1198,6 +1296,7 @@ def probes(dev, torch):
     log(f"probes: launches {launches} expected {want}")
     if launches != want:
         raise AssertionError("probes: kernel launch counts differ from the rows'")
+    check_bwd_routes("probes", launches)
     torch.cuda.empty_cache()
     return launches
 
@@ -1226,7 +1325,7 @@ def profile_device(label, torch, fn):
         log(f"  {ms:9.2f} ms {100 * ms / total:5.1f}% x{count:5d} {key[:100]}")
     # each device kernel counts in the first family it matches
     groups = {"flash_mqa_fwd": ("flash_mqa_fwd",),
-              "flash_mqa_bwd": ("flash_mqa_bwd",),
+              "flash_mqa_bwd": ("flash_mqa_bwd", "tc::dq_kernel", "tc::dkv_kernel"),
               "groupnorm_film_silu_fwd": ("gn_stats_kernel", "gn_apply_kernel"),
               "groupnorm_film_silu_bwd / fused_block_gn_bwd": ("gn_bwd_",),
               "cross_attention_fwd": ("cross_attention_kernel",),
@@ -1316,9 +1415,12 @@ def main() -> int:
     log(f"kernels built in {time.time() - t0:.1f} s (parallel nvcc): "
         + ", ".join(f"{k} {v:.1f}s" for k, v in built.items()))
     for src, text in _cuda.BUILD_LOG.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {src} {fn}: {line.split(':', 1)[-1].strip()}")
 
     phases = {}
 
@@ -1363,7 +1465,7 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]}
-        for extra in ("conv_alone_ms", "variants"):
+        for extra in ("conv_alone_ms", "variants", "library_fwd_bwd_ms"):
             if extra in r:
                 row[extra] = r[extra]
         out.append(row)

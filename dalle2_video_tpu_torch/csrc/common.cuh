@@ -48,6 +48,72 @@ struct Vec16<__nv_bfloat16> {
   using Raw = uint4;
 };
 
+// ------------------------------------------------ tensor-core building blocks
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) and its fragment loads, as
+// the bf16 kernels use them. Fragment layout (PTX ISA, "Matrix fragments
+// for mma.m16n8k16"): lane = 4 * g + t; the accumulator holds rows g and
+// g + 8, columns 2t and 2t + 1 of its 16 x 8 tile; A holds a 16 x 16 tile
+// as (row g, k 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..);
+// B a 16 x 8 tile as (k 2t..2t+1, column g), (k 2t + 8.., g). So an
+// accumulator pair of n8 tiles, packed to bf16, is the A fragment of the
+// next product with k = those 16 columns.
+
+// d += a * b
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to nearest-even bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lanes 8i..8i+7 give the
+// row addresses (16 bytes each) of matrix i, which lands in r[i]. Plain:
+// a lane holds (row g, columns 2t, 2t + 1) of each matrix -- the B
+// fragment of a [n][k] tile. .trans: (rows 2t, 2t + 1, column g) -- the A
+// fragment of a [k][m] tile, or the B fragment of a [k][n] tile.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// Asynchronous global -> shared copies (cp.async, sm_80+). Where pred is
+// false nothing is read and the destination is zero-filled; src must still
+// be a valid address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most n of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n));
+}
+
 }  // namespace d2v
 
 // Every library exports the runtime's error text so the wrapper can raise

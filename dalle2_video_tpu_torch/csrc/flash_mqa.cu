@@ -137,19 +137,8 @@ constexpr int kWarps = 4;
 constexpr int kBlockRows = kWarps * 16;
 constexpr int kKv = 64;  // keys per shared-memory tile
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using d2v::mma_bf16;
+using d2v::pack_bf16;
 
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)

@@ -1,14 +1,19 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface and loaded with ``ctypes``. Builds
+shared library with a plain C interface and loaded with ``ctypes``; a
+source whose tiling its wrapper plans is built with the plan's constants
+as ``-D`` macros (``CudaKernel(defines=...)``), so only the wrapper states
+them. Builds
 happen at first use, into ``csrc/_build/`` (git-ignored), named by a hash of
 the sources and flags so a stale library is never reused; several sources
 build in parallel (one ``nvcc`` each). Nothing here runs at import time: the
 CPU tests import every module on a machine with no ``nvcc``.
 
 A ``CudaKernel`` counts its launches in ``launches``: the wrapper adds one
-each time it launches the kernel for a CUDA tensor, and nowhere else.
+each time it launches the kernel for a CUDA tensor, and nowhere else. A
+kernel with more than one route (the flash backward) also counts each
+launch under its route in ``routes``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+DEFINES: Dict[str, Dict[str, int]] = {}  # source -> the -D macros it is built with
 BUILD_LOG: Dict[str, str] = {}  # source -> nvcc output (ptxas register report)
 
 
@@ -51,12 +57,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _flags(source: str) -> List[str]:
+    return [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted(DEFINES.get(source, {}).items()))]
+
+
 def _lib_path(source: str) -> Path:
     h = hashlib.sha256()
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -73,7 +83,7 @@ def build(sources: Iterable[str]) -> Dict[str, float]:
     for src in todo:
         out = _lib_path(src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *_flags(src), "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
         procs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     times = {}
@@ -112,17 +122,27 @@ class CudaKernel:
     """One exported C entry point of one csrc source.
 
     ``argtypes`` are ctypes types; pass pointers and the stream as Python
-    ints (``tensor.data_ptr()``, ``stream.cuda_stream``)."""
+    ints (``tensor.data_ptr()``, ``stream.cuda_stream``). ``defines`` are
+    the ``-D`` macros its source is built with."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence, replaces: str):
+                 argtypes: Sequence, replaces: str,
+                 defines: Optional[Dict[str, int]] = None):
+        if DEFINES.setdefault(source, dict(defines or {})) != dict(defines or {}):
+            raise ValueError(f"{source}: its kernels disagree on its -D macros")
         self.name = name
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.replaces = replaces
         self.launches = 0
+        self.routes: Dict[str, int] = {}
         self._fn = None
+
+    def reset(self) -> None:
+        """Set the launch counts to 0."""
+        self.launches = 0
+        self.routes = {}
 
     def _bind(self):
         if self._fn is None:
@@ -133,13 +153,24 @@ class CudaKernel:
             self._fn = (lib, fn)
         return self._fn
 
-    def launch(self, *args) -> None:
+    def query(self, symbol: str, *args: int) -> int:
+        """Call an int-valued C helper of the kernel's library (a plan the C
+        side owns). It launches nothing and counts nothing."""
+        lib, _ = self._bind()
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        return fn(*args)
+
+    def launch(self, *args, route: Optional[str] = None) -> None:
         lib, fn = self._bind()
         err = fn(*args)
         if err != 0:
             msg = lib.d2v_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed ({err}): {msg}")
         self.launches += 1
+        if route is not None:
+            self.routes[route] = self.routes.get(route, 0) + 1
 
 
 def require_cuda(name: str, tensors: List, dtypes=None) -> None:

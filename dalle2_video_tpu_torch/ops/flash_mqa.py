@@ -12,8 +12,13 @@ kernel does not take raises.
 ``flash_mqa`` is the differentiable entry point (the JAX ``custom_vjp``):
 when a gradient is needed it runs the forward with ``save_lse=True`` and
 the backward kernel; under ``no_grad`` it is exactly the serving call.
-The kernel runs at every batch size (JAX's "batch 1 -> XLA scan" rule is a
-TPU timing choice).
+The backward follows the JAX package's ``bwd_impl="auto"`` rule
+(``bwd_rounds``): at batch >= 2 in bf16 it computes ``_bwd_pallas``'s
+arithmetic (the pre-scaled q, dS and P rounded to bf16 before their
+products) on the tensor cores; in f32 (the same arithmetic, where rounding
+to f32 changes nothing) and at batch 1 (``_bwd_xla_scan``, whose delta is
+rowsum(P * dP), never read from out) all-f32 math on the CUDA cores.
+``BWD_KERNEL.routes`` counts which route each launch took.
 
 The TPU tuning arguments (block_q, block_k, inner_kv, use_exp2, interpret)
 are accepted and ignored.
@@ -46,13 +51,11 @@ BWD_KERNEL = CudaKernel(
     name="flash_mqa_bwd",
     source="flash_mqa_bwd.cu",
     symbol="d2v_flash_mqa_bwd",
-    argtypes=[ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    argtypes=[ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/flash_mqa.py:332",
 )
 SUPPORTED_D = (16, 32, 64)
-_BWD_KEYS_PER_BLOCK = 128  # kKeys in csrc/flash_mqa_bwd.cu
-_BWD_TARGET_BLOCKS = 8 * 132  # ~8 dk/dv blocks per H100 SM
 BWD_CHUNK = 1024  # query rows per step of flash_mqa_bwd_reference
 
 
@@ -66,26 +69,47 @@ def flash_mqa_reference(q, k, v, sm_scale: float, save_lse: bool = False):
     return out
 
 
+def bwd_rounds(q: torch.Tensor) -> bool:
+    """The JAX package's ``bwd_impl="auto"`` (flash_mqa.py:468): batch >= 2
+    takes ``_bwd_pallas``, whose products take the pre-scaled q, dS and P
+    rounded to the input dtype; batch 1 the all-f32 ``_bwd_xla_scan``. In
+    f32 the roundings change nothing, so only a 16-bit batch >= 2 rounds."""
+    return q.shape[0] >= 2 and q.dtype in (torch.bfloat16, torch.float16)
+
+
+def bwd_delta_from_out(q: torch.Tensor) -> bool:
+    """Where delta is rowsum(g * out), as ``_bwd_pallas`` takes it (batch
+    >= 2). ``_bwd_xla_scan`` (batch 1) never reads out: its delta is
+    rowsum(P * dP) of its f32 P and dP, which a bf16 out would perturb."""
+    return q.shape[0] >= 2
+
+
 def flash_mqa_bwd_reference(q, k, v, out, lse, g, sm_scale: float,
                             chunk: int = BWD_CHUNK):
-    """Plain backward in f32, one (chunk, n_kv) tile of query rows at a time
-    (the JAX package's _bwd_xla_scan), so the card can hold it at the
-    training shape. P = exp(s - lse) from the saved lse, delta =
-    rowsum(g * out). Returns dq, dk, dv in the input dtypes."""
+    """Plain backward, one (chunk, n_kv) tile of query rows at a time, so
+    the card can hold it at the training shape. P = exp(s - lse) from the
+    saved lse, delta as ``bwd_delta_from_out`` says, every sum in f32. Where
+    ``bwd_rounds(q)``, the arithmetic of ``_bwd_pallas``: qs = q * sm_scale
+    rounded to the input dtype, s = qs k^T, and dS (for dq, dk) and P (for
+    dv) rounded to the input dtype before their products; else all f32.
+    Returns dq, dk, dv in the input dtypes."""
+    rnd = (lambda t: t.to(q.dtype).float()) if bwd_rounds(q) else (lambda t: t)
+    from_out = bwd_delta_from_out(q)
     kf, vf = k.float(), v.float()
+    qs = rnd(q.float() * sm_scale)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
     for r0 in range(0, q.shape[1], chunk):
         sl = slice(r0, r0 + chunk)
-        qc, gc = q[:, sl].float(), g[:, sl].float()
-        delta = (gc * out[:, sl].float()).sum(-1, keepdim=True)
-        p = torch.exp(torch.einsum("bcd,bmd->bcm", qc * sm_scale, kf)
-                      - lse[:, sl, None].float())
-        ds = p * (torch.einsum("bcd,bmd->bcm", gc, vf) - delta)
+        qc, gc = qs[:, sl], g[:, sl].float()
+        p = torch.exp(torch.einsum("bcd,bmd->bcm", qc, kf) - lse[:, sl, None].float())
+        dp = torch.einsum("bcd,bmd->bcm", gc, vf)
+        delta = ((gc * out[:, sl].float()) if from_out else (p * dp)).sum(-1, keepdim=True)
+        ds = rnd(p * (dp - delta))
         dq[:, sl] = torch.einsum("bcm,bmd->bcd", ds, kf) * sm_scale
-        dk += torch.einsum("bcm,bcd->bmd", ds, qc) * sm_scale
-        dv += torch.einsum("bcm,bcd->bmd", p, gc)
+        dk += torch.einsum("bcm,bcd->bmd", ds, qc)
+        dv += torch.einsum("bcm,bcd->bmd", rnd(p), gc)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -143,8 +167,10 @@ def flash_mqa_fwd(
 def flash_mqa_bwd(q, k, v, out, lse, g, *, sm_scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq, dk, dv (input dtypes) of ``flash_mqa_fwd`` given its ``out``, its
-    ``lse`` and g = dL/dout. delta = rowsum(g * out) is a plain f32 op, as
-    the JAX package computes it in XLA."""
+    ``lse`` and g = dL/dout, on the route ``bwd_rounds`` picks. Where
+    ``bwd_delta_from_out``, delta = rowsum(g * out) is a plain op, as the
+    JAX package computes it in XLA, and so is qs = bf16(q * sm_scale) on the
+    tensor-core route; at batch 1 the kernel computes delta itself."""
     _check_shapes("flash_mqa_bwd", q, k, v)
     if out.shape != q.shape or g.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError("flash_mqa_bwd: out and g must be (b, n_q, d), lse (b, n_q)")
@@ -154,9 +180,17 @@ def flash_mqa_bwd(q, k, v, out, lse, g, *, sm_scale: float
     require_cuda("flash_mqa_bwd", [lse], (torch.float32,))
     b, n_q, d = q.shape
     n_kv = k.shape[1]
-    delta = (g.float() * out.float()).sum(-1)
-    kv_blocks = b * -(-n_kv // _BWD_KEYS_PER_BLOCK)
-    n_split = max(1, min(-(-_BWD_TARGET_BLOCKS // kv_blocks), n_q))
+    route = "tensor_cores" if bwd_rounds(q) else "cuda_cores"
+    tensor_cores = route == "tensor_cores"
+    from_out = bwd_delta_from_out(q)
+    if tensor_cores:
+        q = (q.float() * sm_scale).to(q.dtype)  # this route's kernel takes qs
+    delta = ((g.float() * out.float()).sum(-1) if from_out
+             else torch.empty((b, n_q), device=q.device, dtype=torch.float32))
+    # the kernel's library plans its query splits; partial is sized by it
+    n_split = BWD_KERNEL.query("d2v_flash_mqa_bwd_splits", b, n_q, n_kv, d, int(tensor_cores))
+    if n_split <= 0:
+        raise ValueError(f"flash_mqa_bwd: no split plan for b={b} n_q={n_q} n_kv={n_kv} d={d}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     partial = torch.empty((n_split, b, n_kv, 2 * d), device=q.device,
                           dtype=torch.float32)
@@ -164,7 +198,8 @@ def flash_mqa_bwd(q, k, v, out, lse, g, *, sm_scale: float
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         partial.data_ptr(), b, n_q, n_kv, d, n_split, dtype_code(q.dtype),
-        float(sm_scale), stream_ptr(q.device),
+        int(tensor_cores), int(not from_out), float(sm_scale), stream_ptr(q.device),
+        route=route,
     )
     return dq, dk, dv
 

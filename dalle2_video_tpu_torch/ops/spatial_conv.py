@@ -10,7 +10,8 @@ For a CUDA tensor ``conv3x3`` launches the implicit-GEMM kernel in
 ``csrc/conv3x3.cu`` (output in the input dtype, f32 accumulation; the dx of
 a conv is the same kernel on the flipped, transposed weight) and
 ``conv3x3_wgrad`` the split-K weight-gradient kernel in
-``csrc/conv3x3_wgrad.cu`` (f32 dW). For a CPU tensor each uses its plain
+``csrc/conv3x3_wgrad.cu`` (f32 dW; bf16 on the tensor cores, all nine taps
+from one staged tile, planned by ``wgrad_plan``). For a CPU tensor each uses its plain
 version (``conv3x3_reference``, ``conv3x3_wgrad_reference``: ``F.conv2d``
 and ``torch.nn.grad.conv2d_weight`` on f32 copies, rounded as the kernel
 rounds). There is no other path: a CUDA tensor the kernel does not take
@@ -27,6 +28,7 @@ Two differentiable entry points, as the JAX module has:
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,18 +48,28 @@ KERNEL = CudaKernel(
     argtypes=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/spatial_conv.py:122",
 )
+# The bf16 weight gradient's plan (``wgrad_plan``), owned here: the widest
+# staged row segment and the most staged pixels a group may take, built
+# into csrc/conv3x3_wgrad.cu as its -D macros (its shared-memory ring,
+# 158 KB at these, holds one block per SM); blocks per wave (one per H100
+# SM); and the longest f32 sum a split may run, in pixels.
+WGRAD_SEG = 64
+WGRAD_MAX_K = 208
+_WGRAD_TC_BLOCKS = 132
+WGRAD_CHAIN = 6272
 WGRAD_KERNEL = CudaKernel(
     name="conv3x3_wgrad",
     source="conv3x3_wgrad.cu",
     symbol="d2v_conv3x3_wgrad",
-    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/spatial_conv.py:172",
+    defines={"D2V_WGRAD_SEG": WGRAD_SEG, "D2V_WGRAD_MAX_K": WGRAD_MAX_K},
 )
 CIN_MULTIPLE = 32    # kBK16 in csrc/conv3x3.cu: input channels per staged slice
 COUT_MULTIPLE = 64   # kBN: output channels per block
-WGRAD_MULTIPLE = 64  # csrc/conv3x3_wgrad.cu tiles (tap, 64 channels) x 64
-_WGRAD_PIXELS = 64   # kBP16 there: pixels per bf16 step
-_WGRAD_TARGET_BLOCKS = 8 * 132  # ~8 split-K blocks per H100 SM
+WGRAD_MULTIPLE = 64  # csrc/conv3x3_wgrad.cu tiles 64 channels x 64
+_WGRAD_PIXELS = 64   # f32: the least pixels a split takes
+_WGRAD_TARGET_BLOCKS = 8 * 132  # f32: ~8 split-K blocks per H100 SM
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -134,11 +146,28 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def wgrad_splits(n_pixels: int, c: int, co: int) -> int:
-    """Split-K count: enough (tap, C tile, Co tile, split) blocks for ~8 a
-    SM, each split at least one K step of pixels."""
+    """f32 split-K count: enough (tap, C tile, Co tile, split) blocks for
+    ~8 a SM, each split at least ``_WGRAD_PIXELS`` pixels."""
     tiles = 9 * (c // WGRAD_MULTIPLE) * (co // WGRAD_MULTIPLE)
     steps = -(-n_pixels // _WGRAD_PIXELS)
     return max(1, min(-(-_WGRAD_TARGET_BLOCKS // tiles), steps))
+
+
+def wgrad_plan(n: int, h: int, w: int, c: int, co: int) -> Tuple[int, int, int, int]:
+    """The bf16 kernel's plan: (rows, seg, groups, n_split). A group is
+    ``rows`` image rows of one frame over a ``seg``-column segment, staged
+    at a pitch of seg + 2 pixels within ``WGRAD_MAX_K`` of them; the
+    groups are split into ``n_split`` runs of whole groups, none over
+    ``WGRAD_CHAIN`` pixels, with the (tile, split) blocks filling whole
+    waves of one block per SM."""
+    seg = min(w, WGRAD_SEG)
+    rows = max(1, min(h, WGRAD_MAX_K // (seg + 2)))
+    groups = n * -(-h // rows) * -(-w // seg)
+    tiles = (c // WGRAD_MULTIPLE) * (co // WGRAD_MULTIPLE)
+    least = -(-groups // max(1, WGRAD_CHAIN // (rows * seg)))
+    waves = -(-tiles * least // _WGRAD_TC_BLOCKS)
+    n_split = min(groups, max(least, waves * _WGRAD_TC_BLOCKS // tiles))
+    return rows, seg, groups, n_split
 
 
 def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -153,11 +182,16 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     co = dy.shape[3]
     dy = dy.to(x.dtype).contiguous()
     _require_conv_inputs("conv3x3_wgrad", [x, dy], c, co, WGRAD_MULTIPLE, WGRAD_MULTIPLE)
-    n_split = wgrad_splits(n * h * wd, c, co)
+    if x.dtype == torch.bfloat16:
+        rows, seg, _, n_split = wgrad_plan(n, h, wd, c, co)
+    else:
+        rows = seg = 0
+        n_split = wgrad_splits(n * h * wd, c, co)
     dw = torch.empty((9, c, co), device=x.device, dtype=torch.float32)
     partial = torch.empty((n_split, 9 * c, co), device=x.device, dtype=torch.float32)
     WGRAD_KERNEL.launch(x.data_ptr(), dy.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-                        n, h, wd, c, co, n_split, dtype_code(x.dtype), stream_ptr(x.device))
+                        n, h, wd, c, co, n_split, rows, seg, dtype_code(x.dtype),
+                        stream_ptr(x.device))
     return dw.reshape(3, 3, c, co).permute(3, 2, 0, 1)
 
 

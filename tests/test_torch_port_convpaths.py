@@ -126,6 +126,33 @@ def test_conv3x3_wgrad_matches_jax_wgrad_kernel():
 
 
 # ---------------------------------------------------------------- kernel 8
+@pytest.mark.parametrize("shape", [(180, 64, 64, 64, 64), (180, 32, 32, 128, 128),
+                                   (180, 16, 16, 256, 256), (180, 8, 8, 512, 256),
+                                   (180, 128, 128, 64, 64), (7, 9, 10, 64, 64),
+                                   (3, 5, 70, 512, 64), (2, 13, 3, 64, 512),
+                                   (180, 32, 32, 192, 128), (180, 16, 16, 384, 256),
+                                   (180, 8, 8, 64, 64)])
+def test_wgrad_plan_fits_the_kernel_and_keeps_sums_short(shape):
+    """The bf16 weight-gradient kernel's plan (csrc/conv3x3_wgrad.cu stages
+    a group of `rows` frame rows of a `seg`-column segment at a pitch of
+    seg + 2 pixels, at most WGRAD_MAX_K of them, seg at most WGRAD_SEG,
+    both built into the kernel from the wrapper's values): the groups cover
+    every row and column, no split sums more than WGRAD_CHAIN pixels, and
+    the (tile, split) blocks leave less than a split's tiles idle in their
+    last wave of 132 (one block per SM) where the groups allow. The unet's
+    stages, the cascade's 128 px, ragged and narrow frames."""
+    n, h, w, c, co = shape
+    rows, seg, groups, n_split = port_sc.wgrad_plan(n, h, w, c, co)
+    assert 1 <= rows <= h and 1 <= seg <= min(w, port_sc.WGRAD_SEG)
+    assert -(-rows * (seg + 2) // 16) * 16 <= port_sc.WGRAD_MAX_K
+    assert groups == n * -(-h // rows) * -(-w // seg)
+    assert 1 <= n_split <= groups
+    assert -(-groups // n_split) * rows * seg <= port_sc.WGRAD_CHAIN
+    tiles = (c // 64) * (co // 64)
+    blocks = tiles * n_split
+    assert blocks > -(-blocks // 132) * 132 - tiles or n_split == groups
+
+
 def test_conv_bias_stats_matches_jax_epilogue():
     """y, and the per-(batch row, channel) sums of y and y^2 from the f32
     value: the JAX per-lane sums are folded over the pixel pair's two lanes.

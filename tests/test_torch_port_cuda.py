@@ -151,22 +151,65 @@ def _assert_grads_close(outs, refs, dtype):
             torch.testing.assert_close(o.float(), r.float(), atol=1e-3 * scale, rtol=1e-2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_q,n_kv", [(333, 1), (333, 65), (1000, 5761)])
-def test_flash_bwd_kernel_matches_plain(dev, dtype, n_q, n_kv):
-    g = torch.Generator(device=dev).manual_seed(n_kv)
-    q, go = (torch.randn(2, n_q, 32, generator=g, device=dev).to(dtype) for _ in range(2))
-    k, v = (torch.randn(2, n_kv, 32, generator=g, device=dev).to(dtype) for _ in range(2))
-    out, lse = fm.flash_mqa_fwd(q, k, v, sm_scale=32**-0.5, save_lse=True)
-    before = fm.BWD_KERNEL.launches
-    got = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=32**-0.5)
+def _bwd_route(dtype, b):
+    """The JAX package's bwd_impl "auto" (fm.bwd_rounds): bf16 at batch >= 2
+    on the tensor cores (_bwd_pallas's roundings), else f32 math."""
+    return "tensor_cores" if dtype == torch.bfloat16 and b >= 2 else "cuda_cores"
+
+
+def _flash_bwd_launch(q, k, v, out, lse, go, scale, route):
+    """The kernel once, on the route given; then bit for bit on a second
+    call (the query-split partials are summed in a fixed order)."""
+    before = (fm.BWD_KERNEL.launches, dict(fm.BWD_KERNEL.routes))
+    got = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=scale)
     torch.cuda.synchronize()
-    assert fm.BWD_KERNEL.launches == before + 1
-    assert all(t.dtype == dtype for t in got)
-    _assert_grads_close(got, fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 32**-0.5), dtype)
-    # the query-split partials are summed in a fixed order: bit for bit again
-    again = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=32**-0.5)
+    assert fm.BWD_KERNEL.launches == before[0] + 1
+    assert fm.BWD_KERNEL.routes.get(route, 0) == before[1].get(route, 0) + 1
+    assert all(t.dtype == q.dtype for t in got)
+    again = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=scale)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("n_q,n_kv", [(333, 1), (333, 65), (1000, 4097), (1000, 5761)])
+def test_flash_bwd_kernel_matches_plain(dev, dtype, b, n_q, n_kv):
+    """Every route against the plain version at the same route's arithmetic
+    (n_q never a multiple of the 64-row tile, n_kv never of the 64-key
+    tile or the 128-key block)."""
+    g = torch.Generator(device=dev).manual_seed(n_kv + b)
+    q, go = (torch.randn(b, n_q, 32, generator=g, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, n_kv, 32, generator=g, device=dev).to(dtype) for _ in range(2))
+    out, lse = fm.flash_mqa_fwd(q, k, v, sm_scale=32**-0.5, save_lse=True)
+    got = _flash_bwd_launch(q, k, v, out, lse, go, 32**-0.5, _bwd_route(dtype, b))
+    _assert_grads_close(got, fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 32**-0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype,b", [(torch.bfloat16, 2), (torch.float32, 2),
+                                     (torch.bfloat16, 1)])
+def test_flash_bwd_kernel_logits_below_minus_87(dev, dtype, b):
+    """Every real logit below -87 and a ragged n_kv = 37 (d = 16): a key
+    past n_kv never forms a p, so the gradients stay finite and follow the
+    plain version on each route. Logits near -128 carry f32 spacing ~8e-6,
+    so exp2 against exp moves P by ~1e-4 relative: f32 within 2e-4 of the
+    largest value; bf16 the standing tolerance."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = torch.full((b, 8, 16), 16.0, device=dev).to(dtype)
+    k = (torch.full((b, 37, 16), -2.0, device=dev)
+         + 0.1 * torch.randn(b, 37, 16, generator=g, device=dev)).to(dtype)
+    v, go = (torch.randn(b, n, 16, generator=g, device=dev).to(dtype) for n in (37, 8))
+    assert float(((q.float() * 0.25) @ k.float().transpose(1, 2)).max()) < -87.0
+    out, lse = fm.flash_mqa_fwd(q, k, v, sm_scale=0.25, save_lse=True)
+    got = _flash_bwd_launch(q, k, v, out, lse, go, 0.25, _bwd_route(dtype, b))
+    want = fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 0.25)
+    assert all(torch.isfinite(t).all() for t in got)
+    if dtype == torch.float32:
+        scale = max(float(r.abs().max()) for r in want)
+        for o, r in zip(got, want):
+            torch.testing.assert_close(o, r, atol=2e-4 * scale, rtol=0)
+    else:
+        _assert_grads_close(got, want, dtype)
 
 
 def test_flash_autograd_on_cuda_matches_plain_autograd(dev):
@@ -258,8 +301,13 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, n, h, w, c, co):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,c,co", [(3, 16, 16, 64, 128), (2, 8, 8, 512, 64),
-                                        (7, 9, 10, 64, 64)])
+                                        (7, 9, 10, 64, 64), (2, 6, 20, 128, 512),
+                                        (3, 5, 70, 512, 64), (4, 32, 32, 192, 128)])
 def test_conv3x3_wgrad_kernel_matches_plain_bit_for_bit_twice(dev, dtype, n, h, w, c, co):
+    """Beside the ragged (7, 9, 10): W = 20 and 70, not multiples of 16 (70
+    is two row segments of the bf16 kernel), with Co or C = 512; and a
+    32-wide frame (a 32-column segment, 6 rows a group, the last group of
+    each frame 2 rows) at C = 192, as unet 1's 32 x 32 stage."""
     g, x, _ = _conv_inputs(dev, dtype, n, h, w, c, co, n + c)
     dy = torch.randn(n, h, w, co, generator=g, device=dev).to(dtype)
     before = sc.WGRAD_KERNEL.launches

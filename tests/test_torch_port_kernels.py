@@ -242,6 +242,43 @@ def test_flash_bwd_all_logits_below_minus_87():
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=5e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("b", [2, 1])
+def test_flash_bwd_plain_bf16_follows_the_jax_routing(b):
+    """bf16 at b = 2, n_q = 256, ragged n_kv = 130: the JAX package's
+    bwd_impl "auto" takes _bwd_pallas, which rounds the pre-scaled q, dS and
+    P to bf16 before their products; at b = 1 it takes _bwd_xla_scan, all
+    f32. The port's plain backward follows each: at most 1% of the values
+    differ, none by more than 2^-7 of the largest. (All-f32 arithmetic
+    differs from _bwd_pallas in about half of the values here.)
+    Both sides get the same bf16 inputs and lse, and the port the bf16 out
+    of its forward, as on the training path. _bwd_xla_scan recomputes the
+    softmax and never reads out; at b = 1 the port's delta is rowsum(P * dP)
+    as there (with rowsum(g * bf16 out) about 12% of dq would differ)."""
+    from dalle2_video_tpu.ops.pallas.flash_mqa import _bwd_pallas, _bwd_xla_scan
+
+    rng = np.random.default_rng(40 + b)
+    d, bf = 32, torch.bfloat16
+    q, k, v, g = (_t(_np(rng, b, n, d)).to(bf) for n in (256, 130, 130, 256))
+    scale = d**-0.5
+    out, lse = port_flash.flash_mqa_fwd(q, k, v, sm_scale=scale, save_lse=True)
+    assert port_flash.bwd_rounds(q) == (b == 2)
+    j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    if b == 2:
+        want = _o0(lambda *a: _bwd_pallas(*a, sm_scale=scale, interpret=True, block_q=64,
+                                          block_k=64),
+                   j(q), j(k), j(v), j(out), lse.numpy()[..., None], j(g))
+    else:
+        want = _o0(lambda *a: _bwd_xla_scan(*a, sm_scale=scale, block_q=64), j(q), j(k), j(v),
+                   j(g))
+    got = port_flash.flash_mqa_bwd_reference(q, k, v, out, lse, g, scale, chunk=100)
+    for name, w, a in zip(("dq", "dk", "dv"), want, got):
+        assert a.dtype == bf, name
+        w = np.asarray(w.astype(jnp.float32))
+        diff = np.abs(a.float().numpy() - w)
+        assert np.mean(diff > 0) <= 0.01, name
+        assert diff.max() <= 2**-7 * np.abs(w).max(), name
+
+
 @pytest.mark.parametrize("c,l", [(8, 200), (64, 77)])  # C = 8 and C = 64, ragged L
 def test_groupnorm_bwd_plain_matches_pallas_backward(c, l):
     """All five gradients (x, gamma, beta, FiLM scale and shift) through
