@@ -15,9 +15,10 @@ Phases (any failure exits non-zero and prints no result line):
      The backward kernels are checked the same way at the training shapes
      (bf16, and one f32 case each), and so are the opt-in conv paths'
      kernels (the 3x3 conv and its dx, its weight gradient, the conv + bias
-     + statistics forward, the fused block's GroupNorm backward) at the
-     slice's shapes, the weight gradient at every shape train_conv gives
-     it (WGRAD_STAGES);
+     + statistics forward, the fused block's GroupNorm backward): the three
+     convs at every shape the conv paths give them (CONV_SHAPES,
+     the sites of probes/conv_rows.py), with their plans logged. Every kernel that sums gives
+     two bit-equal calls (the GroupNorm kernels, rows 3, 4 and 9, too);
   3. module check: small UNet3Ds with the kernel impls against the same
      weights on the plain impls, f32 and bf16; then one loss's gradients
      through both, bf16 compute over f32 masters. Two cases: the serving /
@@ -60,8 +61,10 @@ Phases (any failure exits non-zero and prints no result line):
      temporal-SR layers (TemporalAttention, LinearAttention,
      NearestUpsample3D, the temporal_conv unet) on the card to the same
      modules on the CPU, and the remat policies' gradients (bit for bit on
-     the conv kernel's route, REMAT_CASES) and recompute launches on the
-     conv paths' kernels.
+     both conv-path routes, REMAT_CASES) and recompute launches on the
+     conv paths' kernels. Every path's run records the shapes that reach
+     the three conv kernels (ShapeRecord) and fails unless they are the
+     path's own (conv_path_shapes), all of them checked in phase 2.
 Then it prints the phase times, the {"kernels": [...]} line, the card line,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -89,6 +92,13 @@ import time
 try:
     from dalle2_video_tpu_torch.engine.decoder import cascade_sr_overrides
     from dalle2_video_tpu_torch.probes import card_line, time_ms
+    from dalle2_video_tpu_torch.probes.conv_rows import (
+        FUSED_SITES,
+        KERNELS,
+        TRAIN_BT,
+        all_shapes,
+        conv_path_shapes,
+    )
 except ImportError as exc:
     print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
     sys.exit(2)
@@ -252,11 +262,14 @@ def check_kernels(dev, torch):
         beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(bf)
         s_ = (0.1 * torch.randn(b, c, generator=g, device=dev)).to(bf)
         t_ = (0.1 * torch.randn(b, c, generator=g, device=dev)).to(bf)
-        out = gn.groupnorm_film_silu(x, gamma, beta, s_, t_, 8)
+        out = gn.groupnorm_film_silu(x, gamma, beta, s_, t_, 8, return_stats=True)
         ref = gn.groupnorm_film_reference(x, gamma, beta, s_, t_, 8, 1e-5)
         # the statistics are f32 sums over up to 1.5M values in another order
-        e, tol = check("groupnorm_film_silu_fwd", f"{label} B={b} L={l} C={c}", out, ref,
+        e, tol = check("groupnorm_film_silu_fwd", f"{label} B={b} L={l} C={c}", out[0], ref,
                        atol=2e-2, rtol=1e-2)
+        again = gn.groupnorm_film_silu(x, gamma, beta, s_, t_, 8, return_stats=True)
+        if not all(torch.equal(a, b_) for a, b_ in zip(out, again)):
+            raise AssertionError("groupnorm_film_silu_fwd: two calls differ (the fold order)")
         if i == 0:
             bnd, by = bound(2 * x.numel() * 2)
             rows["groupnorm_film_silu_fwd"] = dict(
@@ -405,6 +418,8 @@ def check_backward_kernels(dev, torch, rows):
         e, tol = rel("groupnorm_film_silu_bwd", f"{label} {dtype} B={b} L={l} C={c}",
                      ("dx", "dA", "dB"), got, want, rtol=0.0 if dtype == torch.float32 else 1e-2,
                      atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, gn.groupnorm_film_bwd(*args))):
+            raise AssertionError("groupnorm_film_silu_bwd: two calls differ (the fold order)")
         if dtype == bf:
             kms = time_ms(lambda: gn.groupnorm_film_bwd(*args))
             bnd, by = bound(3 * x.numel() * 2)  # read x and g, write dx
@@ -454,13 +469,18 @@ def check_conv_kernels(dev, torch, rows):
         return x.permute(0, 3, 1, 2), wt.contiguous(memory_format=torch.channels_last)
 
     # row 6: the conv forward (pallas_small at the 8x8 512-wide sites) and
-    # its dx (every fused site; the dx of the 64-wide stage is this shape)
-    for dtype, label, shape in ((torch.float32, "f32 check", (6, 16, 16, 64, 128)),
-                                (bf, "unet1 mid (pallas_small)", (180, 8, 8, 512, 512)),
-                                (bf, "unet1 stage 0 (dx)", stage0)):
+    # its dx (every fused site) at every shape the conv paths give it
+    # (CONV_SHAPES), each with its plan logged, two calls bit-equal; the
+    # JSON row is the dx of unet 1's 64x64 stage
+    row6 = [(torch.float32, "f32 check", (6, 16, 16, 64, 128))]
+    row6 += [(bf, "conv paths", shape) for shape in sorted(CONV_SHAPES["conv3x3"])]
+    for dtype, label, shape in row6:
         x, wt = inputs(dtype, *shape)
-        e, tl = rel("conv3x3", f"{label} {dtype} {shape}", ("y",), [sc.conv3x3(x, wt)],
+        got = sc.conv3x3(x, wt)
+        e, tl = rel("conv3x3", f"{label} {dtype} {shape}", ("y",), [got],
                     [sc.conv3x3_reference(x, wt)], **tol[dtype])
+        if not torch.equal(got, sc.conv3x3(x, wt)):
+            raise AssertionError(f"conv3x3 {shape}: two calls differ")
         if dtype == bf:
             n, h, w, c, co = shape
             bnd, by = bound(2 * (x.numel() + wt.numel() + n * h * w * co),
@@ -468,25 +488,27 @@ def check_conv_kernels(dev, torch, rows):
             kms = time_ms(lambda: sc.conv3x3(x, wt))
             xc, wc = cl(x, wt)
             lib = library_time("conv3x3", lambda: F.conv2d(xc, wc, padding=1))
-            log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) cudnn_ms={lib}")
+            log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) cudnn_ms={lib} plan "
+                f"{tuple(sc.conv_plan(*shape))} (frames, rows, seg, tiles_per_row, blocks)")
             if shape == stage0:
                 rows["conv3x3"] = dict(
                     max_abs_err=e, tolerance=tl, shape=f"x{tuple(x.shape)} w{tuple(wt.shape)} bf16",
                     ms=kms, plain_ms=time_ms(lambda: sc.conv3x3_reference(x, wt), iters=3),
                     library_ms=lib, bound_ms=bnd, bound_by=by)
-        del x, wt
+        del x, wt, got
 
     # row 7: the weight gradient at every shape train_conv's fused sites
-    # give it (WGRAD_STAGES; its train run checks that no other reaches the
-    # kernel), each with its own plan (ops/spatial_conv.py::wgrad_plan).
+    # give it (FUSED_SITES at TRAIN_BT; its train run checks that no other
+    # reaches the kernel), each with its own plan
+    # (ops/spatial_conv.py::wgrad_plan).
     # Its oracle is the plain version on f64 copies: over the 737,280
     # pixels of the 64x64 stage the f32 plain version (cuDNN, one long sum
     # per value) is itself off by ~1e-4 of the largest value, the kernel
     # (split-K, short f32 sums) by ~1e-5 (both logged below), so 1e-5 of
     # the largest value.
     wgrad_cases = [(torch.float32, "f32 check", (6, 16, 16, 64, 128))]
-    wgrad_cases += [(bf, f"unet{u} {h}x{w} {c}->{co}", (WGRAD_BT, h, w, c, co))
-                    for u, stages in WGRAD_STAGES.items() for h, w, c, co in stages]
+    wgrad_cases += [(bf, f"unet{u} {h}x{w} {c}->{co}", (TRAIN_BT, h, w, c, co))
+                    for u, stages in FUSED_SITES.items() for h, w, c, co in stages]
     for dtype, label, shape in wgrad_cases:
         x, _ = inputs(dtype, *shape)
         dy = torch.randn(*shape[:3], shape[4], generator=g, device=dev).to(dtype)
@@ -517,33 +539,42 @@ def check_conv_kernels(dev, torch, rows):
                     library_ms=lib, bound_ms=bnd, bound_by=by)
         del x, dy, got
 
-    # row 8: conv + bias + statistics of the fused forward, batch 2 rows
-    for dtype, label, shape in ((torch.float32, "f32 check (147-pixel rows)", (6, 7, 7, 64, 64)),
-                                (bf, "unet1 stage 0", stage0)):
-        x, wt = inputs(dtype, *shape)
+    # row 8: conv + bias + statistics of the fused forward at every shape
+    # the conv paths give it (CONV_SHAPES: the fused sites at B*T frames in
+    # B batch rows), each with its plan logged, two calls bit-equal; the
+    # JSON row is unet 1's 64x64 stage in 2 rows
+    row8 = [(torch.float32, "f32 check (147-pixel rows)", (6, 7, 7, 64, 64, 2))]
+    row8 += [(bf, "conv paths", shape) for shape in sorted(CONV_SHAPES["conv3x3_bias_stats"])]
+    for dtype, label, shape in row8:
+        x, wt = inputs(dtype, *shape[:5])
+        batch = shape[5]
         bias = 0.5 * torch.randn(shape[4], generator=g, device=dev)
-        got, want = fb.conv_bias_stats(x, wt, bias, 2), fb.conv_bias_stats_reference(x, wt, bias, 2)
+        got = fb.conv_bias_stats(x, wt, bias, batch)
+        want = fb.conv_bias_stats_reference(x, wt, bias, batch)
         e, tl = rel("conv3x3_bias_stats", f"{label} {dtype} {shape} y", ("y",), got[:1],
                     want[:1], **tol[dtype])
         rel("conv3x3_bias_stats", f"{label} {dtype} {shape}", ("sum", "sum of squares"),
             got[1:], want[1:], rtol=0.0, atol_frac=1e-5)
-        if not all(torch.equal(a, b) for a, b in zip(got, fb.conv_bias_stats(x, wt, bias, 2))):
-            raise AssertionError("conv3x3_bias_stats: two calls differ")
+        if not all(torch.equal(a, b) for a, b in zip(got, fb.conv_bias_stats(x, wt, bias, batch))):
+            raise AssertionError(f"conv3x3_bias_stats {shape}: two calls differ")
         if dtype == bf:
-            n, h, w, c, co = shape
+            n, h, w, c, co = shape[:5]
             bnd, by = bound(2 * (x.numel() + wt.numel() + n * h * w * co) + 4 * (co + 4 * co),
-                            flops=conv_flops(*shape))
+                            flops=conv_flops(*shape[:5]))
+            kms = time_ms(lambda: fb.conv_bias_stats(x, wt, bias, batch))
             xc, wc = cl(x, wt)
-            rows["conv3x3_bias_stats"] = dict(
-                max_abs_err=e, tolerance=tl, shape=f"x{tuple(x.shape)} w{tuple(wt.shape)} bf16, "
-                                                   "2 batch rows",
-                ms=time_ms(lambda: fb.conv_bias_stats(x, wt, bias, 2)),
-                plain_ms=time_ms(lambda: fb.conv_bias_stats_reference(x, wt, bias, 2), iters=3),
-                # no one call computes conv + bias + the statistics; what the
-                # conv alone costs in cuDNN stands beside it
-                library_ms=None, conv_alone_ms=library_time(
-                    "conv3x3_bias_stats", lambda: F.conv2d(xc, wc, padding=1)),
-                bound_ms=bnd, bound_by=by)
+            # no one call computes conv + bias + the statistics; what the
+            # conv alone costs in cuDNN stands beside it
+            alone = library_time("conv3x3_bias_stats", lambda: F.conv2d(xc, wc, padding=1))
+            log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) cudnn_conv_alone_ms={alone} plan "
+                f"{tuple(sc.conv_plan(*shape))} (frames, rows, seg, tiles_per_row, blocks)")
+            if shape == (*stage0, 2):
+                rows["conv3x3_bias_stats"] = dict(
+                    max_abs_err=e, tolerance=tl, shape=f"x{tuple(x.shape)} w{tuple(wt.shape)} bf16, "
+                                                       "2 batch rows",
+                    ms=kms, plain_ms=time_ms(lambda: fb.conv_bias_stats_reference(
+                        x, wt, bias, batch), iters=3),
+                    library_ms=None, conv_alone_ms=alone, bound_ms=bnd, bound_by=by)
         del x, wt, got, want
 
     # row 9: the fused block's GroupNorm-FiLM-SiLU backward on the conv
@@ -559,10 +590,13 @@ def check_conv_kernels(dev, torch, rows):
         mean, rstd = fb.stats_to_mean_rstd(*sums, 8, l * c // 8, 1e-5)
         a_vec, b_vec = fb.fold_ab(gamma, beta, s_, t_, b)
         args = (y, gy, a_vec, b_vec, mean, rstd, 8)
+        got = gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL)
         e, tl = rel("fused_block_gn_bwd", f"{label} {dtype} B={b} L={l} C={c}", ("dy", "dA", "dB"),
-                    gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL),
-                    gn.groupnorm_film_bwd_reference(*args),
+                    got, gn.groupnorm_film_bwd_reference(*args),
                     rtol=tol[dtype]["rtol"], atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
+        if not all(torch.equal(a, b_) for a, b_ in zip(
+                got, gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL))):
+            raise AssertionError("fused_block_gn_bwd: two calls differ (the fold order)")
         if dtype == bf:
             bnd, by = bound(3 * y.numel() * 2)  # read y and g, write dy
             rows["fused_block_gn_bwd"] = dict(
@@ -823,15 +857,14 @@ def check_temporal_sr_layers(dev, torch):
 
 
 # The remat checks' two routes through the conv paths' small UNet3D: the
-# conv kernel (pallas_small, bf16) with the plain GroupNorm, where nothing
-# in the forward or backward is nondeterministic, so every policy must give
-# the unremat gradients bit for bit; and the fused blocks (f32), whose
-# GroupNorm backward (csrc/groupnorm_film_bwd.cu) sums each group's dA / dB
-# with float atomics in the order the blocks finish, so two runs differ in
-# the last bits: 1e-5 relative L2 there, about 10x what that order costs in
-# f32. (name, knobs, compute dtype, tolerance)
-REMAT_CASES = [("conv kernel", dict(spatial_conv_impl="pallas_small"), "bfloat16", 0.0),
-               ("fused blocks", dict(groupnorm_impl="fused"), "float32", 1e-5)]
+# conv kernel (pallas_small, bf16) with the plain GroupNorm, and the fused
+# blocks (f32: the conv kernel with its statistics epilogue, the GroupNorm
+# backward, the conv dx and weight-gradient kernels). Every kernel of
+# either route sums in a fixed order (no atomics) and cuDNN is held to
+# deterministic algorithms, so every policy must give the unremat gradients
+# bit for bit on both. (name, knobs, compute dtype)
+REMAT_CASES = [("conv kernel", dict(spatial_conv_impl="pallas_small"), "bfloat16"),
+               ("fused blocks", dict(groupnorm_impl="fused"), "float32")]
 
 
 def check_remat_policies(dev, torch):
@@ -851,7 +884,7 @@ def check_remat_policies(dev, torch):
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        for case, knobs, dtype, tol in REMAT_CASES:
+        for case, knobs, dtype in REMAT_CASES:
             dtype = getattr(torch, dtype)
             kw = dict(MODULE_CASES["conv paths"]["kw"], **knobs)
             torch.manual_seed(0)
@@ -871,12 +904,12 @@ def check_remat_policies(dev, torch):
 
                 used = _counted(torch, step, (), f"remat {case} {policy}")[1]
                 results[policy] = ({k: p.grad for k, p in unet.named_parameters()}, used)
-            check_remat_case(case, tol, results)
+            check_remat_case(case, results)
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
 
-def check_remat_case(case, tol, results):
+def check_remat_case(case, results):
     ref, ref_used = results[None]
 
     def worst(grads):
@@ -886,8 +919,8 @@ def check_remat_case(case, tol, results):
     for policy, (grads, used) in results.items():
         same = all(grads[k].equal(ref[k]) for k in ref)
         log(f"remat {case} {policy}: gradients vs no remat: bit for bit {same}, worst relative "
-            f"L2 {worst(grads):.2e} (tol {tol:g}); launches {used}")
-        if not (same if tol == 0 else worst(grads) <= tol):
+            f"L2 {worst(grads):.2e}; launches {used}")
+        if not same:
             raise AssertionError(f"remat {case} {policy}: gradients differ from the unremat ones")
     if case == "fused blocks":
         # the fused blocks' forward kernel runs again under "nothing"
@@ -984,18 +1017,20 @@ def serve(dev, torch, path: str, profile: bool = False):
             k.reset()
         torch.cuda.reset_peak_memory_stats()
         t_submit = time.time()
-        futs = [engine.submit(GenRequest(f"a person smiling #{i}", seed=100 + i,
-                                         cond_scale=3.0, ddim_steps=steps))
-                for i in range(requests)]
-        done, _ = wait(futs, timeout=900)
-        if len(done) != requests:
-            raise AssertionError(f"{path}: requests did not finish")
-        results = [f.result() for f in futs]
+        with ShapeRecord() as shapes:
+            futs = [engine.submit(GenRequest(f"a person smiling #{i}", seed=100 + i,
+                                             cond_scale=3.0, ddim_steps=steps))
+                    for i in range(requests)]
+            done, _ = wait(futs, timeout=900)
+            if len(done) != requests:
+                raise AssertionError(f"{path}: requests did not finish")
+            results = [f.result() for f in futs]
         wall = time.time() - t_submit
         launches = {k.name: k.launches for k in kernels}
         stats = engine.stats()
     finally:
         engine.close()
+    shapes.check(path, conv_path_shapes(path, {2 * 90 * r["batch_size"] for r in results}))
 
     for i, res in enumerate(results):
         vid = res["video"]
@@ -1024,7 +1059,7 @@ def serve(dev, torch, path: str, profile: bool = False):
 
 
 # --------------------------------------------------------------- phase 5
-TRAIN_BATCH = 2
+TRAIN_BATCH = TRAIN_BT // 90
 # The training paths at the same widths and recipe (attention_impl auto ->
 # flash at the 5760-token bottlenecks, cross_attention_impl xla, bf16
 # compute over f32 masters, batch 2). Each has its overrides, its steps per
@@ -1045,42 +1080,57 @@ TRAIN_PATHS = {
                           steps=3, checkpoint=False),
 }
 CONV_SITES = {1: (44, 7), 2: (19, 0)}  # (fused blocks, pallas_small convs) per forward
-# Every (H, W, C, Co) that train_conv's fused sites hand the weight
-# gradient (row 7) per unet, at B*T = batch 2 x 90 frames: unet 1's 44
-# sites a step, unet 2's 19. check_conv_kernels holds each against the
-# f64 oracle; train() fails if another shape reaches the kernel.
-WGRAD_BT = TRAIN_BATCH * 90
-WGRAD_STAGES = {
-    1: [(64, 64, 64, 64), (64, 64, 128, 64), (32, 32, 64, 64), (32, 32, 128, 128),
-        (32, 32, 192, 128), (16, 16, 128, 128), (16, 16, 256, 256), (16, 16, 384, 256),
-        (8, 8, 256, 256)],
-    2: [(16, 16, 64, 64), (8, 8, 64, 64), (8, 8, 128, 128), (8, 8, 192, 128)],
-}
+# The conv paths' sites (dalle2_video_tpu_torch/probes/conv_rows.py owns
+# them): the fused Block3D's (H, W, C, Co) per unet (unet 1's 44 sites a
+# step, unet 2's 19) and unet 1's 7 pallas_small convs. The weight gradient
+# (row 7) takes the fused sites at train_conv's B*T = TRAIN_BT (batch 2 x
+# 90 frames); row 8 (conv + bias + statistics) at each path's B*T in its
+# batch rows; row 6 the fused sites' dx (H, W, Co -> C) in train_conv's
+# backward and the pallas_small forwards. check_conv_kernels holds each
+# kernel at every such shape (CONV_SHAPES); the paths' runs fail if
+# another reaches a kernel (conv_path_shapes).
+CONV_SHAPES = all_shapes()
 
 
-class WgradShapes:
-    """Records the shapes that reach ops/spatial_conv.py::conv3x3_wgrad
-    while it is entered (the fused block calls it through the module)."""
+class ShapeRecord:
+    """Records the shapes that reach the conv kernels' wrappers while it is
+    entered (the callers look each wrapper up by name in its module):
+    conv3x3 (x's shape, Co), conv3x3_wgrad (x's shape, Co),
+    conv3x3_bias_stats (x's shape, Co, batch rows)."""
 
     def __init__(self):
-        self.seen = set()
-
-    def __enter__(self):
+        from dalle2_video_tpu_torch.ops import fused_block as fb
         from dalle2_video_tpu_torch.ops import spatial_conv as sc
 
-        self._orig = orig = sc.conv3x3_wgrad
+        self.targets = {"conv3x3": (sc, "conv3x3", lambda x, w: (*x.shape, w.shape[0])),
+                        "conv3x3_wgrad": (sc, "conv3x3_wgrad",
+                                          lambda x, dy: (*x.shape, dy.shape[3])),
+                        "conv3x3_bias_stats": (fb, "conv_bias_stats",
+                                               lambda x, w, bias, batch: (*x.shape, w.shape[0],
+                                                                          batch))}
+        self.seen = {k: set() for k in KERNELS}
+        self._orig = {}
 
-        def recording(x, dy):
-            self.seen.add((*x.shape, dy.shape[3]))
-            return orig(x, dy)
+    def __enter__(self):
+        for name, (mod, attr, key) in self.targets.items():
+            orig = self._orig[name] = getattr(mod, attr)
 
-        sc.conv3x3_wgrad = recording
+            def recording(*args, _orig=orig, _key=key, _seen=self.seen[name]):
+                _seen.add(_key(*args))
+                return _orig(*args)
+
+            setattr(mod, attr, recording)
         return self
 
     def __exit__(self, *exc):
-        from dalle2_video_tpu_torch.ops import spatial_conv as sc
+        for name, (mod, attr, _) in self.targets.items():
+            setattr(mod, attr, self._orig[name])
 
-        sc.conv3x3_wgrad = self._orig
+    def check(self, path, want):
+        log(f"{path}: conv kernel shapes {({k: len(v) for k, v in self.seen.items()})}")
+        if self.seen != want:
+            raise AssertionError(f"{path}: the conv kernels took shapes {self.seen}; "
+                                 f"the path gives {want} (check_conv_kernels: CONV_SHAPES)")
 
 
 def check_bwd_routes(label, launches):
@@ -1208,7 +1258,7 @@ def train(dev, torch, path: str, profile: bool = False):
     as_dev = lambda a: torch.as_tensor(a, device=dev)
     totals = {k.name: 0 for k in kernels}
     ms = {1: [], 2: []}
-    with WgradShapes() as wgrad:
+    with ShapeRecord() as shapes:
         for step in range(n_steps):
             batch = data.batch_items(np.arange(step * b, (step + 1) * b))
             vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
@@ -1223,10 +1273,7 @@ def train(dev, torch, path: str, profile: bool = False):
                 for k, v in got.items():
                     totals[k] += v
                 log(f"{path}: step {step} unet {u}: loss {loss:.4f}, {t_ms:.1f} ms")
-    checked = {(WGRAD_BT, *st) for stages in WGRAD_STAGES.values() for st in stages}
-    if wgrad.seen != (checked if path == "train_conv" else set()):
-        raise AssertionError(f"{path}: the weight gradient took shapes {sorted(wgrad.seen)}; "
-                             f"check_conv_kernels checks {sorted(checked)} for train_conv")
+    shapes.check(path, conv_path_shapes(path))
     batch = data.batch_items(np.arange(n_steps * b, (n_steps + 1) * b))
     vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
     for u in (1, 2):

@@ -21,43 +21,66 @@
 // tensor cores.
 //
 // Design, bf16 (the model path): an implicit GEMM, M = output pixels, N =
-// Co, K = 9 * C, on mma.sync m16n8k16 with f32 accumulators (the fragment
-// layout of flash_mqa.cu). A block owns 128 consecutive output pixels (in
-// flat (n, h, w) order) x 64 output channels, 8 warps of 32 x 32. For each
-// 32-channel slice of C it stages in shared memory:
-//   * the input rows the 9 taps of its pixels read -- the tile with its
-//     1-pixel halo: for tap (dh, dw) pixel p reads flat pixel
-//     p + (dh - 1) W + (dw - 1), so three runs of 130 pixels starting at
-//     p0 + (dh - 1) W - 1 cover it; when W < 130 the runs overlap and are
-//     staged once as one run of 2W + 130 pixels. Pixels past either end of
-//     the tensor are staged as zeros;
-//   * the 9 taps' 64 x 32 weight slices.
-// Then the 9 taps x 2 k-steps run from shared memory; a tap whose source
-// pixel falls outside its frame (the SAME padding) contributes a zero A
-// fragment, chosen per pixel from a 9-bit mask computed once per block.
+// Co, K = 9 * C, on mma.sync m16n8k16 with f32 accumulators, laid out as
+// the weight gradient's (conv3x3_wgrad.cu):
+//   * persistent blocks: a block owns one 64-wide Co tile and walks a
+//     static run of output tiles (every blocks_per_co-th), the blocks
+//     filling whole waves of one block per SM. A tile is F frames x R rows
+//     x a segment of at most 64 columns, at most 512 pixels, and never
+//     straddles two batch rows (ops/spatial_conv.py::conv_plan picks F, R,
+//     the segment and the blocks);
+//   * x staged once per tile and 32-channel slice: every staged frame with
+//     its halo rows and a one-pixel zero border at a pitch of P = segment
+//     + 2 pixels, by cp.async with zero-fill. Output pixel (f, r, c) reads
+//     tap (dh, dw) at staged pixel (f (R + 2) + r + dh) P + c + dw: the
+//     same tile at a constant offset, no per-pixel tap mask or select. The
+//     SAME padding is zeros in shared memory, so a neighbouring frame's
+//     value (an inf) never enters a product;
+//   * a two-stage ring: the next (tile, slice) is in flight while the
+//     tensor cores work on this one;
+//   * weights: at C <= 64 the nine taps of every slice stay resident for
+//     the block's whole run of tiles (staged once per block); above, and
+//     for a block of one tile, each slice's nine taps go through the ring
+//     beside x, once per tile of up to 512 pixels;
+//   * 8 warps of 64 pixels x 64 channels (128 f32 accumulators a thread);
+//     A fragments by ldmatrix.x4 from the [pixel][channel] tile (each
+//     lane's row address fixed per plan, a tap adds its offset), B by
+//     ldmatrix.x4 from the [tap][co][channel] weights; rows padded to 40
+//     elements, so 8 consecutive pixels hit 8 different 16-byte bank
+//     groups at any tap offset. Each (tap, k16) step's A fragments are
+//     loaded a step ahead;
+//   * epilogue: the rounded tile goes through the x buffer its last slice
+//     used (free until the ring refills it) and leaves in whole 128-byte
+//     rows of 64 channels.
 // The TPU kernel's pixel-pair packing and 4/3 zero padding existed to fill
 // 128-lane vectors at C = 64; none of it is needed here.
 //
-// f32 (checks and f32 configs; TF32 is off by the port's policy) runs the
-// same tiling on the CUDA cores: 64 pixels x 64 channels a block, a 4 x 4
-// register tile a thread, 16-channel slices.
+// f32 (checks and f32 configs; TF32 is off by the port's policy) runs on
+// the CUDA cores: 64 pixels x 64 channels a block, a 4 x 4 register tile a
+// thread, 16-channel slices, the tap mask below.
 //
-// Statistics epilogue: a block's pixels all belong to one batch row (the
-// grid's z), so a block's partial sums never straddle two rows. Each
-// block writes its per-channel partial (sum y, sum y^2) for its pixels --
-// the thread sums folded by warp shuffles, then across warps through
+// Statistics epilogue: a tile's pixels all belong to one batch row. Each
+// tile writes its per-channel partial (sum y, sum y^2) of its valid pixels
+// -- the thread sums folded by warp shuffles, then across warps through
 // shared memory, in a fixed order -- and a second kernel adds the
-// partials of each (batch row, channel) in a fixed order. No atomics: two
+// partials of each (batch row, channel) in tile order. No atomics: two
 // calls agree bit for bit.
 
-#include <type_traits>
-
 #include "common.cuh"
+
+// The plan's constants are the wrapper's (ops/spatial_conv.py: CONV_BK,
+// CONV_BN, CONV_TILE, CONV_SEG, CONV_STAGED, CONV_F32_TILE), handed in as
+// -D macros when it builds this file.
+#if !defined(D2V_CONV_BK) || !defined(D2V_CONV_BN) || !defined(D2V_CONV_TILE) || \
+    !defined(D2V_CONV_SEG) || !defined(D2V_CONV_STAGED) || !defined(D2V_CONV_F32_TILE)
+#error "build with the D2V_CONV_* -D macros (ops/_cuda.py does)"
+#endif
 
 namespace {
 
 constexpr int kTaps = 9;
-constexpr int kBN = 64;  // output channels per block
+constexpr int kBN = D2V_CONV_BN;  // output channels per block
+static_assert(kBN == 64, "a warp's 64-channel tile is the block's");
 
 // ---------------------------------------------------------------- geometry
 struct Geom {
@@ -66,6 +89,282 @@ struct Geom {
   int R;            // pixels per batch row (the statistics' unit)
 };
 
+// ------------------------------------------------------------ bf16 / mma
+using bf16 = __nv_bfloat16;
+constexpr int kBK16 = D2V_CONV_BK;       // input channels per staged slice
+static_assert(kBK16 == 32, "a staged pixel row is four 16-byte copies");
+constexpr int kRow16 = kBK16 + 8;        // padded staged row (elements)
+constexpr int kWarps16 = 8;
+constexpr int kThreads16 = kWarps16 * 32;
+constexpr int kWarpM = 64;               // output pixels per warp
+constexpr int kTile16 = D2V_CONV_TILE;   // output pixels per tile
+static_assert(kTile16 == kWarps16 * kWarpM, "a tile is the 8 warps' pixels");
+constexpr int kSeg = D2V_CONV_SEG;       // widest column segment
+constexpr int kStaged = D2V_CONV_STAGED; // most staged pixels per tile
+constexpr int kXStage = kStaged * kRow16;           // elements per x stage
+constexpr int kWSlice = kTaps * kBN * kRow16;       // elements per weight slice
+constexpr int kResidentSlices = 2;                  // C <= 64: all weights resident
+constexpr size_t kSmem16 = (2 * static_cast<size_t>(kXStage) + 2 * kWSlice) * sizeof(bf16);
+static_assert(kSmem16 + kWarps16 * kBN * 2 * sizeof(float) <= 227 * 1024,
+              "the ring, the weights and the statistics fold fit one SM");
+static_assert(kTile16 * kBN <= kXStage, "an x stage holds the rounded output tile");
+
+struct Plan {
+  int F, R, seg, P;        // frames, rows, columns of a tile; staged row pitch
+  int n_fg, n_rg, n_seg;   // frame groups per batch row, row groups, segments
+  int tiles_per_row;       // n_fg * n_rg * n_seg
+  int tiles;               // batch rows * tiles_per_row
+  int frames;              // frames per batch row
+  int blocks_per_co;
+  int staged, m_used;      // F (R + 2) P staged pixels; F R seg output pixels
+};
+
+struct TileAt {
+  int frame0, frame_end, row0, col0;
+};
+
+__device__ __forceinline__ TileAt tile_at(int t, const Plan& pl) {
+  const int brow = t / pl.tiles_per_row;
+  int rem = t - brow * pl.tiles_per_row;
+  const int sg = rem % pl.n_seg;
+  rem /= pl.n_seg;
+  const int rg = rem % pl.n_rg;
+  const int fg = rem / pl.n_rg;
+  TileAt ta;
+  ta.frame0 = brow * pl.frames + fg * pl.F;
+  ta.frame_end = (brow + 1) * pl.frames;
+  ta.row0 = rg * pl.R;
+  ta.col0 = sg * pl.seg;
+  return ta;
+}
+
+// x of tile ta, channels c0 .. c0 + 31, with halo rows and zero border
+__device__ __forceinline__ void stage_x(bf16* xs, const bf16* x, const TileAt& ta,
+                                        const Geom& g, const Plan& pl, int c0) {
+  const int per_frame = (pl.R + 2) * pl.P;
+  for (int i = threadIdx.x; i < pl.staged * 4; i += kThreads16) {
+    const int q = i >> 2, v = (i & 3) * 8;
+    const int f = q / per_frame;
+    const int rem = q - f * per_frame;
+    const int rr = rem / pl.P, cc = rem - rr * pl.P;
+    const int fr = ta.frame0 + f, hh = ta.row0 + rr - 1, ww = ta.col0 + cc - 1;
+    const bool in = fr < ta.frame_end && hh >= 0 && hh < g.H && ww >= 0 && ww < g.W;
+    const long long src = in ? (static_cast<long long>(fr) * g.H + hh) * g.W + ww : 0;
+    d2v::cp_async16(xs + q * kRow16 + v, x + src * g.C + c0 + v, in);
+  }
+}
+
+// the nine taps' (64 co x 32 c) weights of channels c0 .. c0 + 31
+__device__ __forceinline__ void stage_w(bf16* ws, const bf16* wk, const Geom& g, int co0,
+                                        int c0) {
+  for (int i = threadIdx.x; i < kTaps * kBN * 4; i += kThreads16) {
+    const int v = (i & 3) * 8, n = (i >> 2) % kBN, tap = (i >> 2) / kBN;
+    d2v::cp_async16(ws + (tap * kBN + n) * kRow16 + v,
+                    wk + (static_cast<size_t>(tap) * g.Co + co0 + n) * g.C + c0 + v, true);
+  }
+}
+
+template <bool kStats>
+__global__ void __launch_bounds__(kThreads16, 1)
+conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
+                    const float* __restrict__ bias, bf16* __restrict__ y,
+                    float* __restrict__ partial, Geom g, Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* wbase = smem + 2 * kXStage;
+
+  const int n_co = g.Co / kBN;
+  const int co0 = (blockIdx.x % n_co) * kBN;
+  const int t0 = blockIdx.x / n_co;
+  const int n_slices = g.C / kBK16;
+  const int my_tiles = t0 < pl.tiles ? (pl.tiles - 1 - t0) / pl.blocks_per_co + 1 : 0;
+  // a block of one tile streams its weights: its first slice starts sooner
+  const bool resident = n_slices <= kResidentSlices && my_tiles > 1;
+  const int steps = my_tiles * n_slices;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  const bool warp_active = warp * kWarpM < pl.m_used;
+  // ldmatrix row of this lane: A matrices (pixels 0-7, c 0-7) (8-15, 0-7)
+  // (0-7, 8-15) (8-15, 8-15) of each m16 tile; B (co 0-7, c 0-7) (0-7,
+  // 8-15) (8-15, 0-7) (8-15, 8-15) of each pair of n8 tiles. A pixel's
+  // staged place is the same in every tile; pixels past m_used read
+  // staged pixel 0 and are never stored.
+  int a_off[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = warp * kWarpM + 16 * i + (lane & 15);
+    int s = 0;
+    if (m < pl.m_used) {
+      const int f = m / (pl.R * pl.seg), rem = m - f * pl.R * pl.seg;
+      const int r = rem / pl.seg, c = rem - r * pl.seg;
+      s = (f * (pl.R + 2) + r) * pl.P + c;
+    }
+    a_off[i] = s * kRow16 + (lane >> 4) * 8;
+  }
+  const int b_off = ((lane & 7) + ((lane >> 4) & 1) * 8) * kRow16 + ((lane >> 3) & 1) * 8;
+  const int dh_off = pl.P * kRow16;
+
+  float bv[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    bv[j][0] = kStats ? bias[co0 + 8 * j + 2 * t] : 0.f;
+    bv[j][1] = kStats ? bias[co0 + 8 * j + 2 * t + 1] : 0.f;
+  }
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  if (resident)
+    for (int s = 0; s < n_slices; ++s) stage_w(wbase + s * kWSlice, wk, g, co0, s * kBK16);
+  if (steps > 0) {
+    stage_x(smem, x, tile_at(t0, pl), g, pl, 0);
+    if (!resident) stage_w(wbase, wk, g, co0, 0);
+  }
+  d2v::cp_async_commit();
+
+  for (int j = 0; j < steps; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < steps) {
+      const int tn = t0 + ((j + 1) / n_slices) * pl.blocks_per_co;
+      const int sn = (j + 1) % n_slices;
+      stage_x(smem + (buf ^ 1) * kXStage, x, tile_at(tn, pl), g, pl, sn * kBK16);
+      if (!resident) stage_w(wbase + (buf ^ 1) * kWSlice, wk, g, co0, sn * kBK16);
+    }
+    d2v::cp_async_commit();
+    d2v::cp_async_wait<1>();  // this step's copies have landed
+    __syncthreads();
+    const int slice = j % n_slices;
+    if (warp_active) {
+      const bf16* xs = smem + buf * kXStage;
+      const bf16* ws = wbase + (resident ? slice : buf) * kWSlice + b_off;
+      // (tap, k16) steps; each step's A fragments are loaded one step ahead
+      constexpr int kSteps = kTaps * (kBK16 / 16);
+      auto a_at = [&](int st, int i) {
+        const int tap = st / (kBK16 / 16), kk = st % (kBK16 / 16);
+        return xs + a_off[i] + (tap / 3) * dh_off + (tap % 3) * kRow16 + kk * 16;
+      };
+      uint32_t a[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d2v::ldsm_x4(a[0][i], a_at(0, i));
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        const int cur = st & 1;
+        if (st + 1 < kSteps) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d2v::ldsm_x4(a[cur ^ 1][i], a_at(st + 1, i));
+        }
+        const int tap = st / (kBK16 / 16), kk = st % (kBK16 / 16);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          uint32_t bf[4];
+          d2v::ldsm_x4(bf, ws + (tap * kBN + jj * 16) * kRow16 + kk * 16);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            d2v::mma_bf16(acc[i][2 * jj], a[cur][i], bf[0], bf[1]);
+            d2v::mma_bf16(acc[i][2 * jj + 1], a[cur][i], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the buffer is refilled two steps on
+    if (slice != n_slices - 1) continue;
+
+    // epilogue of tile tt: (bias), round, (per-channel sums of the f32
+    // values of its valid pixels); the rounded tile goes through this
+    // step's x buffer, free until the next step stages into it, as
+    // [pixel][64 co] rows with their 16-byte chunks swizzled by pixel % 8
+    // (conflict-free both ways), and leaves in whole 128-byte rows
+    const int tt = t0 + (j / n_slices) * pl.blocks_per_co;
+    const TileAt ta = tile_at(tt, pl);
+    bf16* ys = smem + buf * kXStage;
+    float cs[8][2], css[8][2];
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) cs[jn][0] = cs[jn][1] = css[jn][0] = css[jn][1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = warp * kWarpM + 16 * i + 8 * hh + gq;
+        bool valid = false;
+        if constexpr (kStats) {
+          const int f = m / (pl.R * pl.seg), rem = m - f * pl.R * pl.seg;
+          const int r = rem / pl.seg, c = rem - r * pl.seg;
+          valid = m < pl.m_used && ta.frame0 + f < ta.frame_end && ta.row0 + r < g.H &&
+                  ta.col0 + c < g.W;
+        }
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          const float v0 = acc[i][jn][2 * hh] + bv[jn][0];
+          const float v1 = acc[i][jn][2 * hh + 1] + bv[jn][1];
+          *reinterpret_cast<uint32_t*>(ys + m * kBN + ((jn ^ (m & 7)) * 8) + 2 * t) =
+              d2v::pack_bf16(v0, v1);
+          if (kStats && valid) {
+            cs[jn][0] += v0;
+            cs[jn][1] += v1;
+            css[jn][0] = fmaf(v0, v0, css[jn][0]);
+            css[jn][1] = fmaf(v1, v1, css[jn][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) acc[i][jn][0] = acc[i][jn][1] = acc[i][jn][2] = acc[i][jn][3] = 0.f;
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < pl.m_used * 8; idx += kThreads16) {
+      const int m = idx >> 3, k = idx & 7;
+      const int f = m / (pl.R * pl.seg), rem = m - f * pl.R * pl.seg;
+      const int r = rem / pl.seg, c = rem - r * pl.seg;
+      const int fr = ta.frame0 + f, row = ta.row0 + r, col = ta.col0 + c;
+      if (fr < ta.frame_end && row < g.H && col < g.W)
+        *reinterpret_cast<uint4*>(y + ((static_cast<long long>(fr) * g.H + row) * g.W + col) *
+                                          g.Co + co0 + 8 * k) =
+            *reinterpret_cast<const uint4*>(ys + m * kBN + ((k ^ (m & 7)) * 8));
+    }
+    if constexpr (kStats) {
+      // fold the 8 row groups of the warp (lane bits 2..4), then the 8 warps
+      __shared__ float red[kWarps16][kBN][2];
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            cs[jn][e] += __shfl_xor_sync(0xffffffffu, cs[jn][e], off);
+            css[jn][e] += __shfl_xor_sync(0xffffffffu, css[jn][e], off);
+          }
+      if (gq == 0) {
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            red[warp][8 * jn + 2 * t + e][0] = cs[jn][e];
+            red[warp][8 * jn + 2 * t + e][1] = css[jn][e];
+          }
+      }
+      __syncthreads();
+      if (threadIdx.x < kBN) {
+        float s = 0.f, ss = 0.f;
+#pragma unroll
+        for (int k = 0; k < kWarps16; ++k) {
+          s += red[k][threadIdx.x][0];
+          ss += red[k][threadIdx.x][1];
+        }
+        float* p = partial + static_cast<size_t>(tt) * 2 * g.Co;
+        p[co0 + threadIdx.x] = s;
+        p[g.Co + co0 + threadIdx.x] = ss;
+      }
+      // red is written again only after the next tile's steps
+    }
+    __syncthreads();  // ys is read out before the next step stages into it
+  }
+}
+
+// ------------------------------------------------------- f32 / CUDA cores
 // The staged halo: run dh starts at flat pixel p0 + (dh - 1) W - 1 and is
 // stored from shared row dh * S; S = W when the runs overlap (one run of
 // 2W + L pixels), else L (three runs of L pixels).
@@ -98,173 +397,7 @@ __device__ __forceinline__ unsigned tap_mask(long long p, const Geom& g) {
   return m;
 }
 
-// ------------------------------------------------------------ bf16 / mma
-constexpr int kBM16 = 128;  // output pixels per block
-constexpr int kBK16 = 32;   // input channels per staged slice
-constexpr int kRow16 = kBK16 + 8;  // padded staged row (elements)
-constexpr int kThreads16 = 256;    // 4 (M) x 2 (N) warps of 32 x 32
-
-using d2v::mma_bf16;
-using d2v::pack_bf16;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-size_t smem_bytes_bf16(int W) {
-  const Halo halo(W, kBM16);
-  return (static_cast<size_t>(halo.rows) + kTaps * kBN) * kRow16 * sizeof(__nv_bfloat16);
-}
-
-template <bool kStats>
-__global__ void __launch_bounds__(kThreads16)
-conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ wk,
-                    const float* __restrict__ bias,
-                    __nv_bfloat16* __restrict__ y,
-                    float* __restrict__ partial, Geom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const Halo halo(g.W, kBM16);
-  __nv_bfloat16* bs = as + halo.rows * kRow16;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp % 4, wn = warp / 4;
-  const int gq = lane >> 2, t = lane & 3;
-  const int tile = blockIdx.x, co0 = blockIdx.y * kBN, brow = blockIdx.z;
-  const long long p0 = static_cast<long long>(brow) * g.R + static_cast<long long>(tile) * kBM16;
-  const int n_valid = min(kBM16, g.R - tile * kBM16);
-
-  // this thread's 4 output rows: m16 tile i, half hh -> wm*32 + 16i + 8hh + gq
-  int mrow[4];
-  unsigned msk[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    mrow[q] = wm * 32 + (q >> 1) * 16 + (q & 1) * 8 + gq;
-    msk[q] = mrow[q] < n_valid ? tap_mask(p0 + mrow[q], g) : 0u;
-  }
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  constexpr int kVecs = kBK16 / 8;  // 16-byte vectors per staged row
-  for (int c0 = 0; c0 < g.C; c0 += kBK16) {
-    __syncthreads();  // the previous slice's fragments are read
-    for (int i = tid; i < halo.rows * kVecs; i += kThreads16) {
-      const int r = i / kVecs, v = i % kVecs;
-      const long long src = halo.src(p0, g.W, r);
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (src >= 0 && src < g.total)
-        val = *reinterpret_cast<const uint4*>(x + src * g.C + c0 + v * 8);
-      *reinterpret_cast<uint4*>(as + r * kRow16 + v * 8) = val;
-    }
-    for (int i = tid; i < kTaps * kBN * kVecs; i += kThreads16) {
-      const int v = i % kVecs, n = (i / kVecs) % kBN, tap = i / (kVecs * kBN);
-      const size_t off = (static_cast<size_t>(tap) * g.Co + co0 + n) * g.C + c0 + v * 8;
-      *reinterpret_cast<uint4*>(bs + (tap * kBN + n) * kRow16 + v * 8) =
-          *reinterpret_cast<const uint4*>(wk + off);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int tap = 0; tap < kTaps; ++tap) {
-      const int roff = (tap / 3) * halo.S + (tap % 3);
-#pragma unroll
-      for (int kk = 0; kk < kBK16 / 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const bool v0 = (msk[2 * i] >> tap) & 1u, v1 = (msk[2 * i + 1] >> tap) & 1u;
-          const __nv_bfloat16* r0 = as + (roff + mrow[2 * i]) * kRow16 + kk * 16 + 2 * t;
-          const __nv_bfloat16* r1 = as + (roff + mrow[2 * i + 1]) * kRow16 + kk * 16 + 2 * t;
-          a[i][0] = v0 ? ld32(r0) : 0u;
-          a[i][1] = v1 ? ld32(r1) : 0u;
-          a[i][2] = v0 ? ld32(r0 + 8) : 0u;
-          a[i][3] = v1 ? ld32(r1 + 8) : 0u;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat16* br = bs + (tap * kBN + wn * 32 + 8 * j + gq) * kRow16 + kk * 16 + 2 * t;
-          const uint32_t b0 = ld32(br), b1 = ld32(br + 8);
-          mma_bf16(acc[0][j], a[0], b0, b1);
-          mma_bf16(acc[1][j], a[1], b0, b1);
-        }
-      }
-    }
-  }
-
-  // epilogue: (bias), store rounded, (per-channel sums of the f32 values)
-  float cs[4][2], css[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = wn * 32 + 8 * j + 2 * t;
-    float b0 = 0.f, b1 = 0.f;
-    if constexpr (kStats) {
-      b0 = bias[co0 + col];
-      b1 = bias[co0 + col + 1];
-    }
-    cs[j][0] = cs[j][1] = css[j][0] = css[j][1] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int m = mrow[2 * i + hh];
-        if (m < n_valid) {
-          const float v0 = acc[i][j][2 * hh] + b0, v1 = acc[i][j][2 * hh + 1] + b1;
-          *reinterpret_cast<uint32_t*>(y + (p0 + m) * g.Co + co0 + col) = pack_bf16(v0, v1);
-          if constexpr (kStats) {
-            cs[j][0] += v0;
-            cs[j][1] += v1;
-            css[j][0] = fmaf(v0, v0, css[j][0]);
-            css[j][1] = fmaf(v1, v1, css[j][1]);
-          }
-        }
-      }
-    }
-  }
-  if constexpr (kStats) {
-    // fold the 8 row groups of the warp (lane bits 2..4), then the 4 M-warps
-    __shared__ float red[4][kBN][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          cs[j][e] += __shfl_xor_sync(0xffffffffu, cs[j][e], off);
-          css[j][e] += __shfl_xor_sync(0xffffffffu, css[j][e], off);
-        }
-    if (gq == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = wn * 32 + 8 * j + 2 * t + e;
-          red[wm][col][0] = cs[j][e];
-          red[wm][col][1] = css[j][e];
-        }
-    }
-    __syncthreads();
-    if (tid < kBN) {
-      float s = 0.f, ss = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        s += red[k][tid][0];
-        ss += red[k][tid][1];
-      }
-      float* p = partial + (static_cast<size_t>(brow) * gridDim.x + tile) * 2 * g.Co;
-      p[co0 + tid] = s;
-      p[g.Co + co0 + tid] = ss;
-    }
-  }
-}
-
-// ------------------------------------------------------- f32 / CUDA cores
-constexpr int kBM32 = 64;   // output pixels per block
+constexpr int kBM32 = D2V_CONV_F32_TILE;  // output pixels per block
 constexpr int kBK32 = 16;   // input channels per staged slice
 constexpr int kRowA32 = kBK32 + 1;  // staged pixel row (floats)
 constexpr int kRowB32 = kBN + 4;    // staged weight row: [tap][k][n]
@@ -427,34 +560,55 @@ stats_reduce_kernel(const float* __restrict__ partial, int tiles, int Co,
   }
 }
 
-template <typename T, bool kStats>
-cudaError_t launch(const void* x, const void* wk, const float* bias, void* y,
-                   float* s, float* ss, float* partial, const Geom& g, int batch,
-                   cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  constexpr int bm = kBf16 ? kBM16 : kBM32;
-  const int tiles = (g.R + bm - 1) / bm;
+template <bool kStats>
+cudaError_t launch_bf16(const bf16* x, const bf16* wk, const float* bias, bf16* y, float* s,
+                        float* ss, float* partial, const Geom& g, int batch, int frames,
+                        int rows, int seg, int tiles_per_row, int blocks, cudaStream_t stream) {
+  Plan pl;
+  pl.F = frames;
+  pl.R = rows;
+  pl.seg = seg;
+  pl.P = seg + 2;
+  if (frames <= 0 || rows <= 0 || seg <= 0 || seg > kSeg || rows > g.H || seg > g.W)
+    return cudaErrorInvalidValue;
+  pl.frames = static_cast<int>(g.total / g.HW) / batch;
+  pl.n_fg = (pl.frames + frames - 1) / frames;
+  pl.n_rg = (g.H + rows - 1) / rows;
+  pl.n_seg = (g.W + seg - 1) / seg;
+  pl.tiles_per_row = pl.n_fg * pl.n_rg * pl.n_seg;
+  pl.tiles = batch * pl.tiles_per_row;
+  pl.staged = frames * (rows + 2) * pl.P;
+  pl.m_used = frames * rows * seg;
+  const int n_co = g.Co / kBN;
+  if (pl.tiles_per_row != tiles_per_row || pl.m_used > kTile16 || pl.staged > kStaged ||
+      blocks <= 0 || blocks % n_co != 0)
+    return cudaErrorInvalidValue;
+  pl.blocks_per_co = blocks / n_co;
+  auto kern = conv3x3_bf16_kernel<kStats>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmem16));  // above the 48 KB default
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, kThreads16, kSmem16, stream>>>(x, wk, bias, y, partial, g, pl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kStats) return err;
+  stats_reduce_kernel<<<dim3(g.Co / 32, batch), 256, 0, stream>>>(partial, tiles_per_row, g.Co,
+                                                                 s, ss);
+  return cudaGetLastError();
+}
+
+template <bool kStats>
+cudaError_t launch_f32(const float* x, const float* wk, const float* bias, float* y, float* s,
+                       float* ss, float* partial, const Geom& g, int batch, int tiles_per_row,
+                       cudaStream_t stream) {
+  const int tiles = (g.R + kBM32 - 1) / kBM32;
+  if (kStats && tiles != tiles_per_row) return cudaErrorInvalidValue;
   const dim3 grid(tiles, g.Co / kBN, batch);
-  cudaError_t err;
-  if constexpr (kBf16) {
-    const size_t smem = smem_bytes_bf16(g.W);
-    auto kern = conv3x3_bf16_kernel<kStats>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads16, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wk), bias, static_cast<T*>(y),
-        partial, g);
-  } else {
-    const size_t smem = smem_bytes_f32(g.W);
-    auto kern = conv3x3_f32_kernel<kStats>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads32, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wk), bias, static_cast<T*>(y),
-        partial, g);
-  }
+  const size_t smem = smem_bytes_f32(g.W);
+  auto kern = conv3x3_f32_kernel<kStats>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kThreads32, smem, stream>>>(x, wk, bias, y, partial, g);
   err = cudaGetLastError();
   if (err != cudaSuccess || !kStats) return err;
   stats_reduce_kernel<<<dim3(g.Co / 32, batch), 256, 0, stream>>>(partial, tiles, g.Co, s, ss);
@@ -462,9 +616,9 @@ cudaError_t launch(const void* x, const void* wk, const float* bias, void* y,
 }
 
 template <bool kStats>
-int dispatch(const void* x, const void* wk, const void* bias, void* y, void* s,
-             void* ss, void* partial, int n, int h, int w, int c, int co,
-             int batch, int dtype, void* stream) {
+int dispatch(const void* x, const void* wk, const void* bias, void* y, void* s, void* ss,
+             void* partial, int n, int h, int w, int c, int co, int batch, int frames,
+             int rows, int seg, int tiles_per_row, int blocks, int dtype, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || batch <= 0 || n % batch != 0 || c <= 0 ||
       co <= 0 || co % kBN != 0)
     return cudaErrorInvalidValue;
@@ -481,12 +635,14 @@ int dispatch(const void* x, const void* wk, const void* bias, void* y, void* s,
   auto o = [](void* p) { return static_cast<float*>(p); };
   if (dtype == d2v::kBFloat16) {
     if (c % kBK16 != 0) return cudaErrorInvalidValue;
-    return launch<__nv_bfloat16, kStats>(x, wk, f(bias), y, o(s), o(ss), o(partial), g,
-                                         batch, st);
+    return launch_bf16<kStats>(static_cast<const bf16*>(x), static_cast<const bf16*>(wk),
+                               f(bias), static_cast<bf16*>(y), o(s), o(ss), o(partial), g,
+                               batch, frames, rows, seg, tiles_per_row, blocks, st);
   }
   if (dtype == d2v::kFloat32) {
     if (c % kBK32 != 0) return cudaErrorInvalidValue;
-    return launch<float, kStats>(x, wk, f(bias), y, o(s), o(ss), o(partial), g, batch, st);
+    return launch_f32<kStats>(f(x), f(wk), f(bias), o(y), o(s), o(ss), o(partial), g, batch,
+                              tiles_per_row, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -496,21 +652,25 @@ int dispatch(const void* x, const void* wk, const void* bias, void* y, void* s,
 D2V_EXPORT_ERROR_STRING
 
 // x (N, H, W, C), w (9, Co, C), y (N, H, W, Co), one dtype; C % 32 == 0,
-// Co % 64 == 0.
-extern "C" int d2v_conv3x3(const void* x, const void* w, void* y, int n, int h,
-                           int wd, int c, int co, int dtype, void* stream) {
-  return dispatch<false>(x, w, nullptr, y, nullptr, nullptr, nullptr, n, h, wd, c,
-                         co, 1, dtype, stream);
+// Co % 64 == 0. bf16: a tile is `frames` frames x `rows` rows x `seg`
+// columns, `blocks` persistent blocks (ops/spatial_conv.py::conv_plan,
+// which also gives tiles_per_row); f32 ignores the plan.
+extern "C" int d2v_conv3x3(const void* x, const void* w, void* y, int n, int h, int wd,
+                           int c, int co, int frames, int rows, int seg, int tiles_per_row,
+                           int blocks, int dtype, void* stream) {
+  return dispatch<false>(x, w, nullptr, y, nullptr, nullptr, nullptr, n, h, wd, c, co, 1,
+                         frames, rows, seg, tiles_per_row, blocks, dtype, stream);
 }
 
 // As d2v_conv3x3 with bias (Co,) f32 added in f32, and s, ss (batch, Co) f32
 // the sums of y and y^2 over each batch row's N / batch frames. partial:
-// batch * tiles * 2 * Co floats of scratch, tiles = ceil(rows' pixels / 128)
-// for bf16 (/ 64 for f32).
-extern "C" int d2v_conv3x3_bias_stats(const void* x, const void* w,
-                                      const void* bias, void* y, void* s, void* ss,
-                                      void* partial, int n, int h, int wd, int c,
-                                      int co, int batch, int dtype, void* stream) {
-  return dispatch<true>(x, w, bias, y, s, ss, partial, n, h, wd, c, co, batch, dtype,
-                        stream);
+// batch * tiles_per_row * 2 * Co floats of scratch; tiles_per_row is the
+// plan's (bf16), or ceil(the row's pixels / D2V_CONV_F32_TILE) (f32).
+extern "C" int d2v_conv3x3_bias_stats(const void* x, const void* w, const void* bias,
+                                      void* y, void* s, void* ss, void* partial, int n, int h,
+                                      int wd, int c, int co, int batch, int frames, int rows,
+                                      int seg, int tiles_per_row, int blocks, int dtype,
+                                      void* stream) {
+  return dispatch<true>(x, w, bias, y, s, ss, partial, n, h, wd, c, co, batch, frames, rows,
+                        seg, tiles_per_row, blocks, dtype, stream);
 }

@@ -19,14 +19,18 @@
 //   1. gn_stats: grid (chunks, B). Each block sums one chunk of rows with
 //      16-byte vector loads; because C divides the block's vector stride,
 //      every thread always sees the same channels and keeps their f32 sum
-//      and sum of squares in registers, then folds them into groups with
-//      shared-memory atomics; one (sum, sumsq) pair per (batch, chunk,
-//      group) goes to a small scratch buffer.
+//      and sum of squares in registers. The threads' sums go to shared
+//      memory and are folded per channel, then per group, each in a fixed
+//      order; one (sum, sumsq) pair per (batch, chunk, group) goes to a
+//      small scratch buffer.
 //   2. gn_apply: grid (blocks, B). Each block reduces its batch row's
-//      partials to group mean/rstd, folds GroupNorm affine + FiLM into a
-//      per-channel (multiplier, offset) pair, keeps its own channels' pairs
-//      in registers, and makes one vectorised pass applying
-//      silu(x * mul + off).
+//      partials to group mean/rstd (each thread a fixed stride of them,
+//      then a fixed-order fold per group), folds GroupNorm affine + FiLM
+//      into a per-channel (multiplier, offset) pair, keeps its own
+//      channels' pairs in registers, and makes one vectorised pass
+//      applying silu(x * mul + off).
+// No atomics: every sum is taken in an order fixed by the shapes, so two
+// calls agree bit for bit (as the TPU kernel's sequential grid does).
 // C must be a multiple of G and of the vector width (8 bf16 / 4 f32) and
 // divide 256 vectors' worth of elements (2048 bf16 / 1024 f32), up to
 // 1024 -- every width the unets use (8 ... 512); G must divide 256 (G = 8
@@ -50,15 +54,10 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int L,
                 int C, int G, int rows_per_chunk) {
   constexpr int N = Vec<T>::N;
   using Raw = typename Vec<T>::Raw;
-  __shared__ float gsum[kMaxG];
-  __shared__ float gsq[kMaxG];
+  __shared__ float red_s[kThreads * 8];  // each thread's N channel sums
+  __shared__ float red_q[kThreads * 8];
   const int b = blockIdx.y;
   const int chunk = blockIdx.x;
-  if (threadIdx.x < G) {
-    gsum[threadIdx.x] = 0.f;
-    gsq[threadIdx.x] = 0.f;
-  }
-  __syncthreads();
 
   float s[N], sq[N];
 #pragma unroll
@@ -79,10 +78,9 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int L,
       sq[e] = fmaf(val, val, sq[e]);
     }
   }
-  // lanes l and l + C/N see the same channels: fold them with shuffles so
-  // only C/N lanes per warp (at most 32) touch the shared group sums
+  // lanes l and l + C/N see the same channels: a butterfly of shuffles
+  // gives each of them the warp's sum (the same bits in every lane)
   const int period = C / N;
-  const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int e = 0; e < N; ++e) {
     for (int off = period; off < 32; off <<= 1) {
@@ -90,22 +88,37 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int L,
       sq[e] += __shfl_xor_sync(0xffffffffu, sq[e], off);
     }
   }
-  const int c0 = (threadIdx.x * N) % C;
-  const int cpg = C / G;
-  if (lane < period) {
+  // thread t's element e is channel (t N + e) % C, at red[t N + e]; channel
+  // c's distinct sums sit at c + k * max(C, 32 N): one per warp, or one per
+  // lane period -- folded in that order, in place
 #pragma unroll
-    for (int e = 0; e < N; ++e) {
-      const int g = (c0 + e) / cpg;
-      atomicAdd(&gsum[g], s[e]);
-      atomicAdd(&gsq[g], sq[e]);
-    }
+  for (int e = 0; e < N; ++e) {
+    red_s[threadIdx.x * N + e] = s[e];
+    red_q[threadIdx.x * N + e] = sq[e];
   }
   __syncthreads();
+  const int step = max(C, 32 * N);
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float a = 0.f, q = 0.f;
+    for (int k = c; k < kThreads * N; k += step) {
+      a += red_s[k];
+      q += red_q[k];
+    }
+    red_s[c] = a;
+    red_q[c] = q;
+  }
+  __syncthreads();
+  const int cpg = C / G;
   if (threadIdx.x < G) {
+    float a = 0.f, q = 0.f;
+    for (int c = threadIdx.x * cpg; c < (threadIdx.x + 1) * cpg; ++c) {
+      a += red_s[c];
+      q += red_q[c];
+    }
     float* p = partial + ((static_cast<size_t>(b) * gridDim.x + chunk) * G +
                           threadIdx.x) * 2;
-    p[0] = gsum[threadIdx.x];
-    p[1] = gsq[threadIdx.x];
+    p[0] = a;
+    p[1] = q;
   }
 }
 
@@ -119,32 +132,33 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ partial,
                 int L, int C, int G, float eps) {
   constexpr int N = Vec<T>::N;
   using Raw = typename Vec<T>::Raw;
+  __shared__ float red_s[kThreads];
+  __shared__ float red_q[kThreads];
   __shared__ float gsum[kMaxG];
   __shared__ float gsq[kMaxG];
   __shared__ float mul[kMaxC];
   __shared__ float off[kMaxC];
   const int b = blockIdx.y;
-  if (threadIdx.x < G) {
-    gsum[threadIdx.x] = 0.f;
-    gsq[threadIdx.x] = 0.f;
-  }
-  __syncthreads();
-  // partial i belongs to group i % G; G divides kThreads, so each thread
-  // keeps one group's sums in registers, lanes l and l + G are folded with
-  // shuffles, and only G lanes per warp touch shared memory
+  // partial i belongs to group i % G; G divides kThreads, so thread t sums
+  // the partials i = t, t + kThreads, ... of group t % G, and group g folds
+  // threads g, g + G, g + 2G, ... in that order
   const float* pb = partial + static_cast<size_t>(b) * n_chunks * G * 2;
   float ps = 0.f, pq = 0.f;
   for (int i = threadIdx.x; i < n_chunks * G; i += kThreads) {
     ps += pb[2 * i];
     pq += pb[2 * i + 1];
   }
-  for (int off = G; off < 32; off <<= 1) {
-    ps += __shfl_xor_sync(0xffffffffu, ps, off);
-    pq += __shfl_xor_sync(0xffffffffu, pq, off);
-  }
-  if (threadIdx.x % 32 < G) {
-    atomicAdd(&gsum[threadIdx.x % G], ps);
-    atomicAdd(&gsq[threadIdx.x % G], pq);
+  red_s[threadIdx.x] = ps;
+  red_q[threadIdx.x] = pq;
+  __syncthreads();
+  if (threadIdx.x < G) {
+    float a = 0.f, q = 0.f;
+    for (int k = threadIdx.x; k < kThreads; k += G) {
+      a += red_s[k];
+      q += red_q[k];
+    }
+    gsum[threadIdx.x] = a;
+    gsq[threadIdx.x] = q;
   }
   __syncthreads();
   const int cpg = C / G;

@@ -23,16 +23,16 @@
 //   1. gn_bwd_partial: grid (chunks, B). Each block sums one chunk of rows
 //      with 16-byte vector loads of x and g. C divides the block's vector
 //      stride, so every thread always sees the same channels: it keeps
-//      their coefficients and its sums in registers, folds lanes that share
-//      channels with shuffles, and the folded lanes add into per-channel
-//      shared sums; one (t1, t2) row of C values per (batch, chunk) goes to
-//      scratch.
+//      their coefficients and its sums in registers; the threads' sums go
+//      to shared memory and are folded per channel in a fixed order; one
+//      (t1, t2) row of C values per (batch, chunk) goes to scratch.
 //   2. gn_bwd_reduce: grid (C / 32, B). Sums the chunks per channel in a
-//      fixed order into dA and dB (a chunk's row comes from shared-memory
-//      atomics, so the last bits may differ between calls).
+//      fixed order into dA and dB.
 //   3. gn_bwd_dx: grid (blocks, B). Each block folds A * dB and A * dA into
-//      the G group sums, keeps its own channels' coefficients in registers,
-//      and makes one vectorised pass writing dx.
+//      the G group sums (each group's channels in order), keeps its own
+//      channels' coefficients in registers, and makes one vectorised pass
+//      writing dx.
+// No atomics: two calls agree bit for bit.
 // The width rule is the forward's: C a power of two from the vector width
 // (8 bf16 / 4 f32) up to 1024, a multiple of G; G divides 256.
 
@@ -77,11 +77,10 @@ gn_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
                       int rows_per_chunk) {
   constexpr int N = Vec<T>::N;
   using Raw = typename Vec<T>::Raw;
-  __shared__ float s1[kMaxC];
-  __shared__ float s2[kMaxC];
+  __shared__ float red1[kThreads * 8];  // each thread's N channel sums
+  __shared__ float red2[kThreads * 8];
   const int b = blockIdx.y;
   const int chunk = blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += kThreads) s1[c] = s2[c] = 0.f;
 
   const int c0 = (threadIdx.x * N) % C;
   Coef coef[N];
@@ -111,7 +110,8 @@ gn_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
       t2[e] = fmaf(dz, xh, t2[e]);
     }
   }
-  // lanes l and l + C/N see the same channels (C/N is a power of two)
+  // lanes l and l + C/N see the same channels (C/N is a power of two): a
+  // butterfly of shuffles gives each of them the warp's sum
   const int period = C / N;
 #pragma unroll
   for (int e = 0; e < N; ++e) {
@@ -120,19 +120,25 @@ gn_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
       t2[e] += __shfl_xor_sync(0xffffffffu, t2[e], off);
     }
   }
-  __syncthreads();  // shared sums zeroed
-  if (threadIdx.x % 32 < period) {
+  // thread t's element e is channel (t N + e) % C, at red[t N + e]; channel
+  // c's distinct sums sit at c + k * max(C, 32 N): one per warp, or one per
+  // lane period -- folded in that order
 #pragma unroll
-    for (int e = 0; e < N; ++e) {
-      atomicAdd(&s1[c0 + e], t1[e]);
-      atomicAdd(&s2[c0 + e], t2[e]);
-    }
+  for (int e = 0; e < N; ++e) {
+    red1[threadIdx.x * N + e] = t1[e];
+    red2[threadIdx.x * N + e] = t2[e];
   }
   __syncthreads();
   float* p = partial + (static_cast<size_t>(b) * gridDim.x + chunk) * 2 * C;
+  const int step = max(C, 32 * N);
   for (int c = threadIdx.x; c < C; c += kThreads) {
-    p[c] = s1[c];
-    p[C + c] = s2[c];
+    float a1 = 0.f, a2 = 0.f;
+    for (int k = c; k < kThreads * N; k += step) {
+      a1 += red1[k];
+      a2 += red2[k];
+    }
+    p[c] = a1;
+    p[C + c] = a2;
   }
 }
 
@@ -183,14 +189,16 @@ gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
   __shared__ float gs1[kMaxG];
   __shared__ float gs2[kMaxG];
   const int b = blockIdx.y;
-  if (threadIdx.x < G) gs1[threadIdx.x] = gs2[threadIdx.x] = 0.f;
-  __syncthreads();
   const int cpg = C / G;
   const size_t bc = static_cast<size_t>(b) * C;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float a = a_vec[bc + c];
-    atomicAdd(&gs1[c / cpg], a * db[bc + c]);
-    atomicAdd(&gs2[c / cpg], a * da[bc + c]);
+  if (threadIdx.x < G) {  // each group's channels in order
+    float a1 = 0.f, a2 = 0.f;
+    for (size_t c = bc + threadIdx.x * cpg; c < bc + (threadIdx.x + 1) * cpg; ++c) {
+      a1 = fmaf(a_vec[c], db[c], a1);
+      a2 = fmaf(a_vec[c], da[c], a2);
+    }
+    gs1[threadIdx.x] = a1;
+    gs2[threadIdx.x] = a2;
   }
   __syncthreads();
 

@@ -26,8 +26,9 @@ The kernel paths are differentiable: ``groupnorm_film_silu``,
 ``mqa_attention`` and ``fused_block3d`` run their backward kernels under
 autograd, ``conv3x3_spatial_xbwd`` the plain conv's backward. The
 cross-attention kernel is forward-only (training uses ``impl="xla"``). The
-plain attention paths compute in the activation dtype, as the JAX package's
-do.
+plain paths compute in the activation dtype and round where the JAX
+package's programs do (``ops/as_jax.py``): attention, the GroupNorm-FiLM-SiLU
+tail, the activations, and a conv's bias added after its output is rounded.
 """
 
 from __future__ import annotations
@@ -40,17 +41,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dalle2_video_tpu_torch.models.remat import attn_out
-from dalle2_video_tpu_torch.ops.cross_attention import (
-    cross_attention,
-    cross_attention_reference,
+from dalle2_video_tpu_torch.ops.as_jax import (
+    gelu_as_jax,
+    groupnorm_film_silu_as_jax,
+    silu_as_jax,
     softmax_as_jax,
 )
+from dalle2_video_tpu_torch.ops.cross_attention import cross_attention, cross_attention_reference
 from dalle2_video_tpu_torch.ops.flash_mqa import mqa_attention
 from dalle2_video_tpu_torch.ops.fused_block import fused_block3d
-from dalle2_video_tpu_torch.ops.groupnorm_film import (
-    groupnorm_film_reference,
-    groupnorm_film_silu,
-)
+from dalle2_video_tpu_torch.ops.groupnorm_film import groupnorm_film_silu
 from dalle2_video_tpu_torch.ops.spatial_conv import conv3x3_spatial_xbwd
 from dalle2_video_tpu_torch.ops.video import resize_video
 
@@ -69,9 +69,20 @@ def kernel_init_(weight: torch.Tensor, fan_in: int) -> None:
         weight.uniform_(-bound, bound)
 
 
+def _promoted(*tensors: Optional[torch.Tensor]) -> torch.dtype:
+    """The dtype flax's layers compute in: the promotion of the input's and
+    the parameters' (an f32 input to a bf16 copy of a module stays f32)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
 class Dense(nn.Linear):
-    """nn.Linear that casts its input to the parameter dtype (the bf16
-    sampling copy of a module takes f32 conditioning inputs); JAX init."""
+    """flax nn.Dense: the product in the promoted dtype of the input and the
+    parameters, the bias added after the product is rounded to it (in f32
+    inside the one call); JAX init."""
 
     def reset_parameters(self) -> None:
         kernel_init_(self.weight, self.in_features)
@@ -79,17 +90,25 @@ class Dense(nn.Linear):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = _promoted(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(dt)
+        if dt == torch.float32:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax nn.LayerNorm (eps 1e-6 by default); casts input to param dtype."""
+    """flax nn.LayerNorm (eps 1e-6 by default), in the promoted dtype of
+    the input and the parameters."""
 
     def __init__(self, dim: int, eps: float = 1e-6, bias: bool = True):
         super().__init__(dim, eps=eps, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        dt = _promoted(x, self.weight, self.bias)
+        return F.layer_norm(x.to(dt), self.normalized_shape, self.weight.to(dt),
+                            None if self.bias is None else self.bias.to(dt), self.eps)
 
 
 class ScaleOnlyLayerNorm(nn.Module):
@@ -188,12 +207,17 @@ class SpatialConv(nn.Module):
                     y = y + conv.bias.to(dt)
                 return y.reshape(b, t, h, w, self.features)
         y = x.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(conv.weight.dtype)
+        # flax nn.Conv rounds the conv to the activation dtype, then adds
+        # the bias in it; in f32 the bias stays in the conv call
+        bias = conv.bias if y.dtype == torch.float32 else None
         lo, hi = self.pads
         if lo == hi:
-            y = F.conv2d(y, conv.weight, conv.bias, self.stride, padding=lo)
+            y = F.conv2d(y, conv.weight, bias, self.stride, padding=lo)
         else:
-            y = F.conv2d(F.pad(y, (lo, hi, lo, hi)), conv.weight, conv.bias, self.stride)
+            y = F.conv2d(F.pad(y, (lo, hi, lo, hi)), conv.weight, bias, self.stride)
         y = y.permute(0, 2, 3, 1)
+        if bias is None and conv.bias is not None:
+            y = y + conv.bias
         return y.reshape(b, t, y.shape[1], y.shape[2], self.features)
 
 
@@ -201,7 +225,9 @@ class Block3D(nn.Module):
     """conv(1,3,3) -> GroupNorm -> FiLM scale/shift -> SiLU.
 
     norm_impl "pallas" runs the GroupNorm tail through the fused CUDA kernel
-    (ops/groupnorm_film.py); "xla" uses the same math in plain PyTorch;
+    (ops/groupnorm_film.py), which rounds once, as the JAX kernel does;
+    "xla" is the JAX package's plain tail -- flax GroupNorm, FiLM and SiLU
+    rounded op by op (``groupnorm_film_silu_as_jax``);
     "fused" runs the whole block -- conv, bias, statistics, normalise, FiLM,
     SiLU -- through ops/fused_block.py at qualifying sites (``fused_site``)
     and elsewhere falls back to ``SpatialConv(conv_impl)`` and the plain
@@ -228,7 +254,7 @@ class Block3D(nn.Module):
         x = self.project(x)
         b, t, h, w, c = x.shape
         scale, shift = scale_shift if scale_shift is not None else (None, None)
-        fn = groupnorm_film_silu if self.norm_impl == "pallas" else groupnorm_film_reference
+        fn = groupnorm_film_silu if self.norm_impl == "pallas" else groupnorm_film_silu_as_jax
         y = fn(x.reshape(b, t * h * w, c), self.norm.weight, self.norm.bias,
                scale, shift, self.groups, 1e-5)
         return y.reshape(b, t, h, w, c)
@@ -451,7 +477,7 @@ class ResnetBlock3D(nn.Module):
     def forward(self, x, time_emb=None, cond=None):
         scale_shift = None
         if self.time_mlp is not None and time_emb is not None:
-            te = self.time_mlp(F.silu(time_emb))
+            te = self.time_mlp(silu_as_jax(time_emb))
             scale_shift = te.chunk(2, dim=-1)
         h = self.block1(x, scale_shift)
         if self.cross_attn is not None:
@@ -516,7 +542,7 @@ class PixelShuffleUpsample3D(nn.Module):
         ).permute(0, 2, 3, 1)  # (bt, 2h, 2w, co)
         bias = self.conv_bias.reshape(co, 2, 2).permute(1, 2, 0)  # (s1, s2, co)
         y = y.reshape(b * t, h, 2, w, 2, co) + bias[None, None, :, None, :, :]
-        return F.silu(y).reshape(b, t, 2 * h, 2 * w, co)
+        return silu_as_jax(y).reshape(b, t, 2 * h, 2 * w, co)
 
 
 class CrossEmbedLayer3D(nn.Module):
@@ -569,7 +595,7 @@ class TimeConditioning(nn.Module):
         self.to_cond = Dense(time_cond_dim, time_cond_dim)
 
     def forward(self, time):
-        hiddens = F.gelu(self.to_hiddens(sinusoidal_pos_emb(time, self.dim)))
+        hiddens = gelu_as_jax(self.to_hiddens(sinusoidal_pos_emb(time, self.dim)))
         tokens = self.to_tokens(hiddens).reshape(
             hiddens.shape[0], self.num_time_tokens, self.cond_dim)
         return tokens, self.to_cond(hiddens)

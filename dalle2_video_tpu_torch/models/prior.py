@@ -18,7 +18,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from dalle2_video_tpu_torch.diffusion import DiffusionSchedule
 from dalle2_video_tpu_torch.models.layers import (
@@ -28,6 +27,7 @@ from dalle2_video_tpu_torch.models.layers import (
     ScaleOnlyLayerNorm,
     sinusoidal_pos_emb,
 )
+from dalle2_video_tpu_torch.ops.as_jax import silu_as_jax
 from dalle2_video_tpu_torch.utils.contrastive import l2_normalize
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
 from dalle2_video_tpu_torch.utils.keys import RowKeys
@@ -44,7 +44,7 @@ class FeedForward(nn.Module):
 
     def forward(self, x):
         a, gate = self.Dense_0(self.norm(x)).chunk(2, dim=-1)
-        return x + self.Dense_1(a * F.silu(gate))
+        return x + self.Dense_1(a * silu_as_jax(gate))
 
 
 class RelPosBias(nn.Module):

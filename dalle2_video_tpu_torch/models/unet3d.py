@@ -35,7 +35,6 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from dalle2_video_tpu_torch.models.layers import (
     CrossEmbedLayer3D,
@@ -54,6 +53,7 @@ from dalle2_video_tpu_torch.models.layers import (
     sinusoidal_pos_emb,
 )
 from dalle2_video_tpu_torch.models.remat import checkpoint_block, saved_ops
+from dalle2_video_tpu_torch.ops.as_jax import gelu_as_jax
 
 
 def _cast_tuple(v, length: int) -> Tuple:
@@ -356,7 +356,7 @@ class UNet3D(nn.Module):
             if lowres_noise_level is None:
                 raise ValueError("lowres_noise_level required")
             ln = sinusoidal_pos_emb(lowres_noise_level, cfg.dim)
-            t = t + self.lowres_dense2(F.gelu(self.lowres_dense1(ln)))
+            t = t + self.lowres_dense2(gelu_as_jax(self.lowres_dense1(ln)))
 
         c = time_tokens
         if cfg.cond_on_video_embeds:
@@ -366,7 +366,7 @@ class UNet3D(nn.Module):
                 raise NotImplementedError("per-frame (b, k, d) video embeds are not ported yet")
             keep = video_keep_mask[:, None]
             if cfg.add_video_embeds_to_time:
-                vh = F.gelu(self.to_video_hiddens(video_embed))
+                vh = gelu_as_jax(self.to_video_hiddens(video_embed))
                 t = t + torch.where(keep, vh, self.null_video_hiddens.to(vh.dtype))
             if hasattr(self, "video_to_tokens"):
                 vt = self.video_to_tokens(video_embed).reshape(

@@ -25,6 +25,7 @@ from dalle2_video_tpu_torch.ops._cuda import (
     require_cuda,
     stream_ptr,
 )
+from dalle2_video_tpu_torch.ops.as_jax import softmax_as_jax
 
 KERNEL = CudaKernel(
     name="cross_attention_fwd",
@@ -36,14 +37,6 @@ KERNEL = CudaKernel(
 )
 MAX_M = 16  # kMaxM in csrc/cross_attention.cu
 SUPPORTED_D = (32, 64)
-
-
-def softmax_as_jax(s: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """``jax.nn.softmax`` in the input dtype: exp(s - max) rounded to it,
-    the sum accumulated in f32 and rounded (``jnp.sum`` upcasts bf16), the
-    quotient rounded."""
-    e = torch.exp(s - s.amax(dim, keepdim=True))
-    return e / e.sum(dim, keepdim=True)
 
 
 def cross_attention_reference(q, k, v, sm_scale: float) -> torch.Tensor:

@@ -53,8 +53,9 @@ KERNEL = CudaKernel(
     name="conv3x3_bias_stats",
     source="conv3x3.cu",
     symbol="d2v_conv3x3_bias_stats",
-    argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/fused_block.py:124",
+    defines=sc.CONV_DEFINES,
 )
 GN_BWD_KERNEL = CudaKernel(
     name="fused_block_gn_bwd",
@@ -63,9 +64,6 @@ GN_BWD_KERNEL = CudaKernel(
     argtypes=gn.BWD_KERNEL.argtypes,
     replaces="dalle2_video_tpu/ops/pallas/fused_block.py:204",
 )
-# output pixels per block of csrc/conv3x3.cu (kBM of each dtype's kernel):
-# the statistics partials are per (batch row, pixel tile)
-TILE_PIXELS = {torch.bfloat16: 128, torch.float32: 64}
 
 
 def conv_bias_stats_reference(x, w, bias, batch: int):
@@ -93,18 +91,18 @@ def conv_bias_stats(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, batch:
         return conv_bias_stats_reference(x, w, bias, batch)
     forbid_grad("conv_bias_stats", [x, w, bias], "fused_block3d is the differentiable entry point")
     wk = sc.kernel_weight(w, x.dtype)
-    sc._require_conv_inputs("conv_bias_stats", [x, wk], c, co, sc.CIN_MULTIPLE,
-                            sc.COUT_MULTIPLE)
+    sc._require_conv_inputs("conv_bias_stats", [x, wk], c, co, sc.CONV_BK, sc.CONV_BN)
     bias32 = bias.float().contiguous()
     require_cuda("conv_bias_stats", [bias32], (torch.float32,))
-    tiles = -(-(n // batch) * h * wd // TILE_PIXELS[x.dtype])
+    plan = sc.plan_args(x, co, batch)  # the statistics partials are per (batch row, tile)
+    tiles = plan[3]
     y = torch.empty((n, h, wd, co), device=x.device, dtype=x.dtype)
     s = torch.empty((batch, co), device=x.device, dtype=torch.float32)
     ss = torch.empty_like(s)
     partial = torch.empty((batch, tiles, 2, co), device=x.device, dtype=torch.float32)
     KERNEL.launch(x.data_ptr(), wk.data_ptr(), bias32.data_ptr(), y.data_ptr(),
                   s.data_ptr(), ss.data_ptr(), partial.data_ptr(), n, h, wd, c, co, batch,
-                  dtype_code(x.dtype), stream_ptr(x.device))
+                  *plan, dtype_code(x.dtype), stream_ptr(x.device))
     return y, s, ss
 
 

@@ -7,8 +7,10 @@ TPU kernel's pixel-pair packed layout and its (12C, 2Co) matrix fill
 128-lane vectors at C = 64; the CUDA kernels need neither.
 
 For a CUDA tensor ``conv3x3`` launches the implicit-GEMM kernel in
-``csrc/conv3x3.cu`` (output in the input dtype, f32 accumulation; the dx of
-a conv is the same kernel on the flipped, transposed weight) and
+``csrc/conv3x3.cu`` (output in the input dtype, f32 accumulation; bf16 on
+the tensor cores with persistent blocks over halo'd tiles, planned by
+``conv_plan``; the dx of a conv is the same kernel on the flipped,
+transposed weight) and
 ``conv3x3_wgrad`` the split-K weight-gradient kernel in
 ``csrc/conv3x3_wgrad.cu`` (f32 dW; bf16 on the tensor cores, all nine taps
 from one staged tile, planned by ``wgrad_plan``). For a CPU tensor each uses its plain
@@ -28,7 +30,7 @@ Two differentiable entry points, as the JAX module has:
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,12 +43,30 @@ from dalle2_video_tpu_torch.ops._cuda import (
     stream_ptr,
 )
 
+# The conv kernel's plan (``conv_plan``), owned here and built into
+# csrc/conv3x3.cu as its -D macros: input channels per staged slice (C
+# must be a multiple), output channels per block (Co must be a multiple),
+# output pixels per bf16 tile (8 warps of 64), the widest column segment,
+# the most staged pixels a tile may take (its two-stage ring, 130 KB
+# beside 90 KB of weights, holds one block per SM), and the f32 kernel's
+# pixels per block (the statistics' tile there).
+CONV_BK = 32
+CONV_BN = 64
+CONV_TILE = 512
+CONV_SEG = 64
+CONV_STAGED = 832
+CONV_F32_TILE = 64
+_CONV_SMS = 132  # blocks per wave: one per H100 SM
+CONV_DEFINES = {"D2V_CONV_BK": CONV_BK, "D2V_CONV_BN": CONV_BN, "D2V_CONV_TILE": CONV_TILE,
+                "D2V_CONV_SEG": CONV_SEG, "D2V_CONV_STAGED": CONV_STAGED,
+                "D2V_CONV_F32_TILE": CONV_F32_TILE}
 KERNEL = CudaKernel(
     name="conv3x3",
     source="conv3x3.cu",
     symbol="d2v_conv3x3",
-    argtypes=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/spatial_conv.py:122",
+    defines=CONV_DEFINES,
 )
 # The bf16 weight gradient's plan (``wgrad_plan``), owned here: the widest
 # staged row segment and the most staged pixels a group may take, built
@@ -65,8 +85,6 @@ WGRAD_KERNEL = CudaKernel(
     replaces="dalle2_video_tpu/ops/pallas/spatial_conv.py:172",
     defines={"D2V_WGRAD_SEG": WGRAD_SEG, "D2V_WGRAD_MAX_K": WGRAD_MAX_K},
 )
-CIN_MULTIPLE = 32    # kBK16 in csrc/conv3x3.cu: input channels per staged slice
-COUT_MULTIPLE = 64   # kBN: output channels per block
 WGRAD_MULTIPLE = 64  # csrc/conv3x3_wgrad.cu tiles 64 channels x 64
 _WGRAD_PIXELS = 64   # f32: the least pixels a split takes
 _WGRAD_TARGET_BLOCKS = 8 * 132  # f32: ~8 split-K blocks per H100 SM
@@ -126,6 +144,74 @@ def _require_conv_inputs(name, tensors, c, co, c_mult, co_mult):
                          f"got C={c}, Co={co}")
 
 
+class ConvPlan(NamedTuple):
+    """The bf16 conv kernel's plan: a tile is ``frames`` x ``rows`` x ``seg``
+    output pixels; ``tiles_per_row`` tiles per batch row; ``blocks``
+    persistent blocks (a multiple of Co / CONV_BN)."""
+    frames: int
+    rows: int
+    seg: int
+    tiles_per_row: int
+    blocks: int
+
+
+def _conv_tile(t: int, h: int, w: int, limit: int) -> Tuple[int, int, int]:
+    """(frames, rows, seg) of a tile of at most ``limit`` pixels: whole rows
+    of a segment of at most ``CONV_SEG`` columns, whole frames where a frame
+    is smaller than the tile, its staged pixels (each frame with one halo
+    row above and below and a one-pixel border: F (R + 2) (seg + 2)) within
+    ``CONV_STAGED``."""
+    seg = min(w, CONV_SEG)
+    rows = max(1, min(h, limit // seg))
+    frames = max(1, min(t, limit // (rows * seg))) if (rows, seg) == (h, w) else 1
+    while frames * (rows + 2) * (seg + 2) > CONV_STAGED:
+        if frames > 1:
+            frames = max(1, CONV_STAGED // ((rows + 2) * (seg + 2)))
+        else:
+            rows -= 1
+    return frames, rows, seg
+
+
+def conv_plan(n: int, h: int, w: int, c: int, co: int, batch: int = 1) -> ConvPlan:
+    """Tile the (N = batch x T frames, H, W) output for the bf16 kernel: a
+    tile never straddles two batch rows; each of the Co / CONV_BN channel
+    tiles gets the same number of blocks, one wave of ``_CONV_SMS`` in all
+    at most, each walking an equal run of tiles. The tile is the one of
+    CONV_TILE, 1/2, 1/4, 1/8 of it whose run costs least (the smallest on
+    a tie: more SMs load their tiles at once), a tile costing its pixels,
+    at least half a full tile's (below that its warps -- 64 pixels each,
+    the rest sit out -- no longer share an SM's four tensor-core
+    partitions, so they run no faster), plus an eighth of a full tile for
+    its epilogue: a problem too small to give every SM full tiles takes
+    smaller ones."""
+    del c  # the plan does not depend on it: C is walked in slices
+    t = n // batch
+    n_co = co // CONV_BN
+    best = None
+    for limit in (CONV_TILE, CONV_TILE // 2, CONV_TILE // 4, CONV_TILE // 8):
+        frames, rows, seg = _conv_tile(t, h, w, limit)
+        tiles_per_row = -(-t // frames) * -(-h // rows) * -(-w // seg)
+        tiles = batch * tiles_per_row
+        per_co = max(1, min(tiles, _CONV_SMS // n_co))
+        runs = -(-tiles // per_co)
+        cost = runs * (max(frames * rows * seg, CONV_TILE // 2) + CONV_TILE // 8)
+        if best is None or cost <= best[0]:
+            per_co = -(-tiles // runs)  # equal runs
+            best = (cost, ConvPlan(frames, rows, seg, tiles_per_row, n_co * per_co))
+    return best[1]
+
+
+def plan_args(x: torch.Tensor, co: int, batch: int = 1) -> Tuple[int, ...]:
+    """The kernel's plan arguments (frames, rows, seg, tiles_per_row,
+    blocks) for x (N, H, W, C). f32 takes only tiles_per_row (the
+    statistics partials' tiles per batch row): its blocks of
+    ``CONV_F32_TILE`` pixels."""
+    n, h, w, c = x.shape
+    if x.dtype == torch.bfloat16:
+        return tuple(conv_plan(n, h, w, c, co, batch))
+    return (0, 0, 0, -(-(n // batch) * h * w // CONV_F32_TILE), 0)
+
+
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (N, H, W, C), w (Co, C, 3, 3) -> y (N, H, W, Co) in x's dtype.
     Not differentiable: see ``conv3x3_spatial``."""
@@ -138,10 +224,10 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     forbid_grad("conv3x3", [x, w], "conv3x3_spatial is the differentiable entry point")
     n, h, wd, _ = x.shape
     wk = kernel_weight(w, x.dtype)
-    _require_conv_inputs("conv3x3", [x, wk], c, co, CIN_MULTIPLE, COUT_MULTIPLE)
+    _require_conv_inputs("conv3x3", [x, wk], c, co, CONV_BK, CONV_BN)
     y = torch.empty((n, h, wd, co), device=x.device, dtype=x.dtype)
     KERNEL.launch(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd, c, co,
-                  dtype_code(x.dtype), stream_ptr(x.device))
+                  *plan_args(x, co), dtype_code(x.dtype), stream_ptr(x.device))
     return y
 
 

@@ -153,6 +153,56 @@ def test_wgrad_plan_fits_the_kernel_and_keeps_sums_short(shape):
     assert blocks > -(-blocks // 132) * 132 - tiles or n_split == groups
 
 
+def test_conv_plan_fits_the_kernel_and_covers_every_pixel_once():
+    """The bf16 conv kernel's plan (csrc/conv3x3.cu: a block owns a
+    CONV_BN-wide Co tile and walks every blocks_per_co-th tile; a tile is
+    frames x rows x seg output pixels, staged with a halo row above and
+    below and a one-pixel border at a pitch of seg + 2): at every (H, W, C,
+    Co) of the conv paths and ragged ones, at 1, 2 and 4 batch rows, the
+    tile fits the kernel's 8 warps of 64 pixels and its staged pixels the
+    two-stage ring (which fits an SM's 227 KB beside the weights and the
+    statistics fold; 128 f32 accumulators a thread), no tile straddles two
+    batch rows, the tiles cover every output pixel exactly once, and the
+    blocks -- at most one wave of 132 -- walk every tile of their Co tile
+    exactly once."""
+    sc = port_sc
+    row = (sc.CONV_BK + 8) * 2  # a staged pixel's padded row, bytes
+    smem = 2 * sc.CONV_STAGED * row + 2 * 9 * sc.CONV_BN * row + 8 * sc.CONV_BN * 2 * 4
+    assert smem <= 227 * 1024 and sc.CONV_TILE == 8 * 64 and sc.CONV_TILE * sc.CONV_BN * 2 <= \
+        sc.CONV_STAGED * row  # an x stage holds the rounded output tile
+    assert 64 * sc.CONV_BN // 32 == 128
+    shapes = [(h, w, c, co) for h, w, c, co in (
+        (64, 64, 64, 64), (64, 64, 128, 64), (32, 32, 64, 64), (32, 32, 192, 128),
+        (16, 16, 384, 256), (8, 8, 256, 256), (8, 8, 512, 512), (16, 16, 64, 64),
+        (8, 8, 64, 64), (8, 8, 192, 128), (7, 9, 32, 64), (4, 160, 64, 64), (6, 20, 192, 64),
+        (128, 128, 64, 64), (1, 1, 32, 64))]
+    for (h, w, c, co), (batch, t) in [(s, bt) for s in shapes
+                                       for bt in ((1, 180), (2, 90), (4, 90), (2, 3))]:
+        n = batch * t
+        p = sc.conv_plan(n, h, w, c, co, batch)
+        assert 1 <= p.seg <= min(w, sc.CONV_SEG) and 1 <= p.rows <= h and 1 <= p.frames <= t
+        assert p.frames * p.rows * p.seg <= sc.CONV_TILE
+        assert p.frames * (p.rows + 2) * (p.seg + 2) <= sc.CONV_STAGED
+        n_fg, n_rg, n_seg = -(-t // p.frames), -(-h // p.rows), -(-w // p.seg)
+        assert p.tiles_per_row == n_fg * n_rg * n_seg
+        n_co = co // sc.CONV_BN
+        assert p.blocks % n_co == 0 and n_co <= p.blocks <= max(132, n_co)
+        per_co, tiles = p.blocks // n_co, batch * p.tiles_per_row
+        walked = sorted(t0 + k * per_co for t0 in range(per_co)
+                        for k in range(-(-(tiles - t0) // per_co)))
+        assert walked == list(range(tiles))
+        cover = np.zeros((n, h, w), np.int32)
+        for tile in range(tiles):  # the kernel's tile_at
+            brow, rem = divmod(tile, p.tiles_per_row)
+            rem, sg = divmod(rem, n_seg)
+            fg, rg = divmod(rem, n_rg)
+            f0 = brow * t + fg * p.frames
+            f1 = min(f0 + p.frames, (brow + 1) * t)
+            assert f0 < f1  # every tile holds pixels of its own batch row
+            cover[f0:f1, rg * p.rows:(rg + 1) * p.rows, sg * p.seg:(sg + 1) * p.seg] += 1
+        assert (cover == 1).all(), (h, w, c, co, batch, t, p)
+
+
 def test_conv_bias_stats_matches_jax_epilogue():
     """y, and the per-(batch row, channel) sums of y and y^2 from the f32
     value: the JAX per-lane sums are folded over the pixel pair's two lanes.
@@ -389,7 +439,7 @@ def _count_sites(unet_cfg, frames, size, dtype):
         kw.update(lowres_noise_level=torch.zeros(b, dtype=torch.long, device="meta"))
     with mock.patch.object(layers, "fused_block3d", fused), \
             mock.patch.object(layers, "conv3x3_spatial_xbwd", small), \
-            mock.patch.object(layers, "groupnorm_film_reference", plain_gn), \
+            mock.patch.object(layers, "groupnorm_film_silu_as_jax", plain_gn), \
             torch.no_grad():
         unet(x, torch.zeros(b, dtype=torch.long, device="meta"), **kw)
     return counts

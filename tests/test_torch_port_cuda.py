@@ -33,6 +33,7 @@ from dalle2_video_tpu_torch.ops import flash_variants as fv
 from dalle2_video_tpu_torch.ops import fused_block as fb
 from dalle2_video_tpu_torch.ops import groupnorm_film as gn
 from dalle2_video_tpu_torch.ops import spatial_conv as sc
+from dalle2_video_tpu_torch.probes.conv_rows import FUSED_SITES, SMALL_SITES
 from dalle2_video_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -105,6 +106,9 @@ def test_groupnorm_kernel_matches_plain(dev, dtype, c, l):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
     torch.testing.assert_close(mean, rmean, atol=1e-4, rtol=0)
     torch.testing.assert_close(rstd, rrstd, atol=1e-4, rtol=1e-4)
+    # the sums are folded in a fixed order (no atomics): two calls agree
+    again = gn.groupnorm_film_silu(x, gamma, beta, scale, shift, 8, return_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip((out, mean, rstd), again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -242,6 +246,32 @@ def test_groupnorm_bwd_kernel_matches_plain(dev, dtype, c, l):
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
     _assert_grads_close(got, gn.groupnorm_film_bwd_reference(x, gy, a_vec, b_vec, mean, rstd, 8),
                         dtype)
+    again = gn.groupnorm_film_bwd(x, gy, a_vec, b_vec, mean, rstd, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,c", [(2, 90 * 64 * 64, 64), (4, 90 * 16 * 16, 256), (2, 777, 128)])
+def test_fused_block_gn_bwd_kernel_bit_for_bit_twice(dev, dtype, b, l, c):
+    """Row 9 (row 4's kernel under the fused block's counter) on the conv
+    output with the fused forward's statistics: within the backward
+    tolerance of the plain version, and two calls bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(l + c)
+    y = (torch.randn(b, l, c, generator=g, device=dev) * 2 + 0.3).to(dtype)
+    gy = torch.randn(b, l, c, generator=g, device=dev).to(dtype)
+    gamma, beta = 1 + 0.1 * torch.randn(c, generator=g, device=dev), 0.1 * torch.randn(
+        c, generator=g, device=dev)
+    s_, t_ = (0.1 * torch.randn(b, c, generator=g, device=dev) for _ in range(2))
+    mean, rstd = fb.stats_to_mean_rstd(y.float().sum(1), (y.float() ** 2).sum(1), 8,
+                                       l * c // 8, 1e-5)
+    args = (y, gy, *fb.fold_ab(gamma, beta, s_, t_, b), mean, rstd, 8)
+    before = fb.GN_BWD_KERNEL.launches
+    got = gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL)
+    torch.cuda.synchronize()
+    assert fb.GN_BWD_KERNEL.launches == before + 1
+    _assert_grads_close(got, gn.groupnorm_film_bwd_reference(*args), dtype)
+    again = gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("film", [True, False])
@@ -278,7 +308,15 @@ def test_cross_attention_raises_under_grad_on_cuda(dev):
 # 1e-3 of the largest value for the f32 sums near zero. The weight gradient
 # is f32 from bf16 inputs: no rounding, so 1e-4 of its largest value.
 CONV_CASES = [(3, 16, 16, 64, 128), (2, 8, 8, 512, 512), (5, 7, 9, 32, 64),
-              (1, 4, 160, 64, 64)]  # Co != C, the deep 8x8, odd H/W, a wide row
+              (1, 4, 160, 64, 64),  # Co != C, the deep 8x8, odd H/W, a wide row
+              (3, 6, 20, 192, 64), (2, 16, 16, 384, 128)]  # frames narrower than a
+# segment, several to a tile; C = 192 and 384, whose weights stream through the ring
+# The fused Block3D sites' (H, W, C, Co) at the celebv_text recipe (unet 1's
+# nine, unet 2's four; chip_smoke.py records what reaches the kernels). Row
+# 8 runs each at the paths' B*T frames; row 6 each one's dx (H, W, Co ->
+# C), and the pallas_small forward at 8 x 8, 512 -> 512.
+FUSED = [st for sites in FUSED_SITES.values() for st in sites]
+CONV_PATH_SHAPES = sorted({(h, w, co, c) for h, w, c, co in FUSED} | set(SMALL_SITES))
 
 
 def _conv_inputs(dev, dtype, n, h, w, c, co, seed):
@@ -297,6 +335,34 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, n, h, w, c, co):
     torch.cuda.synchronize()
     assert sc.KERNEL.launches == before + 1 and out.dtype == dtype
     _assert_grads_close([out], [sc.conv3x3_reference(x, wt)], dtype)
+    assert torch.equal(out, sc.conv3x3(x, wt))
+
+
+@pytest.mark.parametrize("h,w,c,co", CONV_PATH_SHAPES)
+def test_conv3x3_kernel_at_the_conv_paths_shapes(dev, h, w, c, co):
+    """Row 6 (bf16) at every shape the conv paths give it, B*T = 180: the
+    standing tolerance of the plain version and two bit-equal calls."""
+    _, x, wt = _conv_inputs(dev, torch.bfloat16, 180, h, w, c, co, h + c + co)
+    out = sc.conv3x3(x, wt)
+    _assert_grads_close([out], [sc.conv3x3_reference(x, wt)], torch.bfloat16)
+    assert torch.equal(out, sc.conv3x3(x, wt))
+
+
+@pytest.mark.parametrize("batch,t", [(2, 90), (4, 90)])
+@pytest.mark.parametrize("h,w,c,co", FUSED)
+def test_conv_bias_stats_kernel_at_the_fused_sites(dev, batch, t, h, w, c, co):
+    """Row 8 (bf16) at every fused site, at train_conv's and serve_conv's
+    batch rows of 90 frames (an 8-frame tile of the 8 x 8 sites ends past a
+    row's last frame): y within the standing tolerance, the sums within 1e-5
+    of their largest value, and two bit-equal calls."""
+    g, x, wt = _conv_inputs(dev, torch.bfloat16, batch * t, h, w, c, co, h + c + co + batch)
+    bias = 0.5 * torch.randn(co, generator=g, device=dev)
+    got = fb.conv_bias_stats(x, wt, bias, batch)
+    want = fb.conv_bias_stats_reference(x, wt, bias, batch)
+    _assert_grads_close(got[:1], want[:1], torch.bfloat16)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, fb.conv_bias_stats(x, wt, bias, batch)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -322,12 +388,16 @@ def test_conv3x3_wgrad_kernel_matches_plain_bit_for_bit_twice(dev, dtype, n, h, 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,t,h,w,c,co", [(2, 3, 7, 7, 64, 64), (2, 90, 8, 8, 256, 512),
-                                              (3, 2, 16, 16, 128, 64)])
+                                              (3, 2, 16, 16, 128, 64), (2, 5, 6, 20, 192, 128),
+                                              (2, 3, 16, 16, 384, 256)])
 def test_conv_bias_stats_kernel_matches_plain(dev, dtype, batch, t, h, w, c, co):
-    """At 3 x 7 x 7 = 147 pixels per batch row a row ends inside the second
-    128-pixel (bf16) or third 64-pixel (f32) tile: tiles are per batch row,
-    so no partial sum straddles two rows. The sums are f32 over the row's
-    f32 values on both sides: 1e-5 of their largest value."""
+    """At 3 x 7 x 7 = 147 pixels per batch row a row ends inside its tile
+    (bf16: one tile of three 7 x 7 frames; f32: the third 64-pixel tile):
+    tiles are per batch row, so no partial sum straddles two rows; at 5
+    frames of 6 x 20 a tile is four frames narrower than a segment, and
+    the row's second tile holds one. C = 192 and 384 stream their weights.
+    The sums are f32 over the row's f32 values on both sides: 1e-5 of their
+    largest value."""
     g, x, wt = _conv_inputs(dev, dtype, batch * t, h, w, c, co, t + c)
     bias = 0.5 * torch.randn(co, generator=g, device=dev)
     before = fb.KERNEL.launches
