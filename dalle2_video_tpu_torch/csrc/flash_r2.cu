@@ -7,10 +7,14 @@
 // Computes out = softmax(q k^T) v against ONE shared kv head; q arrives
 // scaled by the caller. q: (b, n_q, d), k and v: (b, n_kv, d), bf16 or f32,
 // d = 32. What makes it r2, and is kept so that its cost is r2's:
-//   * the ragged kv tail is zero-padded up to the tile edge (64 keys on the
-//     bf16 path, 16 on the f32 path): a padded column has logit 0, it
+//   * the ragged kv tail is zero-padded up to a multiple of block_k (the
+//     bf16 path; 16 keys on the f32 path): a padded column has logit 0, it
 //     enters the running max, and its probability is multiplied by a 0/1
 //     mask after the exponential -- every tile takes the mask multiply;
+//   * the running max moves once per block_k keys, as in the JAX kernel:
+//     on the bf16 path a max pass over the block's 64-key tiles runs before
+//     its exponentials, recomputing Q K^T (the block's keys are staged
+//     twice), and the accumulators are rescaled once per block;
 //   * the denominator is an explicit row sum of the f32 probabilities (over
 //     the 4 lanes of an mma group on the bf16 path), kept as its own state
 //     l = l * alpha + rowsum(p).
@@ -25,10 +29,11 @@
 // What bounds it on the H100: at the probe geometry (b = 2, 368,640 query
 // rows, 23,041 keys, d = 32) 1.70e10 exponentials at 4.18e12/s = 4.06 ms;
 // the products (2.17e12 FLOP) take 2.2 ms at the dense bf16 rate, the
-// bytes 0.03 ms. The design is the flash forward's (csrc/flash_mqa.cu): a
-// block of 4 warps owns 64 query rows, mma.sync m16n8k16 for both
-// products, S in the accumulator layout reused as P's A operand, base-2
-// exponentials with log2(e) folded into the logits; the kv stays in L2.
+// bytes 0.03 ms. A block of 4 warps owns 64 query rows, mma.sync m16n8k16
+// for both products, S in the accumulator layout reused as P's A operand,
+// p = 2^((s - m) log2 e); each tile's P V starts from zero and is added in
+// f32 (a sum over thousands of keys in the mma accumulator drifts past a
+// bf16 rounding); the kv stays in L2.
 // f32 inputs take a CUDA-core kernel (one query row per thread, 16-key
 // chunks), exact in f32, for checks.
 
@@ -125,7 +130,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 r2_mma_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int n_q, int n_kv) {
+              __nv_bfloat16* __restrict__ o, int n_q, int n_kv, int block_k) {
   constexpr int KP = kD + 8;   // padded K row (elements)
   constexpr int VP = kKv + 8;  // padded V^T row (elements)
   __shared__ __align__(16) __nv_bfloat16 ks[kKv * KP];
@@ -158,10 +163,12 @@ r2_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float acc[kD / 8][4];
 #pragma unroll
   for (int n = 0; n < kD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max (base 2), rows r0 / r1
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows r0 / r1
   float l0 = 0.f, l1 = 0.f;              // running row sums, whole rows
 
-  for (int kv0 = 0; kv0 < n_kv; kv0 += kKv) {
+  // Stage the tile at kv0 (K, and V transposed when with_v), zero-padded
+  // past the tail, and return S = Q K^T.
+  auto tile_scores = [&](int kv0, bool with_v, float (*s)[4]) {
     const int tile = min(kKv, n_kv - kv0);
     __syncthreads();
     for (int i = threadIdx.x; i < kKv * kD / 8; i += kWarps * 32) {
@@ -171,16 +178,16 @@ r2_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if (r < tile) {  // past the tail: the zero padding
         const size_t off = static_cast<size_t>(kv0 + r) * kD + c;
         kr = *reinterpret_cast<const uint4*>(kb + off);
-        vr = *reinterpret_cast<const uint4*>(vb + off);
+        if (with_v) vr = *reinterpret_cast<const uint4*>(vb + off);
       }
       *reinterpret_cast<uint4*>(ks + r * KP + c) = kr;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vr);
+      if (with_v) {
+        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vr);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(c + e) * VP + r] = ve[e];
+        for (int e = 0; e < 8; ++e) vt[(c + e) * VP + r] = ve[e];
+      }
     }
     __syncthreads();
-
-    float s[kKv / 8][4];
 #pragma unroll
     for (int j = 0; j < kKv / 8; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -192,14 +199,22 @@ r2_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mma_bf16(s[j], qa[kk], b0, b1);
       }
     }
-    // the max runs over every column of the tile, padded zeros included
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+  };
+
+  const int n_pad = (n_kv + block_k - 1) / block_k * block_k;
+  for (int blk = 0; blk < n_pad; blk += block_k) {
+    const int end = min(blk + block_k, n_kv);  // the block's real keys end here
+    // pass 1: the block's max over every column, padded zeros included
+    float mx0 = blk + block_k > n_kv ? 0.f : -INFINITY;  // a padded column: logit 0
+    float mx1 = mx0;
+    for (int kv0 = blk; kv0 < end; kv0 += kKv) {
+      float s[kKv / 8][4];
+      tile_scores(kv0, false, s);
 #pragma unroll
-    for (int j = 0; j < kKv / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= kLog2e;
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      for (int j = 0; j < kKv / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -207,7 +222,7 @@ r2_mma_kernel(const __nv_bfloat16* __restrict__ q,
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+    const float a0 = exp2f((m0 - mn0) * kLog2e), a1 = exp2f((m1 - mn1) * kLog2e);  // once a block
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n) {
       acc[n][0] *= a0;
@@ -215,41 +230,58 @@ r2_mma_kernel(const __nv_bfloat16* __restrict__ q,
       acc[n][2] *= a1;
       acc[n][3] *= a1;
     }
-    // p = exp(s - m) * kvmask, then the tile's row sum over the quad
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKv / 8; ++j) {
-      const float k0 = 8 * j + 2 * t < tile ? 1.f : 0.f;
-      const float k1 = 8 * j + 2 * t + 1 < tile ? 1.f : 0.f;
-      s[j][0] = exp2f(s[j][0] - mn0) * k0;
-      s[j][1] = exp2f(s[j][1] - mn0) * k1;
-      s[j][2] = exp2f(s[j][2] - mn1) * k0;
-      s[j][3] = exp2f(s[j][3] - mn1) * k1;
-      ls0 += s[j][0] + s[j][1];
-      ls1 += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      ls0 += __shfl_xor_sync(0xffffffffu, ls0, off);
-      ls1 += __shfl_xor_sync(0xffffffffu, ls1, off);
-    }
-    l0 = l0 * a0 + ls0;
-    l1 = l1 * a1 + ls1;
+    l0 *= a0;
+    l1 *= a1;
     m0 = mn0;
     m1 = mn1;
+    // pass 2: p = exp(s - m) * kvmask (as 2^((s - m) log2 e): s - m is
+    // exact near the max), its row sums, and P V
+    for (int kv0 = blk; kv0 < end; kv0 += kKv) {
+      const int tile = min(kKv, n_kv - kv0);
+      float s[kKv / 8][4];
+      tile_scores(kv0, true, s);
+      float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kKv / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        const __nv_bfloat16* vr = vt + (8 * n + g) * VP + kk * 16 + 2 * t;
-        mma_bf16(acc[n], pa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
+      for (int j = 0; j < kKv / 8; ++j) {
+        const float k0 = 8 * j + 2 * t < tile ? 1.f : 0.f;
+        const float k1 = 8 * j + 2 * t + 1 < tile ? 1.f : 0.f;
+        s[j][0] = exp2f((s[j][0] - mn0) * kLog2e) * k0;
+        s[j][1] = exp2f((s[j][1] - mn0) * kLog2e) * k1;
+        s[j][2] = exp2f((s[j][2] - mn1) * kLog2e) * k0;
+        s[j][3] = exp2f((s[j][3] - mn1) * kLog2e) * k1;
+        ls0 += s[j][0] + s[j][1];
+        ls1 += s[j][2] + s[j][3];
       }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        ls0 += __shfl_xor_sync(0xffffffffu, ls0, off);
+        ls1 += __shfl_xor_sync(0xffffffffu, ls1, off);
+      }
+      l0 += ls0;
+      l1 += ls1;
+      // the tile's P V from zero, then added in f32: a sum over thousands of
+      // keys kept in the mma accumulator drifts past a bf16 rounding
+      float pt[kD / 8][4];
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) pt[n][0] = pt[n][1] = pt[n][2] = pt[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKv / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          const __nv_bfloat16* vr = vt + (8 * n + g) * VP + kk * 16 + 2 * t;
+          mma_bf16(pt[n], pa, *reinterpret_cast<const uint32_t*>(vr),
+                   *reinterpret_cast<const uint32_t*>(vr + 8));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += pt[n][e];
     }
   }
 
@@ -271,17 +303,21 @@ r2_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 D2V_EXPORT_ERROR_STRING
 
-// q (b, n_q, 32) already scaled, k and v (b, n_kv, 32), o like q.
+// q (b, n_q, 32) already scaled, k and v (b, n_kv, 32), o like q; block_k:
+// keys per running-max update of the bf16 kernel (a multiple of its 64-key
+// tile), the zero padding reaching a multiple of it.
 extern "C" int d2v_flash_r2_fwd(const void* q, const void* k, const void* v,
                                 void* o, int b, int n_q, int n_kv, int dtype,
-                                void* stream) {
+                                int block_k, void* stream) {
   if (b <= 0 || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == d2v::kBFloat16) {
+    if (block_k <= 0 || block_k % kKv != 0) return cudaErrorInvalidValue;
     dim3 grid((n_q + kBlockRows - 1) / kBlockRows, b);
     r2_mma_kernel<<<grid, kWarps * 32, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n_q, n_kv);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n_q, n_kv,
+        block_k);
   } else if (dtype == d2v::kFloat32) {
     dim3 grid((n_q + kRows - 1) / kRows, b);
     r2_f32_kernel<<<grid, kRows, 0, s>>>(

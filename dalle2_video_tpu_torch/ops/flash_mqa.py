@@ -20,8 +20,14 @@ to f32 changes nothing) and at batch 1 (``_bwd_xla_scan``, whose delta is
 rowsum(P * dP), never read from out) all-f32 math on the CUDA cores.
 ``BWD_KERNEL.routes`` counts which route each launch took.
 
-The TPU tuning arguments (block_q, block_k, inner_kv, use_exp2, interpret)
-are accepted and ignored.
+The forward computes what the JAX kernel computes (``_flash_mqa_kernel``):
+in bf16 the pre-scaled q is rounded to bf16, the running max moves once
+per ``block_k`` keys (``auto_fwd_blocks``, the JAX wrapper's rule, when it
+is None), each block's probabilities are rounded to bf16 before the second
+product, and the denominator is the f32 sum of those rounded values (the
+JAX kernel's ones column). In f32 the block size changes only the order of
+f32 roundings. The other TPU tuning arguments (block_q, inner_kv, use_exp2,
+interpret) are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ KERNEL = CudaKernel(
     name="flash_mqa_fwd",
     source="flash_mqa.cu",
     symbol="d2v_flash_mqa_fwd",
-    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/flash_mqa.py:481",
 )
@@ -56,17 +62,76 @@ BWD_KERNEL = CudaKernel(
     replaces="dalle2_video_tpu/ops/pallas/flash_mqa.py:332",
 )
 SUPPORTED_D = (16, 32, 64)
+KEY_TILE = {torch.bfloat16: 128, torch.float32: 16}  # keys per kernel tile
 BWD_CHUNK = 1024  # query rows per step of flash_mqa_bwd_reference
+NEG_INF = -1e30  # the JAX kernel's initial running max
+TILE_BYTES = 2**28  # f32 logits per pass of the plain forwards (bounds memory)
 
 
-def flash_mqa_reference(q, k, v, sm_scale: float, save_lse: bool = False):
-    """Plain version: q (b, n_q, d), k/v (b, n_kv, d), all math in f32."""
-    s = torch.einsum("bnd,bmd->bnm", q.float() * sm_scale, k.float())
-    out = torch.softmax(s, dim=-1) @ v.float()
-    out = out.to(q.dtype)
-    if save_lse:
-        return out, torch.logsumexp(s, dim=-1)
-    return out
+def row_chunk(b: int, block_k: int) -> int:
+    """Query rows per pass of a plain forward: rows are independent, so it
+    takes as many at once as keep one (b, rows, block_k) f32 tile in
+    TILE_BYTES."""
+    return max(1, TILE_BYTES // (4 * b * block_k))
+
+
+def auto_fwd_blocks(n_q: int, n_kv: int) -> Tuple[int, int]:
+    """The JAX package's forward (block_q, block_k) rule
+    (``ops/pallas/flash_mqa.py::_auto_fwd_blocks``): block_q 1024 from 8192
+    query rows; block_k 2048 from 16384 keys, 1024 from 4096, else 512."""
+    block_q = 1024 if n_q >= 8192 else 512
+    if n_kv >= 16384:
+        block_k = 2048
+    elif n_kv >= 4096:
+        block_k = 1024
+    else:
+        block_k = 512
+    return block_q, block_k
+
+
+def flash_mqa_reference(q, k, v, sm_scale: float, save_lse: bool = False,
+                        block_k: Optional[int] = None, work=torch.float32):
+    """Plain version: q (b, n_q, d), k/v (b, n_kv, d). f32: all math in f32,
+    one softmax over every key. Otherwise ``_flash_mqa_kernel`` step by
+    step: qs = q * sm_scale rounded to q's dtype; per block of ``block_k``
+    keys (default ``auto_fwd_blocks``) m' = max(m, rowmax(s)), p = exp(s -
+    m') rounded to q's dtype, acc = acc * exp(m - m') + p [v | 1] in f32;
+    out = acc_v / l, lse = m + log(l). Keys past n_kv contribute nothing
+    (the JAX kernel's edge padding with a zeroed ones row). Query rows are
+    taken in chunks (``row_chunk``). ``work=torch.float64`` computes the
+    same function with every step after the roundings in f64: the oracle
+    the checks hold the kernel and this version to."""
+    if q.dtype == torch.float32:
+        s = torch.einsum("bnd,bmd->bnm", q.float() * sm_scale, k.float())
+        out = (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+        if save_lse:
+            return out, torch.logsumexp(s, dim=-1)
+        return out
+    b, n_q, d = q.shape
+    n_kv = k.shape[1]
+    if block_k is None:
+        block_k = auto_fwd_blocks(n_q, n_kv)[1]
+    qs = (q.float() * sm_scale).to(q.dtype)
+    kf, vf = k.to(work), v.to(work)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, n_q), dtype=torch.float32, device=q.device)
+    rows = row_chunk(b, block_k)
+    for r0 in range(0, n_q, rows):
+        qc = qs[:, r0:r0 + rows].to(work)
+        m = torch.full(qc.shape[:2] + (1,), NEG_INF, dtype=work, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qc.shape, dtype=work, device=q.device)
+        for c0 in range(0, n_kv, block_k):
+            s = qc @ kf[:, c0:c0 + block_k].transpose(1, 2)
+            m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_next).to(q.dtype).to(work)
+            alpha = torch.exp(m - m_next)
+            acc = acc * alpha + p @ vf[:, c0:c0 + block_k]
+            l = l * alpha + p.sum(-1, keepdim=True)
+            m = m_next
+        out[:, r0:r0 + rows] = (acc / l).to(q.dtype)
+        lse[:, r0:r0 + rows] = (m + torch.log(l))[..., 0]
+    return (out, lse) if save_lse else out
 
 
 def bwd_rounds(q: torch.Tensor) -> bool:
@@ -144,21 +209,29 @@ def flash_mqa_fwd(
     interpret: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """q (b, n_q, d) with heads folded into rows; k, v (b, n_kv, d).
-    Returns out (b, n_q, d) [, lse (b, n_q) f32]. Not differentiable: see
+    Returns out (b, n_q, d) [, lse (b, n_q) f32]. ``block_k`` (default
+    ``auto_fwd_blocks``) is the keys per running-max update; the kernel
+    takes a multiple of its tile (``KEY_TILE``). Not differentiable: see
     ``flash_mqa``."""
-    del block_q, block_k, inner_kv, use_exp2, interpret  # TPU tuning only
+    del block_q, inner_kv, use_exp2, interpret  # TPU tuning only
     _check_shapes("flash_mqa_fwd", q, k, v)
     b, n_q, d = q.shape
+    if block_k is None:
+        block_k = auto_fwd_blocks(n_q, k.shape[1])[1]
     if q.device.type == "cpu":
-        return flash_mqa_reference(q, k, v, sm_scale, save_lse)
+        return flash_mqa_reference(q, k, v, sm_scale, save_lse, block_k)
     _require_kernel_inputs("flash_mqa_fwd", [q, k, v])
+    tile = KEY_TILE[q.dtype]
+    if block_k <= 0 or block_k % tile:
+        raise ValueError(f"flash_mqa_fwd: block_k {block_k} is not a multiple of the "
+                         f"kernel's {tile}-key tile")
     out = torch.empty_like(q)
     lse = (torch.empty((b, n_q), device=q.device, dtype=torch.float32)
            if save_lse else None)
     KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        b, n_q, k.shape[1], d, dtype_code(q.dtype), float(sm_scale),
+        b, n_q, k.shape[1], d, dtype_code(q.dtype), block_k, float(sm_scale),
         stream_ptr(q.device),
     )
     return (out, lse) if save_lse else out
@@ -204,10 +277,23 @@ def flash_mqa_bwd(q, k, v, out, lse, g, *, sm_scale: float
     return dq, dk, dv
 
 
+def fwd_residuals(q, k, v, *, sm_scale: float, block_k: Optional[int] = None):
+    """The forward's out and the lse its backward takes, as the JAX
+    custom_vjp saves them: where ``bwd_rounds`` (``_bwd_pallas``), the
+    forward's own lse, m + log of the sum of the rounded probabilities; else
+    (batch 1, ``_bwd_xla_scan``, which recomputes an f32 softmax) the exact
+    f32 logsumexp, from the f32 forward on f32 copies (the same in f32)."""
+    out, lse = flash_mqa_fwd(q, k, v, sm_scale=sm_scale, save_lse=True, block_k=block_k)
+    if not bwd_rounds(q) and q.dtype != torch.float32:
+        lse = flash_mqa_fwd(q.float(), k.float(), v.float(), sm_scale=sm_scale,
+                            save_lse=True)[1]
+    return out, lse
+
+
 class _FlashMQA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale):
-        out, lse = flash_mqa_fwd(q, k, v, sm_scale=sm_scale, save_lse=True)
+    def forward(ctx, q, k, v, sm_scale, block_k):
+        out, lse = fwd_residuals(q, k, v, sm_scale=sm_scale, block_k=block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.sm_scale = sm_scale
         return out
@@ -217,7 +303,7 @@ class _FlashMQA(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_mqa_bwd(q, k, v, out, lse, g.contiguous(),
                                    sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_mqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -226,7 +312,7 @@ def flash_mqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_mqa_fwd``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashMQA.apply(q, k, v, float(sm_scale))
+        return _FlashMQA.apply(q, k, v, float(sm_scale), tuning.get("block_k"))
     return flash_mqa_fwd(q, k, v, sm_scale=sm_scale, **tuning)
 
 

@@ -4,8 +4,9 @@ control against the fused-denominator forward, at the probe geometry.
 Rows:
   1. r2 control: ``ops/flash_variants.r2_fwd`` on q scaled by the caller
      (the scale multiply is in the timed call, as in the JAX probe);
-  2. the fused forward: ``ops/flash_mqa.flash_mqa_fwd``;
-  3. the fused forward with save_lse (the training forward);
+  2. the fused forward: ``ops/flash_mqa.flash_mqa_fwd`` at the JAX probe's
+     block_k 1024;
+  3. the fused forward with save_lse (the training forward), block_k 1024;
   4. the full VJP through ``ops/flash_mqa.flash_mqa`` (the forward with the
      lse and the backward kernel);
   5. the library yardstick: SDPA with the kv expanded per head.
@@ -36,9 +37,10 @@ def rows(device, card: str) -> List[Dict]:
         dict(name="r3p8_fwd_r2_control", kind="r2 kernel (row 10)",
              fn=lambda: fv.r2_fwd(q * SCALE, k, v)),
         dict(name="r3p8_fwd_fused", kind="fused forward (row 1)",
-             fn=lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=SCALE)),
+             fn=lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=SCALE, block_k=1024)),
         dict(name="r3p8_fwd_fused_lse", kind="fused forward + save_lse (row 1)",
-             fn=lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=SCALE, save_lse=True)),
+             fn=lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=SCALE, save_lse=True,
+                                         block_k=1024)),
         dict(name="r3p8_vjp_bwd", kind="full VJP, forward + lse and backward (rows 1 + 2)",
              fn=vjp, iters=5),
         dict(name="r3p8_sdpa", kind="library: SDPA, kv expanded per head",

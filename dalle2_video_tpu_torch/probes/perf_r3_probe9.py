@@ -3,12 +3,12 @@ sub-tiles per step, chained or as independent partials, at the probe
 geometry.
 
 Rows:
-  1. the control: the fused forward (``ops/flash_mqa.flash_mqa_fwd``, row 1);
+  1. the control: the fused forward (``ops/flash_mqa.flash_mqa_fwd``, row 1)
+     at the JAX probe's block_k 1024;
   2. ``ops/flash_variants.inner_fwd`` with inner 2 / 4 x merge chain / par
-     (row 11);
-  3. ``wide2048``: the JAX probe's single 2048-key block of the fused
-     forward. The port's row-1 kernel has one tile shape and takes no
-     block_k, so this row is row 1 again, recorded as such;
+     (row 11), block_k 1024;
+  3. ``wide2048``: the fused forward with one 2048-key block (the block the
+     JAX wrapper's auto rule picks at this geometry);
   4. the library yardstick: SDPA with the kv expanded per head.
 
 ``--check`` runs the JAX probe's check_small instead: (2, 700, 515, 32) f32,
@@ -33,13 +33,12 @@ VARIANTS = ((2, "chain"), (4, "chain"), (2, "par"), (4, "par"))
 
 def rows(device, card: str) -> List[Dict]:
     q, k, v = inputs(device)
-    control = dict(name="r3p9_control_fused", kind="fused forward (row 1)",
-                   fn=lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=SCALE))
+    control = dict(name="r3p9_control_fused", kind="fused forward (row 1), block_k 1024",
+                   fn=lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=SCALE, block_k=1024))
     inner = [dict(name=f"r3p9_inner{i}_{m}", kind=f"inner-kv {i} sub-tiles ({m}) (row 11)",
                   fn=lambda i=i, m=m: fv.inner_fwd(q, k, v, sm_scale=SCALE, inner=i, merge=m))
              for i, m in VARIANTS]
-    wide = dict(name="r3p9_wide2048",
-                kind="row 1 again: the port's fused forward has one tile shape (no block_k)",
+    wide = dict(name="r3p9_wide2048", kind="fused forward (row 1), one 2048-key block",
                 fn=lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=SCALE, block_k=2048))
     sdpa = dict(name="r3p9_sdpa", kind="library: SDPA, kv expanded per head",
                 fn=sdpa_row(q, k, v))

@@ -22,6 +22,7 @@ import torch
 
 from dalle2_video_tpu.ops.pallas.cross_attention import cross_attention as jax_cross
 from dalle2_video_tpu.ops.pallas.flash_mqa import (
+    _auto_fwd_blocks,
     _flash_mqa_fwd_only,
     mqa_attention as jax_mqa,
 )
@@ -93,6 +94,68 @@ def test_flash_fwd_all_logits_below_minus_87():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     # lse ~ -124: f32 spacing there is ~8e-6, so 2e-5 is a few ulp too
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=5e-5)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 step at |x| (8 significant bits): 2^(e - 8) for x = m 2^e,
+    m in [0.5, 1)."""
+    _, e = np.frexp(np.maximum(np.abs(x), np.finfo(np.float32).tiny))
+    return np.ldexp(1.0, e - 8)
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """a rounded to bf16 (nearest even), held in f32: both sides get it."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("n_kv,block_k", [(1100, 512), (300, 512), (515, 128)])
+def test_flash_fwd_plain_bf16_follows_the_jax_kernel(n_kv, block_k):
+    """bf16: the plain forward computes ``_flash_mqa_kernel``'s function --
+    q * scale rounded to bf16, the running max moved once per block_k
+    keys, the probabilities rounded to bf16 and summed in f32 for the
+    denominator. A ragged tail, n_kv < block_k and several blocks. Bound:
+    at most 0.5% of outputs differ, each by at most one bf16 step of the
+    larger value, lse within 1e-4 plus one probability flip. The two sides
+    sum the logits in another f32 order, so a probability now and then
+    rounds to the neighbouring bf16 value. That moves an output by an
+    amount set by the output's scale, not by its own size, so the step is
+    taken at no less than the output's RMS (near-zero outputs of a
+    cancelling sum would otherwise admit no difference at all); and it
+    moves the denominator l by at most 2^-8 (p <= 1), lse by 2^-8 / l,
+    with l = sum exp(s - rowmax) in f64 (1.3e-4 at n_kv = 300, seed
+    812)."""
+    rng = np.random.default_rng(n_kv + block_k)
+    b, n_q, d = 2, 512, 32
+    q, k, v = (_bf16(_np(rng, b, n, d)) for n in (n_q, n_kv, n_kv))
+    scale = d**-0.5
+    to_jax = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    want, want_lse = _o0(lambda q, k, v: _flash_mqa_fwd_only(
+        to_jax(q), to_jax(k), to_jax(v), sm_scale=scale, block_q=256, block_k=block_k,
+        interpret=True, save_lse=True), q, k, v)
+    want = np.asarray(want.astype(jnp.float32))
+    bf = lambda a: _t(a).to(torch.bfloat16)
+    got, lse = port_flash.flash_mqa_fwd(bf(q), bf(k), bf(v), sm_scale=scale,
+                                        save_lse=True, block_k=block_k)
+    got = got.float().numpy()
+    differ = got != want
+    assert differ.mean() <= 5e-3, f"{differ.mean():.2%} of the bf16 outputs differ"
+    gap = np.abs(got - want)[differ]
+    rms = float(np.sqrt(np.mean(want**2)))
+    step = _bf16_ulp(np.maximum(np.maximum(np.abs(got), np.abs(want))[differ], rms))
+    assert (gap <= step).all(), f"a value differs by {float((gap / step).max()):.1f} bf16 steps"
+    s = np.einsum("bnd,bmd->bnm", _bf16(q * np.float32(scale)).astype(np.float64), k)
+    l = np.exp(s - s.max(-1, keepdims=True)).sum(-1)
+    assert (np.abs(lse.numpy() - np.asarray(want_lse)[..., 0]) <= 1e-4 + 2.0**-8 / l).all()
+
+
+@pytest.mark.parametrize("n_q,n_kv", [(92160, 5761), (16384, 1025), (65536, 4097),
+                                      (368640, 23041), (8191, 4095), (8192, 4096),
+                                      (8193, 4097), (100, 16383), (100, 16384), (100, 16385)])
+def test_flash_fwd_auto_blocks_follow_the_jax_rule(n_q, n_kv):
+    """The port's copy of ``_auto_fwd_blocks``: the paths' shapes (serve,
+    the cascade's two sampling bottlenecks, the probes) and each threshold
+    +- 1."""
+    assert port_flash.auto_fwd_blocks(n_q, n_kv) == _auto_fwd_blocks(n_q, n_kv)
 
 
 def test_mqa_attention_heads_fold_matches_jax():
@@ -251,16 +314,18 @@ def test_flash_bwd_plain_bf16_follows_the_jax_routing(b):
     differ, none by more than 2^-7 of the largest. (All-f32 arithmetic
     differs from _bwd_pallas in about half of the values here.)
     Both sides get the same bf16 inputs and lse, and the port the bf16 out
-    of its forward, as on the training path. _bwd_xla_scan recomputes the
-    softmax and never reads out; at b = 1 the port's delta is rowsum(P * dP)
-    as there (with rowsum(g * bf16 out) about 12% of dq would differ)."""
+    of its forward, as on the training path (``fwd_residuals``).
+    _bwd_xla_scan recomputes the softmax and never reads out; at b = 1 the
+    port's delta is rowsum(P * dP) as there (with rowsum(g * bf16 out) about
+    12% of dq would differ), and its lse the exact f32 one (with the bf16
+    forward's, from the rounded probabilities, about 9% of dq would)."""
     from dalle2_video_tpu.ops.pallas.flash_mqa import _bwd_pallas, _bwd_xla_scan
 
     rng = np.random.default_rng(40 + b)
     d, bf = 32, torch.bfloat16
     q, k, v, g = (_t(_np(rng, b, n, d)).to(bf) for n in (256, 130, 130, 256))
     scale = d**-0.5
-    out, lse = port_flash.flash_mqa_fwd(q, k, v, sm_scale=scale, save_lse=True)
+    out, lse = port_flash.fwd_residuals(q, k, v, sm_scale=scale)
     assert port_flash.bwd_rounds(q) == (b == 2)
     j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
     if b == 2:
