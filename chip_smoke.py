@@ -13,7 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
      forward timed at the serving shape and the probes' geometry, and
      checked at the cascade's and the training shapes (FLASH_FWD_CASES),
      the backward at the training, cascade and probe shapes
-     (FLASH_BWD_CASES);
+     (FLASH_BWD_CASES); the cross-attention (row 5) at every shape the
+     serving paths give it (SERVE_SITES of probes/xattn_rows.py, at the CFG
+     batch of a group of one and of two requests), each timed, and summed
+     over one DDIM step beside that step's bound;
      The backward kernels are checked the same way at the training shapes
      (bf16, and one f32 case each), and so are the opt-in conv paths'
      kernels (the 3x3 conv and its dx, its weight gradient, the conv + bias
@@ -45,11 +48,11 @@ Phases (any failure exits non-zero and prints no result line):
      as the unet structure predicts, and no weight-gradient shape that
      phase 2 did not check. Prints ms per step, samples/s and peak
      memory;
-  6. probes: the flash probes' variants (rows 10 and 11: the r2 forward and
-     the inner-kv forward, inner 2 / 4 x chain / par) against their plain
-     versions at the probes' geometry (bf16, q (2, 368640, 32), kv
-     (2, 23041, 32)) and at probe 9's check_small (f32, against exact
-     softmax); then the probes' own rows
+  6. probes: the flash probes' variants (rows 10 and 11: the r2 forward, at
+     block_k 1024 and 2048, and the inner-kv forward, inner 2 / 4 x chain /
+     par) against their plain versions at the probes' geometry (bf16, q
+     (2, 368640, 32), kv (2, 23041, 32)) and at probe 9's check_small
+     (f32, against exact softmax); then the probes' own rows
      (dalle2_video_tpu_torch/probes/perf_r3_probe{8,9}.py: r2, the fused
      forward, with lse, the full VJP, inner 2 / 4 x chain / par, SDPA) with
      exact launch counts;
@@ -65,8 +68,11 @@ Phases (any failure exits non-zero and prints no result line):
      modules on the CPU, and the remat policies' gradients (bit for bit on
      both conv-path routes, REMAT_CASES) and recompute launches on the
      conv paths' kernels. Every path's run records the shapes that reach
-     the three conv kernels (ShapeRecord) and fails unless they are the
-     path's own (conv_path_shapes), all of them checked in phase 2.
+     the three conv kernels and the cross-attention (ShapeRecord) and fails
+     unless they are the path's own (conv_path_shapes; serve_shapes: the 7
+     cross-attention shapes at their site counts, at each group's CFG
+     batch, on serve and serve_conv, none elsewhere), all of them checked
+     in phase 2.
 Then it prints the phase times, the {"kernels": [...]} line, the card line,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -84,7 +90,12 @@ most 2^-7 = 7.8e-3 of the value, so rtol 1e-2 admits one rounding flip
 anywhere; atol covers the f32 work before the rounding near zero. The bf16
 flash forwards (rows 1, 10, 11) are also held to one bf16 step per value
 and to an f64 oracle of their function (hold_flash), at the JAX block
-sizes, and each prints its share of bf16 values that differ.
+sizes, and each prints its share of bf16 values that differ. The bf16
+cross-attention (row 5) is held to the JAX kernel's function
+(ops/cross_attention.py::fused_cross_attention_reference) by
+probes/xattn_rows.py::hold_bf16: the same tolerance, widened only by the
+flips of probabilities that lie within an f32 rounding of a bf16 midpoint,
+at most 0.05% of its values differing.
 """
 
 from __future__ import annotations
@@ -93,6 +104,7 @@ import argparse
 import json
 import sys
 import time
+from collections import Counter
 
 try:
     from dalle2_video_tpu_torch.engine.decoder import cascade_sr_overrides
@@ -103,6 +115,13 @@ try:
         TRAIN_BT,
         all_shapes,
         conv_path_shapes,
+    )
+    from dalle2_video_tpu_torch.probes.xattn_rows import BATCHES as XA_BATCHES
+    from dalle2_video_tpu_torch.probes.xattn_rows import (
+        SERVE_SITES,
+        hold_bf16,
+        serve_shapes,
+        sites_per_step,
     )
 except ImportError as exc:
     print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
@@ -355,35 +374,59 @@ def check_kernels(dev, torch):
             log(f"  ms={kms:.4f} bound_ms={bound(2 * x.numel() * 2)[0]:.4f}")
         del x, out, ref
 
-    # cross-attention: unet1 (m = 7) at 90x32x32, unet2 (m = 3) at 90x64x64
-    xa_cases = [("unet2 stage 1", 2, 90 * 64 * 64, 3), ("unet1 stage 1", 2, 90 * 32 * 32, 7)]
-    for i, (label, b, n, m) in enumerate(xa_cases):
-        h, d = 8, 64
-        q = torch.randn(b, n, h, d, generator=g, device=dev).to(bf)
-        k = torch.randn(b, m, h, d, generator=g, device=dev).to(bf)
-        v = torch.randn(b, m, h, d, generator=g, device=dev).to(bf)
-        out = xa.cross_attention(q, k, v, sm_scale=d**-0.5)
-        # the plain version runs in its input dtype: an f32-math oracle is
-        # f32 copies of the same bf16 inputs, rounded once at the end
-        ref = xa.cross_attention_reference(q.float(), k.float(), v.float(), d**-0.5).to(bf)
-        # f32 math on the same bf16 inputs: only the output rounding differs
-        e, tol = check("cross_attention_fwd", f"{label} b={b} n={n} m={m}", out, ref,
-                       atol=1e-3, rtol=1e-2)
-        bnd, by = bound(2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * b * h * n * m * d)
-        if i == 0:
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            rows["cross_attention_fwd"] = dict(
-                max_abs_err=e, tolerance=tol, shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16",
-                ms=time_ms(lambda: xa.cross_attention(q, k, v, sm_scale=d**-0.5)),
-                plain_ms=time_ms(lambda: xa.cross_attention_reference(
-                    q.float(), k.float(), v.float(), d**-0.5).to(bf), iters=3),
-                library_ms=library_time("cross_attention_fwd",
-                                        lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                bound_ms=bnd, bound_by=by)
-        else:
-            kms = time_ms(lambda: xa.cross_attention(q, k, v, sm_scale=d**-0.5))
-            log(f"  ms={kms:.4f} bound_ms={bnd:.4f}")
-        del q, k, v, out, ref
+    # cross-attention (row 5): an f32 check, then bf16 at every (batch,
+    # shape) the serving paths give it (probes/xattn_rows.py: SERVE_SITES at
+    # each CFG batch of BATCHES; they hold the two shapes timed before, unet
+    # 2 at 90x64x64 with m = 3 and unet 1 at 90x32x32 with m = 7), each held
+    # to the JAX kernel's function (fused_cross_attention_reference) by
+    # xattn_rows.hold_bf16, two calls bit-equal; timed beside its bound,
+    # unet 2's 90x64x64 at batch 2 for the JSON row with SDPA and the plain
+    # version, and summed over one DDIM step's calls at each batch
+    sc = 64**-0.5
+    g32 = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(2, n, 8, 64, generator=g32, device=dev) for n in (1000, 7, 7))
+    check("cross_attention_fwd", "f32 check b=2 n=1000 m=7",
+          xa.cross_attention(q, k, v, sm_scale=sc), xa.fused_cross_attention_reference(q, k, v, sc),
+          atol=1e-5, rtol=0.0)
+    steps = {}
+    for b in XA_BATCHES:
+        step = steps[str(b)] = dict(ms=0.0, bound_ms=0.0)
+        for unet, n, m, sites in SERVE_SITES:
+            h, d = 8, 64
+            q = torch.randn(b, n, h, d, generator=g, device=dev).to(bf)
+            k = torch.randn(b, m, h, d, generator=g, device=dev).to(bf)
+            v = torch.randn(b, m, h, d, generator=g, device=dev).to(bf)
+            run = lambda: xa.cross_attention(q, k, v, sm_scale=sc)  # noqa: E731
+            out = run()
+            ref = xa.fused_cross_attention_reference(q, k, v, sc)
+            label = f"unet{unet} b={b} n={n} h={h} d={d} m={m}"
+            try:
+                held = hold_bf16(out, ref, q, k, v, sc)
+            except AssertionError as exc:
+                raise AssertionError(f"cross_attention_fwd {label}: {exc}") from None
+            log(f"cross_attention_fwd {label}: {held['text']}")
+            if not torch.equal(out, run()):
+                raise AssertionError(f"cross_attention_fwd {label}: two calls differ")
+            bnd, by = bound(2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * b * h * n * m * d)
+            kms = time_ms(run)
+            step["ms"] += sites * kms
+            step["bound_ms"] += sites * bnd
+            log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}); {sites} calls a DDIM step")
+            if (b, n, m) == (2, 90 * 64 * 64, 3):
+                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                rows["cross_attention_fwd"] = dict(
+                    max_abs_err=held["max_abs_err"], tolerance=held["tolerance"],
+                    shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16", ms=kms,
+                    plain_ms=time_ms(lambda: xa.fused_cross_attention_reference(q, k, v, sc),
+                                     iters=3),
+                    library_ms=library_time("cross_attention_fwd",
+                                            lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                    bound_ms=bnd, bound_by=by)
+                del qt, kt, vt
+            del q, k, v, out, ref
+        log(f"cross_attention_fwd: one DDIM step's {sites_per_step()} calls at batch {b} "
+            f"{step['ms']:.4f} ms, bound {step['bound_ms']:.4f} ms")
+    rows["cross_attention_fwd"]["serve_step"] = steps
     torch.cuda.empty_cache()
     return rows
 
@@ -682,9 +725,9 @@ def check_conv_kernels(dev, torch, rows):
 
 def check_probe_kernels(dev, torch, rows):
     """Rows 10 and 11 (the r2 and inner-kv flash forwards) vs their plain
-    versions at the probes' geometry and block_k (1024), bf16, held as the
-    flash forward is (hold_flash, an f64 oracle of each variant on
-    ORACLE_ROWS rows), two calls bit-equal. Then probe 9's check_small on
+    versions at the probes' geometry and block_k (1024; row 10 also 2048),
+    bf16, held as the flash forward is (hold_flash, an f64 oracle of each
+    variant on ORACLE_ROWS rows), two calls bit-equal. Then probe 9's check_small on
     the kernels (f32, against exact softmax, < 1e-4). The bound is the
     flash forward's: the exponentials of b x n_q x n_kv real logits (padded
     columns are the kernels' extra work, not the function's)."""
@@ -718,6 +761,13 @@ def check_probe_kernels(dev, torch, rows):
         plain_ms=time_ms(lambda: fv.r2_fwd_reference(qs, k, v, block_k=bk), iters=2),
         library_ms=library, bound_ms=bnd, bound_by=by)
     log(f"  r2: ms={rows['flash_r2_fwd']['ms']:.3f} library_ms={library} bound_ms={bnd:.3f}")
+    # and at block_k 2048 (the JAX auto rule's block at these 23,041 keys)
+    run_r2 = lambda: fv.r2_fwd(qs, k, v, block_k=2048)
+    held("flash_r2_fwd", f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 block_k 2048", run_r2,
+         lambda: fv.r2_fwd_reference(qs, k, v, block_k=2048),
+         fv.r2_fwd_reference(qs[:, :ORACLE_ROWS], k, v, block_k=2048, work=f64))
+    rows["flash_r2_fwd"]["block_k_2048"] = dict(ms=time_ms(run_r2, iters=3))
+    log(f"  r2 block_k 2048: ms={rows['flash_r2_fwd']['block_k_2048']['ms']:.3f}")
     variants = {}
     for inner, merge in ((2, "chain"), (4, "chain"), (2, "par"), (4, "par")):
         run = lambda: fv.inner_fwd(q, k, v, sm_scale=SCALE, block_k=bk, inner=inner, merge=merge)
@@ -1031,7 +1081,7 @@ def check_remat_case(case, results):
 # per_step: each kernel's launches per DDIM step of one group -- one CFG
 # forward per unet: flash once (mid_attn); GroupNorm twice per
 # ResnetBlock3D (27 / 33 blocks); cross-attention once per conditioned
-# block (17 / 22); on the conv paths the fused block at 44 / 19 sites and
+# block (17 / 22: xattn_rows.SERVE_SITES); on the conv paths the fused block at 44 / 19 sites and
 # the conv kernel at 7 / 0 (every other site is the plain conv and the
 # plain GroupNorm: tests/test_torch_port_convpaths.py counts them).
 # "serve_cascade" is configs/cascade_sr.yaml with the JAX package's recipe
@@ -1050,13 +1100,13 @@ SERVE_PATHS = {
         overrides=[*SERVE_90, *both_unets("groupnorm_impl=pallas", "cross_attention_impl=flash")],
         requests=REQUESTS, steps=STEPS,
         per_step={"flash_mqa_fwd": 2, "groupnorm_film_silu_fwd": 54 + 66,
-                  "cross_attention_fwd": 17 + 22}),
+                  "cross_attention_fwd": sites_per_step()}),
     "serve_conv": dict(
         overrides=[*SERVE_90, *both_unets("groupnorm_impl=fused", "spatial_conv_impl=pallas_small",
                                           "cross_attention_impl=flash")],
         requests=2, steps=20,
         per_step={"flash_mqa_fwd": 2, "conv3x3_bias_stats": 44 + 19, "conv3x3": 7 + 0,
-                  "cross_attention_fwd": 17 + 22}),
+                  "cross_attention_fwd": sites_per_step()}),
     "serve_cascade": dict(config="configs/cascade_sr.yaml", overrides=cascade_sr_overrides(),
                           requests=1, steps=CASCADE_STEPS, per_step={"flash_mqa_fwd": 2}),
 }
@@ -1111,7 +1161,20 @@ def serve(dev, torch, path: str, profile: bool = False):
         stats = engine.stats()
     finally:
         engine.close()
-    shapes.check(path, conv_path_shapes(path, {2 * 90 * r["batch_size"] for r in results}))
+    # the groups by their CFG batch (2 x the bucket): a group of k requests
+    # returns k results that rode in it
+    rode = Counter((2 * r["bucket"], r["batch_size"]) for r in results)
+    groups_at = Counter()
+    for (cfg_batch, k), count in rode.items():
+        groups_at[cfg_batch] += count // k
+    if sum(groups_at.values()) != stats["batches"] or not set(groups_at) <= set(XA_BATCHES):
+        raise AssertionError(f"{path}: groups at CFG batches {dict(groups_at)}, "
+                             f"{stats['batches']} groups; check_kernels holds row 5 at {XA_BATCHES}")
+    calls = Counter()
+    for cfg_batch, count in groups_at.items():
+        calls.update({key: n * steps * count for key, n in serve_shapes(cfg_batch).items()})
+    shapes.check(path, conv_path_shapes(path, {2 * 90 * r["batch_size"] for r in results}),
+                 calls if path in ("serve", "serve_conv") else None)
 
     for i, res in enumerate(results):
         vid = res["video"]
@@ -1174,12 +1237,14 @@ CONV_SHAPES = all_shapes()
 
 
 class ShapeRecord:
-    """Records the shapes that reach the conv kernels' wrappers while it is
-    entered (the callers look each wrapper up by name in its module):
-    conv3x3 (x's shape, Co), conv3x3_wgrad (x's shape, Co),
-    conv3x3_bias_stats (x's shape, Co, batch rows)."""
+    """Counts the calls that reach the conv kernels' wrappers and the
+    cross-attention wrapper while it is entered, by shape (the callers look
+    each wrapper up by name in its module): conv3x3 (x's shape, Co),
+    conv3x3_wgrad (x's shape, Co), conv3x3_bias_stats (x's shape, Co, batch
+    rows), cross_attention (q's shape, m)."""
 
     def __init__(self):
+        from dalle2_video_tpu_torch.models import layers
         from dalle2_video_tpu_torch.ops import fused_block as fb
         from dalle2_video_tpu_torch.ops import spatial_conv as sc
 
@@ -1188,17 +1253,19 @@ class ShapeRecord:
                                           lambda x, dy: (*x.shape, dy.shape[3])),
                         "conv3x3_bias_stats": (fb, "conv_bias_stats",
                                                lambda x, w, bias, batch: (*x.shape, w.shape[0],
-                                                                          batch))}
-        self.seen = {k: set() for k in KERNELS}
+                                                                          batch)),
+                        "cross_attention": (layers, "cross_attention",
+                                            lambda q, k, v: (*q.shape, k.shape[1]))}
+        self.seen = {k: Counter() for k in self.targets}
         self._orig = {}
 
     def __enter__(self):
         for name, (mod, attr, key) in self.targets.items():
             orig = self._orig[name] = getattr(mod, attr)
 
-            def recording(*args, _orig=orig, _key=key, _seen=self.seen[name]):
-                _seen.add(_key(*args))
-                return _orig(*args)
+            def recording(*args, _orig=orig, _key=key, _seen=self.seen[name], **kw):
+                _seen[_key(*args)] += 1
+                return _orig(*args, **kw)
 
             setattr(mod, attr, recording)
         return self
@@ -1207,11 +1274,20 @@ class ShapeRecord:
         for name, (mod, attr, _) in self.targets.items():
             setattr(mod, attr, self._orig[name])
 
-    def check(self, path, want):
-        log(f"{path}: conv kernel shapes {({k: len(v) for k, v in self.seen.items()})}")
-        if self.seen != want:
-            raise AssertionError(f"{path}: the conv kernels took shapes {self.seen}; "
-                                 f"the path gives {want} (check_conv_kernels: CONV_SHAPES)")
+    def check(self, path, want_conv, want_xattn=None):
+        """The conv kernels took exactly the shapes of ``want_conv``, and the
+        cross-attention wrapper exactly the calls ``want_xattn`` counts
+        (none if None)."""
+        conv = {k: set(self.seen[k]) for k in KERNELS}
+        xattn = self.seen["cross_attention"]
+        log(f"{path}: conv kernel shapes {({k: len(v) for k, v in conv.items()})}, "
+            f"cross-attention calls by (b, n, h, d, m) {dict(xattn)}")
+        if conv != want_conv:
+            raise AssertionError(f"{path}: the conv kernels took shapes {conv}; "
+                                 f"the path gives {want_conv} (check_conv_kernels: CONV_SHAPES)")
+        if xattn != (want_xattn or Counter()):
+            raise AssertionError(f"{path}: cross-attention calls {dict(xattn)}; the unets give "
+                                 f"{dict(want_xattn or {})} (probes/xattn_rows.py: SERVE_SITES)")
 
 
 def check_bwd_routes(label, launches):
@@ -1457,7 +1533,7 @@ def profile_device(label, torch, fn):
               "flash_mqa_bwd": ("flash_mqa_bwd", "tc::dq_kernel", "tc::dkv_kernel"),
               "groupnorm_film_silu_fwd": ("gn_stats_kernel", "gn_apply_kernel"),
               "groupnorm_film_silu_bwd / fused_block_gn_bwd": ("gn_bwd_",),
-              "cross_attention_fwd": ("cross_attention_kernel",),
+              "cross_attention_fwd": ("cross_attention_",),
               "conv3x3 / conv3x3_bias_stats": ("conv3x3_bf16_kernel", "conv3x3_f32_kernel",
                                                "stats_reduce_kernel"),
               "conv3x3_wgrad": ("wgrad_bf16_kernel", "wgrad_f32_kernel", "wgrad_reduce_kernel"),
@@ -1594,7 +1670,8 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]}
-        for extra in ("conv_alone_ms", "variants", "library_fwd_bwd_ms", "probe_geometry"):
+        for extra in ("conv_alone_ms", "variants", "library_fwd_bwd_ms", "probe_geometry",
+                      "serve_step", "block_k_2048"):
             if extra in r:
                 row[extra] = r[extra]
         out.append(row)

@@ -9,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
 #include <math.h>
 #include <stdint.h>
 
@@ -112,6 +113,48 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(n));
+}
+
+// ------------------------------------------------ mbarriers and TMA (sm_90)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// spin until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda)
+inline cudaError_t tensor_map_encoder(PFN_cuTensorMapEncodeTiled_v12000* out) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  *out = encode;
+  return cudaSuccess;
 }
 
 }  // namespace d2v

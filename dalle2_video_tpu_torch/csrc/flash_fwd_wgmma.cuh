@@ -1,9 +1,11 @@
 // The flash-MQA forward's Hopper mainloop (wgmma + TMA), shared by the
-// flash forward (csrc/flash_mqa.cu, row 1) and the probes' inner-kv forward
-// (csrc/flash_inner.cu, row 11), bf16 only.
+// flash forward (csrc/flash_mqa.cu, row 1), the probes' r2 forward
+// (csrc/flash_r2.cu, row 10) and their inner-kv forward (csrc/flash_inner.cu,
+// row 11), bf16 only.
 //
 // Computes what the JAX kernels compute (ops/pallas/flash_mqa.py::
-// _flash_mqa_kernel, scripts/perf_r3_probe9.py::_inner_kernel): with qs =
+// _flash_mqa_kernel, scripts/perf_r3_probe8.py::_r2_kernel,
+// scripts/perf_r3_probe9.py::_inner_kernel): with qs =
 // bf16(q * sm_scale), per block of block_k keys the running max moves once,
 // m' = max(m, rowmax(qs k^T)); p = bf16(exp(s - m')); acc = acc exp(m - m')
 // + p [v | 1] in f32; out = acc_v / l, lse = m + log l. Policies:
@@ -16,7 +18,15 @@
 //     sub-block. par (PAR): each sub-block j gets its own max m_j, a_j =
 //     bf16(exp(s - m_j)) [v | 1], merged at once as acc exp(m - m') + a_j
 //     exp(m_j - m') -- the arithmetic of merging them at the end of the
-//     JAX step, in the same order.
+//     JAX step, in the same order;
+//   * row 10 (PAD_ZERO and R2): the chain policy over keys zero-padded to
+//     a multiple of block_k, q arriving scaled (sm_scale 1: bf16(q 1) =
+//     q), but l is the f32 sum of the unrounded p (_r2_kernel's l = l alpha
+//     + sum(p)), which a ones column cannot give: each thread keeps its own
+//     f32 partials per row, masked with p at keys past n_kv, rescaled with
+//     the accumulators once a block and summed over the quad at the end;
+//     P V runs at N = d, with no ones group in the V slot. Padded v rows
+//     are zero, so _r2_kernel's mask multiply needs nothing more.
 //
 // What bounds it on the H100: the exponentials (16 a clock per SM): 1.70e10
 // at the probe geometry = 4.06 ms, 1.06e9 at the serving shape = 0.254 ms.
@@ -54,8 +64,6 @@
 
 #pragma once
 
-#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
-
 #include <algorithm>
 
 #include "common.cuh"
@@ -74,7 +82,7 @@ constexpr int kExtraBytes = 1024 + 1024;  // alignment, barriers
 constexpr int kGroupBytes = kTileKeys * 16;  // 8 columns of a V tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D, bool R2 = false>
 struct Layout {
   static constexpr int kRowBytes = 2 * D;
   static constexpr int kTileBytes = kTileKeys * kRowBytes;
@@ -84,10 +92,10 @@ struct Layout {
   static constexpr CUtensorMapSwizzle kSwizzle =
       D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
               : (D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
-  // P [V | ones]: d columns of V, 8 of ones
-  static constexpr int kPvN = D + 8;
+  // P [V | ones]: d columns of V, 8 of ones (r2: P V alone)
+  static constexpr int kPvN = R2 ? D : D + 8;
   // a V slot: its 8-column groups (128 keys x 16 bytes each, the
-  // unswizzled MN-major layout), the last the ones
+  // unswizzled MN-major layout), the last the ones (none for r2)
   static constexpr int kVSlotBytes = kPvN / 8 * kGroupBytes;
   static constexpr int kMaxKStages =
       (kSmemLimit - kExtraBytes - kVStages * kVSlotBytes) / kTileBytes;
@@ -106,26 +114,6 @@ struct Params {
 };
 
 // ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// spin until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
-}
 // the box of a (b, n_kv, d) tensor at (column, key, batch) -> shared
 // memory, its bytes reported to bar
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -210,6 +198,20 @@ __device__ __forceinline__ void wgmma_m64n24k16_rs(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d[16] (+)= a (64 x 16, registers) * b (16 x 32, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // d[20] (+)= a (64 x 16, registers) * b (16 x 40, shared memory, MN-major)
 __device__ __forceinline__ void wgmma_m64n40k16_rs(float* d, const uint32_t* a, uint64_t b,
                                          int accumulate) {
@@ -245,12 +247,16 @@ __device__ __forceinline__ void wgmma_m64n72k16_rs(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// acc (+)= P [V | ones], N = d + 8: the last n8 chunk the denominator
-template <int D>
+// acc (+)= P [V | ones], N = d + 8: the last n8 chunk the denominator;
+// r2: acc (+)= P V, N = d
+template <int D, bool R2>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t b, int acc) {
-  if constexpr (Layout<D>::kPvN == 24) wgmma_m64n24k16_rs(d, a, b, acc);
-  if constexpr (Layout<D>::kPvN == 40) wgmma_m64n40k16_rs(d, a, b, acc);
-  if constexpr (Layout<D>::kPvN == 72) wgmma_m64n72k16_rs(d, a, b, acc);
+  constexpr int n = Layout<D, R2>::kPvN;
+  static_assert(n == 24 || n == 32 || n == 40 || n == 72, "no wgmma wrapper for this N");
+  if constexpr (n == 24) wgmma_m64n24k16_rs(d, a, b, acc);
+  if constexpr (n == 32) wgmma_m64n32k16_rs(d, a, b, acc);
+  if constexpr (n == 40) wgmma_m64n40k16_rs(d, a, b, acc);
+  if constexpr (n == 72) wgmma_m64n72k16_rs(d, a, b, acc);
 }
 
 // Issue S = qs K^T for the K tile at ring position `pos` (waiting for its
@@ -277,11 +283,11 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
 // ----------------------------------------------------------------- kernel
 // One block: 128 query rows of one batch row; warpgroups 0 and 1 compute
 // 64 rows each, warpgroup 2 loads K and V.
-template <int D, bool PAD_ZERO, bool PAR>
+template <int D, bool PAD_ZERO, bool PAR, bool R2>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using L = Layout<D>;
+  using L = Layout<D, R2>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int n_k = p.k_stages;
@@ -310,9 +316,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       mbar_init(&vfull[i], 1);
       mbar_init(&vempty[i], 4 * kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
-  for (int i = tid; i < kVStages * kGroupBytes / 4; i += kThreads) {  // the ones columns
+  for (int i = tid; !R2 && i < kVStages * kGroupBytes / 4; i += kThreads) {  // the ones columns
     const int slot = i / (kGroupBytes / 4), w = i % (kGroupBytes / 4);
     reinterpret_cast<uint32_t*>(vring + slot * L::kVSlotBytes + L::kTileBytes)[w] = 0x3F803F80u;
   }
@@ -378,9 +384,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
 
     // o: the running P [V | 1] (its chunk d / 8 the denominator l); pt: one
-    // tile's, added to it in f32
-    constexpr int kAcc = D / 2 + 4;
+    // tile's, added to it in f32. r2: o the running P V, and ls this
+    // thread's f32 partial sums of the unrounded p (rows g, g + 8, two
+    // chains each), rescaled with o and summed over the quad at the end
+    constexpr int kAcc = L::kPvN / 2;
     float o[kAcc], pt[L::kPvN / 2];
+    float ls[4] = {0.f, 0.f, 0.f, 0.f};
     uint32_t pa[8][4];  // P of the tile in flight, read by its product
     float s[64];        // one tile's scores, then its probabilities
 #pragma unroll
@@ -447,6 +456,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       const float aj1 = PAR ? ex2((mx1 - mn1) * kLog2e) : 1.f;
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) o[i] *= (i & 2) ? am1 : am0;
+      if (R2) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ls[i] *= (i & 2) ? am1 : am0;
+      }
       m0 = mn0;
       m1 = mn1;
 
@@ -479,6 +492,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
             for (int i = 0; i < 64; ++i)
               if (8 * (i / 4) + 2 * t4 + (i & 1) >= real) s[i] = 0.f;
           }
+          if (R2) {  // the denominator: the f32 sum of the unrounded p
+#pragma unroll
+            for (int i = 0; i < 64; ++i) ls[(i & 2) | ((i >> 2) & 1)] += s[i];
+          }
 #pragma unroll
           for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
@@ -492,7 +509,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
               mbar_wait(&vfull[vslot], (vn / kVStages) & 1);
               wg_fence();
               _Pragma("unroll") for (int kk = 0; kk < 8; ++kk)
-                  wgmma_pv<D>(pt, pa[kk], vd + kk * (256 >> 4), kk > 0);
+                  wgmma_pv<D, R2>(pt, pa[kk], vd + kk * (256 >> 4), kk > 0);
               wg_commit());
           ++vn;
         }
@@ -505,7 +522,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
 #undef D2V_TURN
 
     // out = acc_v / l (every column of the ones chunk holds l), lse = m + log l
-    const float l0 = o[D / 2], l1 = o[D / 2 + 2];
+    float l0, l1;
+    if constexpr (R2) {
+      l0 = ls[0] + ls[1];
+      l1 = ls[2] + ls[3];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+    } else {
+      l0 = o[D / 2];
+      l1 = o[D / 2 + 2];
+    }
     __nv_bfloat16* ob = p.o + static_cast<size_t>(b) * p.n_q * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -531,16 +560,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
 template <int D>
 inline cudaError_t encode_kv_map(CUtensorMap* map, const void* base, int b, int n_kv, int width,
                                  CUtensorMapSwizzle swizzle) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(n_kv),
                               static_cast<cuuint64_t>(b)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(2 * D),
@@ -554,20 +576,21 @@ inline cudaError_t encode_kv_map(CUtensorMap* map, const void* base, int b, int 
 }
 
 // Shared memory of one block with `k_stages` K slots.
-template <int D>
+template <int D, bool R2>
 constexpr int smem_bytes(int k_stages) {
-  return kExtraBytes + k_stages * Layout<D>::kTileBytes + kVStages * Layout<D>::kVSlotBytes;
+  return kExtraBytes + k_stages * Layout<D, R2>::kTileBytes +
+         kVStages * Layout<D, R2>::kVSlotBytes;
 }
 
 // q, o (b, n_q, D); k, v (b, n_kv, D); all bf16. n_span: the keys the
 // blocks cover (n_kv, or the zero-padded length under PAD_ZERO).
-template <int D, bool PAD_ZERO, bool PAR>
+template <int D, bool PAD_ZERO, bool PAR, bool R2 = false>
 cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                              int b, int n_q, int n_kv, int n_span, int block_k, float sm_scale,
                              cudaStream_t stream) {
   if (block_k <= 0 || block_k % kTileKeys != 0) return cudaErrorInvalidValue;
   const int per_block = block_k / kTileKeys;
-  const int k_stages = std::min(per_block, Layout<D>::kMaxKStages);
+  const int k_stages = std::min(per_block, Layout<D, R2>::kMaxKStages);
   // K: whole rows, swizzled at the row width; V: 8-column groups, unswizzled
   CUtensorMap tk, tv;
   cudaError_t err = encode_kv_map<D>(&tk, k, b, n_kv, D, Layout<D>::kSwizzle);
@@ -584,8 +607,8 @@ cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v, void* 
   p.k_stages = k_stages;
   p.resident = k_stages == per_block;
   p.sm_scale = sm_scale;
-  const int smem = smem_bytes<D>(k_stages);
-  auto* kern = flash_fwd_wgmma_kernel<D, PAD_ZERO, PAR>;
+  const int smem = smem_bytes<D, R2>(k_stages);
+  auto* kern = flash_fwd_wgmma_kernel<D, PAD_ZERO, PAR, R2>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((n_q + kBlockRows - 1) / kBlockRows, b);

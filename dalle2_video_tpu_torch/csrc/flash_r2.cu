@@ -10,14 +10,12 @@
 //   * the ragged kv tail is zero-padded up to a multiple of block_k (the
 //     bf16 path; 16 keys on the f32 path): a padded column has logit 0, it
 //     enters the running max, and its probability is multiplied by a 0/1
-//     mask after the exponential -- every tile takes the mask multiply;
-//   * the running max moves once per block_k keys, as in the JAX kernel:
-//     on the bf16 path a max pass over the block's 64-key tiles runs before
-//     its exponentials, recomputing Q K^T (the block's keys are staged
-//     twice), and the accumulators are rescaled once per block;
-//   * the denominator is an explicit row sum of the f32 probabilities (over
-//     the 4 lanes of an mma group on the bf16 path), kept as its own state
-//     l = l * alpha + rowsum(p).
+//     mask after the exponential;
+//   * the running max moves once per block_k keys, as in the JAX kernel,
+//     and the accumulators are rescaled once per block;
+//   * the denominator is an explicit row sum of the f32 probabilities
+//     before their rounding, kept as its own state l = l * alpha +
+//     rowsum(p).
 // Where this differs from exact softmax: a padded zero logit can hold the
 // running max, so when every real logit of a row lies more than ~87 below 0
 // (e^-87 is at the f32 underflow) the probabilities underflow and the row
@@ -29,15 +27,17 @@
 // What bounds it on the H100: at the probe geometry (b = 2, 368,640 query
 // rows, 23,041 keys, d = 32) 1.70e10 exponentials at 4.18e12/s = 4.06 ms;
 // the products (2.17e12 FLOP) take 2.2 ms at the dense bf16 rate, the
-// bytes 0.03 ms. A block of 4 warps owns 64 query rows, mma.sync m16n8k16
-// for both products, S in the accumulator layout reused as P's A operand,
-// p = 2^((s - m) log2 e); each tile's P V starts from zero and is added in
-// f32 (a sum over thousands of keys in the mma accumulator drifts past a
-// bf16 rounding); the kv stays in L2.
+// bytes 0.03 ms. bf16 runs the flash forward's Hopper mainloop
+// (csrc/flash_fwd_wgmma.cuh: wgmma + TMA, two consumer warpgroups, the
+// exact max of each block by two passes over its 128-key tiles) with its
+// r2 policy: the zero padding of row 11's chain, sm_scale 1, and the
+// denominator as each thread's f32 partial sums of the unrounded p, so
+// P V runs at N = d with no ones columns.
 // f32 inputs take a CUDA-core kernel (one query row per thread, 16-key
 // chunks), exact in f32, for checks.
 
 #include "common.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 namespace {
 
@@ -118,193 +118,12 @@ r2_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- bf16 / mma
-constexpr int kWarps = 4;
-constexpr int kBlockRows = kWarps * 16;
-constexpr int kKv = 64;  // keys per shared-memory tile (the bf16 tile)
-
-using d2v::mma_bf16;
-using d2v::pack_bf16;
-
-__global__ void __launch_bounds__(kWarps * 32)
-r2_mma_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int n_q, int n_kv, int block_k) {
-  constexpr int KP = kD + 8;   // padded K row (elements)
-  constexpr int VP = kKv + 8;  // padded V^T row (elements)
-  __shared__ __align__(16) __nv_bfloat16 ks[kKv * KP];
-  __shared__ __align__(16) __nv_bfloat16 vt[kD * VP];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // mma group: rows g and g + 8
-  const int t = lane & 3;   // lane in group: columns 2t, 2t + 1
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kBlockRows + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * n_q * kD;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * n_kv * kD;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * n_kv * kD;
-
-  auto ld2 = [&](int row, int col) -> uint32_t {
-    if (row >= n_q) return 0u;
-    return *reinterpret_cast<const uint32_t*>(qb + static_cast<size_t>(row) * kD + col);
-  };
-  uint32_t qa[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = ld2(r0, c);
-    qa[kk][1] = ld2(r1, c);
-    qa[kk][2] = ld2(r0, c + 8);
-    qa[kk][3] = ld2(r1, c + 8);
-  }
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows r0 / r1
-  float l0 = 0.f, l1 = 0.f;              // running row sums, whole rows
-
-  // Stage the tile at kv0 (K, and V transposed when with_v), zero-padded
-  // past the tail, and return S = Q K^T.
-  auto tile_scores = [&](int kv0, bool with_v, float (*s)[4]) {
-    const int tile = min(kKv, n_kv - kv0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kKv * kD / 8; i += kWarps * 32) {
-      const int r = i / (kD / 8);
-      const int c = (i % (kD / 8)) * 8;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (r < tile) {  // past the tail: the zero padding
-        const size_t off = static_cast<size_t>(kv0 + r) * kD + c;
-        kr = *reinterpret_cast<const uint4*>(kb + off);
-        if (with_v) vr = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * KP + c) = kr;
-      if (with_v) {
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vr);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) vt[(c + e) * VP + r] = ve[e];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kKv / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (8 * j + g) * KP + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16(s[j], qa[kk], b0, b1);
-      }
-    }
-  };
-
-  const int n_pad = (n_kv + block_k - 1) / block_k * block_k;
-  for (int blk = 0; blk < n_pad; blk += block_k) {
-    const int end = min(blk + block_k, n_kv);  // the block's real keys end here
-    // pass 1: the block's max over every column, padded zeros included
-    float mx0 = blk + block_k > n_kv ? 0.f : -INFINITY;  // a padded column: logit 0
-    float mx1 = mx0;
-    for (int kv0 = blk; kv0 < end; kv0 += kKv) {
-      float s[kKv / 8][4];
-      tile_scores(kv0, false, s);
-#pragma unroll
-      for (int j = 0; j < kKv / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f((m0 - mn0) * kLog2e), a1 = exp2f((m1 - mn1) * kLog2e);  // once a block
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-    l0 *= a0;
-    l1 *= a1;
-    m0 = mn0;
-    m1 = mn1;
-    // pass 2: p = exp(s - m) * kvmask (as 2^((s - m) log2 e): s - m is
-    // exact near the max), its row sums, and P V
-    for (int kv0 = blk; kv0 < end; kv0 += kKv) {
-      const int tile = min(kKv, n_kv - kv0);
-      float s[kKv / 8][4];
-      tile_scores(kv0, true, s);
-      float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKv / 8; ++j) {
-        const float k0 = 8 * j + 2 * t < tile ? 1.f : 0.f;
-        const float k1 = 8 * j + 2 * t + 1 < tile ? 1.f : 0.f;
-        s[j][0] = exp2f((s[j][0] - mn0) * kLog2e) * k0;
-        s[j][1] = exp2f((s[j][1] - mn0) * kLog2e) * k1;
-        s[j][2] = exp2f((s[j][2] - mn1) * kLog2e) * k0;
-        s[j][3] = exp2f((s[j][3] - mn1) * kLog2e) * k1;
-        ls0 += s[j][0] + s[j][1];
-        ls1 += s[j][2] + s[j][3];
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        ls0 += __shfl_xor_sync(0xffffffffu, ls0, off);
-        ls1 += __shfl_xor_sync(0xffffffffu, ls1, off);
-      }
-      l0 += ls0;
-      l1 += ls1;
-      // the tile's P V from zero, then added in f32: a sum over thousands of
-      // keys kept in the mma accumulator drifts past a bf16 rounding
-      float pt[kD / 8][4];
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n) pt[n][0] = pt[n][1] = pt[n][2] = pt[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKv / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int n = 0; n < kD / 8; ++n) {
-          const __nv_bfloat16* vr = vt + (8 * n + g) * VP + kk * 16 + 2 * t;
-          mma_bf16(pt[n], pa, *reinterpret_cast<const uint32_t*>(vr),
-                   *reinterpret_cast<const uint32_t*>(vr + 8));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += pt[n][e];
-    }
-  }
-
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  __nv_bfloat16* ob = o + static_cast<size_t>(b) * n_q * kD;
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (r0 < n_q)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r0) * kD + c) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r1 < n_q)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r1) * kD + c) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-}
-
 }  // namespace
 
 D2V_EXPORT_ERROR_STRING
 
 // q (b, n_q, 32) already scaled, k and v (b, n_kv, 32), o like q; block_k:
-// keys per running-max update of the bf16 kernel (a multiple of its 64-key
+// keys per running-max update of the bf16 kernel (a multiple of its 128-key
 // tile), the zero padding reaching a multiple of it.
 extern "C" int d2v_flash_r2_fwd(const void* q, const void* k, const void* v,
                                 void* o, int b, int n_q, int n_kv, int dtype,
@@ -312,13 +131,12 @@ extern "C" int d2v_flash_r2_fwd(const void* q, const void* k, const void* v,
   if (b <= 0 || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == d2v::kBFloat16) {
-    if (block_k <= 0 || block_k % kKv != 0) return cudaErrorInvalidValue;
-    dim3 grid((n_q + kBlockRows - 1) / kBlockRows, b);
-    r2_mma_kernel<<<grid, kWarps * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n_q, n_kv,
-        block_k);
-  } else if (dtype == d2v::kFloat32) {
+    if (block_k <= 0) return cudaErrorInvalidValue;
+    const int n_span = (n_kv + block_k - 1) / block_k * block_k;  // the zero padding
+    return d2v::wg::launch_flash_fwd<kD, true, false, true>(q, k, v, o, nullptr, b, n_q, n_kv,
+                                                            n_span, block_k, 1.f, s);
+  }
+  if (dtype == d2v::kFloat32) {
     dim3 grid((n_q + kRows - 1) / kRows, b);
     r2_f32_kernel<<<grid, kRows, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),

@@ -4,7 +4,21 @@ dalle2_video_tpu/ops/pallas/cross_attention.py).
 softmax(q k^T * sm_scale) v per (batch, head) with the whole context (m <= 16
 keys) held on chip. For a CUDA tensor the wrapper launches the kernel in
 ``csrc/cross_attention.cu``; for a CPU tensor it uses
-``cross_attention_reference``, einsums and a softmax in the input dtype.
+``fused_cross_attention_reference``, the JAX kernel's function step by step.
+
+Row 5 has two plain versions, one for each JAX route of
+``CrossAttention``:
+
+* ``fused_cross_attention_reference`` -- ``impl="flash"``, the Pallas
+  kernel ``fused_cross_attention`` (``_kernel``): f32 logits from the
+  product, times sm_scale in f32, ``jax.nn.softmax`` in f32, p rounded to
+  v's dtype, p v in f32, one rounding of the output. The kernel computes
+  this function, and the checks hold it to it.
+* ``cross_attention_reference`` -- ``impl="xla"``, the einsums: q * scale
+  rounded, the logits rounded, the softmax in the input dtype
+  (``softmax_as_jax``).
+
+In f32 the two are the same function up to the order of f32 roundings.
 
 The kernel is forward-only by design, as in the JAX package (training keeps
 the plain path, ``cross_attention_impl: xla``). For a CUDA tensor that
@@ -40,11 +54,26 @@ SUPPORTED_D = (32, 64)
 
 
 def cross_attention_reference(q, k, v, sm_scale: float) -> torch.Tensor:
-    """Plain version: q (b, n, h, d), k/v (b, m, h, d), in their dtype as the
-    JAX package's plain path computes it (bf16 products accumulate in f32
-    and round). The kernel checks on the card pass f32 copies and round."""
+    """The xla route (``CrossAttention(impl="xla")``): q (b, n, h, d), k/v
+    (b, m, h, d), in their dtype as the JAX package's einsum path computes
+    it (bf16 products accumulate in f32 and round, the softmax in bf16)."""
     s = torch.einsum("bnhd,bmhd->bhnm", q * sm_scale, k)
     return torch.einsum("bhnm,bmhd->bnhd", softmax_as_jax(s, dim=-1), v)
+
+
+def fused_cross_attention_reference(q, k, v, sm_scale: float,
+                                    work: torch.dtype = torch.float32) -> torch.Tensor:
+    """The flash route (``CrossAttention(impl="flash")``), the JAX kernel's
+    function: q (b, n, h, d), k/v (b, m, h, d). The logits in ``work`` from
+    the upcast inputs, times sm_scale after the product, softmax as
+    ``jax.nn.softmax`` (exp(s - max), then divided by the sum), p rounded to
+    v's dtype, p v in ``work``, the output rounded once. ``work=torch.float64``
+    computes the same function in f64 after the rounding of p: the oracle
+    the checks hold the kernel and this version to."""
+    s = torch.einsum("bnhd,bmhd->bhnm", q.to(work), k.to(work)) * sm_scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(v.dtype).to(work)
+    return torch.einsum("bhnm,bmhd->bnhd", p, v.to(work)).to(q.dtype)
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -59,7 +88,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"cross_attention: q {q.shape} and k {k.shape} disagree")
     if q.device.type == "cpu":
-        return cross_attention_reference(q, k, v, sm_scale)
+        return fused_cross_attention_reference(q, k, v, sm_scale)
     forbid_grad("cross_attention", [q, k, v],
                 "the CUDA kernel is forward-only; training uses cross_attention_impl: xla")
     k, v = k.contiguous(), v.contiguous()

@@ -48,7 +48,7 @@ from dalle2_video_tpu_torch.ops._cuda import (
     require_cuda,
     stream_ptr,
 )
-from dalle2_video_tpu_torch.ops.flash_mqa import NEG_INF, row_chunk
+from dalle2_video_tpu_torch.ops.flash_mqa import KEY_TILE, NEG_INF, row_chunk
 
 R2_KERNEL = CudaKernel(
     name="flash_r2_fwd",
@@ -66,10 +66,6 @@ INNER_KERNEL = CudaKernel(
 )
 SUPPORTED_D = (32,)  # the probes' head dim (both JAX probes fix D = 32)
 BLOCK_K = 1024  # the probes' block_k
-# keys per kernel tile: r2's mma.sync tile, the inner kernel's wgmma tile
-# (csrc/flash_fwd_wgmma.cuh), the f32 kernels' 16-key updates
-KEY_TILE = {("r2", torch.bfloat16): 64, ("inner", torch.bfloat16): 128,
-            ("r2", torch.float32): 16, ("inner", torch.float32): 16}
 MERGES = ("chain", "par")
 
 
@@ -174,7 +170,7 @@ def _require_kernel_inputs(name, q, k, v, block_k):
         raise ValueError(f"{name}: q, k, v must share a dtype")
     if q.shape[-1] not in SUPPORTED_D:
         raise ValueError(f"{name}: head dim {q.shape[-1]} not in {SUPPORTED_D}")
-    tile = KEY_TILE[name.split("_")[0], q.dtype]
+    tile = KEY_TILE[q.dtype]  # the bf16 kernels run row 1's mainloop
     if block_k <= 0 or block_k % tile:
         raise ValueError(f"{name}: block_k {block_k} is not a multiple of the kernel's "
                          f"{tile}-key tile")

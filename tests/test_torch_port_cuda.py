@@ -11,7 +11,16 @@ to 80k values (same math, another summation order). bf16 cross-attention
 outputs: |kernel - plain| <= 1e-3 + 1e-2 * |plain|. Both sides end in a
 bf16 rounding, one step of which is at most 2^-7 = 7.8e-3 of the value, so
 the relative term admits one rounding flip at any magnitude; atol covers
-the f32 work before the rounding. The bf16 flash forwards compute the JAX
+the f32 work before the rounding. The bf16 cross-attention computes the
+JAX kernel's function (``fused_cross_attention_reference``: p rounded to
+bf16 after an f32 softmax) and is held to it by ``xattn_rows.hold_bf16``:
+that tolerance, widened only by what a flip of a probability moves a value
+by where its f64 value lies within an f32 rounding of a bf16 midpoint (two
+f32 orders may round it either way), at most one bf16 step of the row's
+scale besides, at most 0.05% of the values differing and no more than
+0.05 points above the plain version's share from the f64 oracle (each
+limit floored at one row's d values), two calls bit-equal. The bf16 flash
+forwards compute the JAX
 kernels' function (probabilities rounded to bf16 against a running max
 moved once per block_k keys), so kernel and plain version agree bit for bit
 but where a probability sits within an f32 rounding of a bf16 boundary:
@@ -42,6 +51,13 @@ from dalle2_video_tpu_torch.ops import fused_block as fb
 from dalle2_video_tpu_torch.ops import groupnorm_film as gn
 from dalle2_video_tpu_torch.ops import spatial_conv as sc
 from dalle2_video_tpu_torch.probes.conv_rows import FUSED_SITES, SMALL_SITES
+from dalle2_video_tpu_torch.probes.xattn_rows import (
+    BATCHES,
+    DIM_HEAD,
+    HEADS,
+    SERVE_SITES,
+    hold_bf16,
+)
 from dalle2_video_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -183,8 +199,8 @@ def test_flash_kernels_refuse_block_k_off_their_tile(dev):
         fm.flash_mqa_fwd(x, x, x, block_k=64)
     with pytest.raises(ValueError, match="128-key tile"):
         fv.inner_fwd(x, x, x, sm_scale=1.0, block_k=960)
-    with pytest.raises(ValueError, match="64-key tile"):
-        fv.r2_fwd(x, x, x, block_k=96)
+    with pytest.raises(ValueError, match="128-key tile"):
+        fv.r2_fwd(x, x, x, block_k=192)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -209,18 +225,40 @@ def test_groupnorm_kernel_matches_plain(dev, dtype, c, l):
     assert all(torch.equal(a, b) for a, b in zip((out, mean, rstd), again))
 
 
+def _cross_attention_case(dev, dtype, b, n, h, d, m, seed):
+    """Row 5 against ``fused_cross_attention_reference``: f32 within 1e-5;
+    bf16 held by ``xattn_rows.hold_bf16`` (module docstring); one launch a
+    call, two calls bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, n, h, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, m, h, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    sc = d**-0.5
+    before = xa.KERNEL.launches
+    out = xa.cross_attention(q, k, v, sm_scale=sc)
+    torch.cuda.synchronize()
+    assert xa.KERNEL.launches == before + 1
+    assert torch.equal(out, xa.cross_attention(q, k, v, sm_scale=sc))
+    ref = xa.fused_cross_attention_reference(q, k, v, sc)
+    if dtype == torch.float32:
+        _assert_attention_close(out, ref, dtype, bf16_atol=None)
+    else:
+        assert torch.isfinite(out.float()).all()
+        hold_bf16(out, ref, q, k, v, sc)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [3, 7, 16])
-def test_cross_attention_kernel_matches_plain(dev, dtype, m):
-    g = torch.Generator(device=dev).manual_seed(m)
-    q = torch.randn(2, 1000, 8, 64, generator=g, device=dev).to(dtype)
-    k = torch.randn(2, m, 8, 64, generator=g, device=dev).to(dtype)
-    v = torch.randn(2, m, 8, 64, generator=g, device=dev).to(dtype)
-    out = xa.cross_attention(q, k, v, sm_scale=0.125)
-    # the plain version runs in its input dtype: f32 copies give the f32-math
-    # oracle, rounded once
-    ref = xa.cross_attention_reference(q.float(), k.float(), v.float(), 0.125).to(dtype)
-    _assert_attention_close(out, ref, dtype, bf16_atol=1e-3)
+@pytest.mark.parametrize("d,h,n", [(64, 8, 1000), (32, 1, 777), (64, 1, 333), (32, 8, 1025)])
+@pytest.mark.parametrize("m", [1, 3, 7, 8, 9, 16])  # the edges of the n8 key tiles
+def test_cross_attention_kernel_matches_plain(dev, dtype, d, h, n, m):
+    _cross_attention_case(dev, dtype, 2, n, h, d, m, seed=m + n)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("unet,n,m,sites", SERVE_SITES)
+def test_cross_attention_kernel_at_the_serve_shapes(dev, unet, n, m, sites, batch):
+    """Every (batch, shape) the serving paths give row 5
+    (probes/xattn_rows.py), bf16."""
+    _cross_attention_case(dev, torch.bfloat16, batch, n, HEADS, DIM_HEAD, m, seed=n + m + batch)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(dev):
@@ -231,6 +269,9 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     k = torch.zeros(1, 17, 8, 64, device=dev)
     with pytest.raises(ValueError, match="exceeds"):
         xa.cross_attention(q, k, k, sm_scale=1.0)
+    q16 = torch.zeros(1, 4, 8, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        xa.cross_attention(q16, q16[:, :3], q16[:, :3], sm_scale=1.0)
     with pytest.raises(ValueError):
         gn.groupnorm_film_silu(torch.zeros(1, 4, 24, device=dev), torch.ones(24, device=dev),
                                torch.zeros(24, device=dev), groups=8)
@@ -613,6 +654,27 @@ def test_flash_variant_kernel_matches_plain(dev, dtype, b, n_q, n_kv, kind, inne
     if n_kv > 3000:
         orc = _variant(kind, inner, merge, q[:, :256], k, v, 32**-0.5, plain=True,
                        work=torch.float64)
+    _assert_bf16_flash(out, ref, orc)
+
+
+@pytest.mark.parametrize("block_k", [1024, 2048])
+@pytest.mark.parametrize("n_kv", [1, 129, 2049, 5761])
+def test_flash_r2_kernel_at_ragged_tails_and_block_k(dev, n_kv, block_k):
+    """Row 10 in bf16 on the wgmma mainloop: ragged kv tails (one key, a
+    tile and one, a 2,048-key block and one, the serving kv) at the probes'
+    block_k and at 2048, against its plain version (the share of differing
+    values, or, where the keys are many, the f64 oracle), two calls
+    bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(n_kv + block_k)
+    q, k, v = (torch.randn(2, n, 32, generator=g, device=dev).to(torch.bfloat16)
+               for n in (700, n_kv, n_kv))
+    qs = (q.float() * 32**-0.5).to(q.dtype)
+    out = fv.r2_fwd(qs, k, v, block_k=block_k)
+    assert torch.equal(out, fv.r2_fwd(qs, k, v, block_k=block_k))
+    ref = fv.r2_fwd_reference(qs, k, v, block_k=block_k)
+    orc = None
+    if n_kv > 3000:
+        orc = fv.r2_fwd_reference(qs, k, v, block_k=block_k, work=torch.float64)
     _assert_bf16_flash(out, ref, orc)
 
 

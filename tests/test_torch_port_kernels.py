@@ -36,6 +36,7 @@ from dalle2_video_tpu_torch.ops import flash_mqa as port_flash
 from dalle2_video_tpu_torch.ops import fused_block as port_fb
 from dalle2_video_tpu_torch.ops import groupnorm_film as port_gn
 from dalle2_video_tpu_torch.ops import spatial_conv as port_sc
+from dalle2_video_tpu_torch.probes import xattn_rows
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -215,6 +216,76 @@ def test_cross_attention_matches_jax(m):
                q, k, v)
     got = port_cross.cross_attention(_t(q), _t(k), _t(v), sm_scale=d**-0.5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("m", [3, 7])
+def test_cross_attention_plain_bf16_follows_the_jax_kernel(m):
+    """bf16: the plain version computes ``fused_cross_attention``'s function
+    (``_kernel``): f32 logits from the bf16 product, times sm_scale in f32,
+    jax.nn.softmax in f32, p rounded to bf16, p v in f32, one rounding of
+    the output. n = 300 is not a multiple of block_n. The two sides sum in
+    another f32 order, so a probability now and then rounds to the
+    neighbouring bf16 value: at most 0.5% of the outputs may differ, none
+    by more than 2^-7 of the largest |output|."""
+    rng = np.random.default_rng(40 + m)
+    b, n, h, d = 2, 300, 8, 64
+    q, k, v = (_bf16(_np(rng, b, s, h, d)) for s in (n, m, m))
+    to_jax = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    want = _o0(lambda q, k, v: jax_cross(to_jax(q), to_jax(k), to_jax(v), sm_scale=d**-0.5,
+                                         block_n=128, interpret=True), q, k, v)
+    want = np.asarray(want.astype(jnp.float32))
+    bf = lambda a: _t(a).to(torch.bfloat16)
+    got = port_cross.cross_attention(bf(q), bf(k), bf(v), sm_scale=d**-0.5).float().numpy()
+    differ = got != want
+    assert differ.mean() <= 5e-3, f"{differ.mean():.2%} of the bf16 outputs differ"
+    gap = float(np.abs(got - want).max())
+    assert gap <= 2.0**-7 * np.abs(want).max(), f"largest gap {gap:.3e}"
+
+
+def _bf16_xattn_inputs(m, n=4096):
+    g = torch.Generator().manual_seed(m)
+    return tuple(torch.randn(2, s, 8, 64, generator=g).to(torch.bfloat16) for s in (n, m, m))
+
+
+def _f32_logits(q, k, sm_scale, split=64):
+    """q k^T * sm_scale in f32, the channels summed in steps of ``split``."""
+    qf, kf = q.float(), k.float()
+    return sum(torch.einsum("bnhd,bmhd->bhnm", qf[..., i:i + split], kf[..., i:i + split])
+               for i in range(0, q.shape[-1], split)) * sm_scale
+
+
+@pytest.mark.parametrize("m", [3, 7])
+def test_cross_attention_bf16_hold_admits_another_f32_order_only(m):
+    """The card's bf16 row-5 check (xattn_rows.hold_bf16), here on the CPU:
+    the JAX kernel's function in another f32 order (logits in four
+    16-channel steps as the tensor cores take them, p v key by key) passes
+    it; the function without the rounding of p fails it."""
+    q, k, v = _bf16_xattn_inputs(m)
+    sc = 64**-0.5
+    ref = port_cross.fused_cross_attention_reference(q, k, v, sc)
+    s = _f32_logits(q, k, sc, split=16)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(torch.bfloat16).float().transpose(1, 2)
+    other = sum(p[..., j, None] * v[:, j:j + 1].float() for j in range(m)).to(torch.bfloat16)
+    res = xattn_rows.hold_bf16(other, ref, q, k, v, sc)
+    assert res["worst_share"] <= 1.0 and res["steps"] <= 1.0
+    unrounded = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, -1), v.float())
+    with pytest.raises(AssertionError):
+        xattn_rows.hold_bf16(unrounded.to(torch.bfloat16), ref, q, k, v, sc)
+
+
+def test_cross_attention_flip_window_covers_the_f32_error():
+    """hold_bf16 grants a flip of p only where the f64 p lies within
+    NEAR_MIDPOINT of a bf16 midpoint: more than three times the relative
+    f32 error of p the plain version's order leaves at the serving widths."""
+    q, k, _ = _bf16_xattn_inputs(7)
+    sc = 64**-0.5
+    s = _f32_logits(q, k, sc)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p32 = (e / e.sum(-1, keepdim=True)).double()
+    p64 = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q.double(), k.double()) * sc, -1)
+    rel = float(((p32 - p64).abs() / p64).max())
+    assert rel <= xattn_rows.NEAR_MIDPOINT / 3, f"relative f32 error of p {rel:.3e}"
 
 
 # ------------------------------------------------------------ the wrappers

@@ -165,6 +165,43 @@ def test_bf16_plain_attention_matches_jax_in_bf16(module):
     np.testing.assert_allclose(got, want, rtol=0, atol=2**-7 * np.abs(want).max())
 
 
+def test_bf16_flash_cross_attention_matches_jax_in_bf16():
+    """CrossAttention(impl="flash") in bf16 against the JAX module with the
+    same impl on shared weights, the JAX module op by op and its
+    ``fused_cross_attention`` in interpret mode (as tests/test_pallas.py
+    patches it): both sides compute the kernel's function (f32 softmax,
+    p rounded to bf16, p v in f32), so at most 1% of the values differ,
+    none by more than 2^-7 of the output's scale."""
+    import unittest.mock as mock
+
+    from dalle2_video_tpu.models.layers import CrossAttention as JaxXAttn
+    from dalle2_video_tpu.ops.pallas import cross_attention as ca_mod
+    from dalle2_video_tpu_torch.models import layers
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 300, 64)).astype(np.float32)
+    ctx = rng.standard_normal((2, 6, 32)).astype(np.float32)
+    jm = JaxXAttn(64, context_dim=32, heads=4, dim_head=32, impl="flash")
+    tm = layers.CrossAttention(64, 32, heads=4, dim_head=32, impl="flash")
+    params = redraw(jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x),
+                                   jnp.asarray(ctx)), 5, std=0.5)
+    bf16 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), params)
+    orig = ca_mod.fused_cross_attention
+    with mock.patch.object(
+        ca_mod, "fused_cross_attention",
+        lambda q, k, v, sm_scale, block_n=1024, interpret=False: orig(
+            q, k, v, sm_scale=sm_scale, block_n=block_n, interpret=True),
+    ):
+        want = np.asarray(jm.apply(bf16, jnp.asarray(x, jnp.bfloat16),
+                                   jnp.asarray(ctx, jnp.bfloat16)).astype(jnp.float32))
+    tm = load_from_jax(tm, params).to(torch.bfloat16)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).bfloat16(), torch.from_numpy(ctx).bfloat16())
+    got = got.float().numpy()
+    assert np.mean(got != want) <= 0.01, f"{np.mean(got != want):.2%} of the values differ"
+    np.testing.assert_allclose(got, want, rtol=0, atol=2**-7 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("case", TAIL_CASES)
 def test_bf16_plain_tails_match_jax_in_bf16(case):
     """The plain (xla) Block3D -- conv, flax GroupNorm, FiLM, SiLU -- with
