@@ -16,7 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
      (FLASH_BWD_CASES); the cross-attention (row 5) at every shape the
      serving paths give it (SERVE_SITES of probes/xattn_rows.py, at the CFG
      batch of a group of one and of two requests), each timed, and summed
-     over one DDIM step beside that step's bound;
+     over one DDIM step beside that step's bound; the GroupNorm kernels
+     (rows 3, 4 and 9) at every (batch, shape) the paths give them
+     (probes/gn_rows.py: the map), each held and timed, row 3 summed over
+     one serve DDIM step at each CFG batch;
      The backward kernels are checked the same way at the training shapes
      (bf16, and one f32 case each), and so are the opt-in conv paths'
      kernels (the 3x3 conv and its dx, its weight gradient, the conv + bias
@@ -68,11 +71,12 @@ Phases (any failure exits non-zero and prints no result line):
      modules on the CPU, and the remat policies' gradients (bit for bit on
      both conv-path routes, REMAT_CASES) and recompute launches on the
      conv paths' kernels. Every path's run records the shapes that reach
-     the three conv kernels and the cross-attention (ShapeRecord) and fails
-     unless they are the path's own (conv_path_shapes; serve_shapes: the 7
-     cross-attention shapes at their site counts, at each group's CFG
-     batch, on serve and serve_conv, none elsewhere), all of them checked
-     in phase 2.
+     the three conv kernels, the cross-attention and the GroupNorm kernels
+     (ShapeRecord) and fails unless they are the path's own
+     (conv_path_shapes; serve_shapes: the 7 cross-attention shapes at their
+     site counts, at each group's CFG batch, on serve and serve_conv, none
+     elsewhere; gn_path_calls: rows 3, 4 and 9 by (batch, shape) from the
+     map), all of them checked in phase 2.
 Then it prints the phase times, the {"kernels": [...]} line, the card line,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -95,7 +99,13 @@ cross-attention (row 5) is held to the JAX kernel's function
 (ops/cross_attention.py::fused_cross_attention_reference) by
 probes/xattn_rows.py::hold_bf16: the same tolerance, widened only by the
 flips of probabilities that lie within an f32 rounding of a bf16 midpoint,
-at most 0.05% of its values differing.
+at most 0.05% of its values differing. The bf16 GroupNorm kernels (rows 3,
+4, 9) keep their standing tolerances and are held besides by
+probes/gn_rows.py's hold_fwd / hold_bwd: one bf16 step per value (at no
+less than 2^-8 of its channel's largest |value|), a share differing, the
+f64 oracle, the statistics and dA, dB, with bounds set from the measures of
+the kernels before their one-launch redesign; the forward at inputs of
+mean 30 (one-pass cancellation) to those kernels' share from the oracle.
 """
 
 from __future__ import annotations
@@ -116,6 +126,7 @@ try:
         all_shapes,
         conv_path_shapes,
     )
+    from dalle2_video_tpu_torch.probes import gn_rows
     from dalle2_video_tpu_torch.probes.xattn_rows import BATCHES as XA_BATCHES
     from dalle2_video_tpu_torch.probes.xattn_rows import (
         SERVE_SITES,
@@ -299,6 +310,70 @@ def check_row1(torch, fm, label, q, k, v, sc, bk, save_lse=False):
     return e, tol
 
 
+# Rows 3, 4 and 9 at every (batch, shape) the paths give them
+# (probes/gn_rows.py: the map, counted on meta tensors), each held by
+# gn_rows' hold on well-conditioned inputs (one bf16 step, the share that
+# differs, the f64 oracle, the statistics or dA / dB) and, at MEAN30_SHAPES,
+# on inputs of mean 30 (the forward: its share from the oracle), timed
+# beside its byte bound; the JSON row is the timed shape's, and row 3 is
+# also summed over one serve DDIM step at each CFG batch.
+GN_TIMED = {gn_rows.FWD: (2, 90 * 128 * 128, 8), gn_rows.BWD: (2, 90 * 128 * 128, 8),
+            gn_rows.ROW9: (2, 90 * 64 * 64, 64)}
+
+
+def check_gn_map(torch, dev, name):
+    from dalle2_video_tpu_torch.ops import fused_block as fb
+    from dalle2_video_tpu_torch.ops import groupnorm_film as gn
+
+    if name == gn_rows.FWD:
+        run = lambda *a: gn.groupnorm_film_silu(*a, gn_rows.EPS, return_stats=True)  # noqa: E731
+        draw = lambda b, l, c, kind: gn_rows.inputs(dev, b, l, c, kind)  # noqa: E731
+        measure, hold = gn_rows.measure_fwd, gn_rows.hold_fwd
+        plain = lambda *a: gn.groupnorm_film_reference(*a, gn_rows.EPS)  # noqa: E731
+    else:
+        entry = gn.BWD_KERNEL if name == gn_rows.BWD else fb.GN_BWD_KERNEL
+        run = lambda *a: gn.groupnorm_film_bwd(*a, kernel=entry)  # noqa: E731
+        draw = lambda b, l, c, kind: gn_rows.bwd_inputs(gn, dev, b, l, c, kind)  # noqa: E731
+        measure, hold = gn_rows.measure_bwd, lambda m, *_: gn_rows.hold_bwd(m)
+        plain = gn.groupnorm_film_bwd_reference
+    row, ms_at = None, {}
+    for b, l, c, groups in gn_rows.all_shapes()[name]:
+        label = f"{name} B={b} L={l} C={c} G={groups}"
+        args = draw(b, l, c, "normal")
+        m = measure(run, gn, *args, groups)
+        try:
+            text = hold(m)
+            if (b, l, c) in gn_rows.MEAN30_SHAPES:
+                text += "; mean 30: " + hold(measure(run, gn, *draw(b, l, c, "mean30"), groups),
+                                             "mean30", (b, l, c))
+        except AssertionError as exc:
+            raise AssertionError(f"{label}: {exc}") from None
+        kms = ms_at[(b, l, c, groups)] = time_ms(lambda: run(*args, groups))
+        bnd = gn_rows.bound_ms(name, b, l, c)
+        log(f"{label}: {text}; ms={kms:.4f} bound_ms={bnd:.4f}")
+        if (b, l, c) == GN_TIMED[name]:
+            row = dict(max_abs_err=m["max_abs_err"],
+                       tolerance=f"<= 1 bf16 step (floor {gn_rows.STEP_FLOOR:g} of the channel's "
+                                 f"max), share <= {gn_rows.MAX_SHARE:g}, oracle share <= plain's "
+                                 f"+ {gn_rows.ORACLE_MARGIN:g} (probes/gn_rows.py)",
+                       shape=f"x{(b, l, c)} G={groups} bf16", ms=kms,
+                       plain_ms=time_ms(lambda: plain(*args, groups), iters=3),
+                       library_ms=None, bound_ms=bnd, bound_by="bytes")
+        del args
+        torch.cuda.empty_cache()
+    if name == gn_rows.FWD:
+        row["serve_step"] = {}
+        for b in gn_rows.SERVE_BATCHES:
+            step = gn_rows.serve_step(b)
+            row["serve_step"][str(b)] = dict(
+                calls=sum(step.values()), ms=sum(n * ms_at[key] for key, n in step.items()),
+                bound_ms=sum(n * gn_rows.bound_ms(name, *key[:3]) for key, n in step.items()))
+            log(f"{name}: one DDIM step's {sum(step.values())} calls at CFG batch {b}: "
+                f"{row['serve_step'][str(b)]['ms']:.4f} ms, bound "
+                f"{row['serve_step'][str(b)]['bound_ms']:.4f} ms")
+    return row
+
+
 def check_kernels(dev, torch):
     """Each kernel vs its plain version at serving shapes (bf16)."""
     import torch.nn.functional as F
@@ -342,11 +417,13 @@ def check_kernels(dev, torch):
         check_row1(torch, fm, label, q, k, v, sc, bk, save_lse)
         del q, k, v
 
-    # GroupNorm-FiLM-SiLU: largest L of each unet, C = 8 and the widest C
+    # GroupNorm-FiLM-SiLU (row 3): the standing check at the largest L of
+    # each unet, C = 8 and the widest C, then gn_rows' hold and the time at
+    # every (batch, shape) of the map
     gn_cases = [("unet2 stage 0", 2, 90 * 128 * 128, 8),
                 ("unet1 stage 0", 2, 90 * 64 * 64, 64),
                 ("unet1 bottleneck", 2, 90 * 8 * 8, 512)]
-    for i, (label, b, l, c) in enumerate(gn_cases):
+    for label, b, l, c in gn_cases:
         x = (torch.randn(b, l, c, generator=g, device=dev) * 2 + 0.3).to(bf)
         gamma = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(bf)
         beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(bf)
@@ -355,24 +432,13 @@ def check_kernels(dev, torch):
         out = gn.groupnorm_film_silu(x, gamma, beta, s_, t_, 8, return_stats=True)
         ref = gn.groupnorm_film_reference(x, gamma, beta, s_, t_, 8, 1e-5)
         # the statistics are f32 sums over up to 1.5M values in another order
-        e, tol = check("groupnorm_film_silu_fwd", f"{label} B={b} L={l} C={c}", out[0], ref,
-                       atol=2e-2, rtol=1e-2)
+        check("groupnorm_film_silu_fwd", f"{label} B={b} L={l} C={c}", out[0], ref,
+              atol=2e-2, rtol=1e-2)
         again = gn.groupnorm_film_silu(x, gamma, beta, s_, t_, 8, return_stats=True)
         if not all(torch.equal(a, b_) for a, b_ in zip(out, again)):
             raise AssertionError("groupnorm_film_silu_fwd: two calls differ (the fold order)")
-        if i == 0:
-            bnd, by = bound(2 * x.numel() * 2)
-            rows["groupnorm_film_silu_fwd"] = dict(
-                max_abs_err=e, tolerance=tol,
-                shape=f"x{tuple(x.shape)} bf16",
-                ms=time_ms(lambda: gn.groupnorm_film_silu(x, gamma, beta, s_, t_, 8)),
-                plain_ms=time_ms(lambda: gn.groupnorm_film_reference(
-                    x, gamma, beta, s_, t_, 8, 1e-5), iters=3),
-                library_ms=None, bound_ms=bnd, bound_by=by)
-        else:
-            kms = time_ms(lambda: gn.groupnorm_film_silu(x, gamma, beta, s_, t_, 8))
-            log(f"  ms={kms:.4f} bound_ms={bound(2 * x.numel() * 2)[0]:.4f}")
         del x, out, ref
+    rows[gn_rows.FWD] = check_gn_map(torch, dev, gn_rows.FWD)
 
     # cross-attention (row 5): an f32 check, then bf16 at every (batch,
     # shape) the serving paths give it (probes/xattn_rows.py: SERVE_SITES at
@@ -508,8 +574,9 @@ def check_backward_kernels(dev, torch, rows):
                 library_ms=alone, library_fwd_bwd_ms=fwd_bwd, bound_ms=bnd, bound_by=by)
         del q, k, v, go, out, lse, got
 
-    # GroupNorm backward: the training path's largest L at C = 8, C = 64 and
-    # the widest C
+    # GroupNorm backward (row 4): the standing check at the training path's
+    # largest L at C = 8, C = 64 and the widest C, then gn_rows' hold and the
+    # time at every shape of the map
     gn_cases = [(torch.float32, "f32 check", 2, 4097, 128),
                 (bf, "unet2 stage 0", 2, 90 * 128 * 128, 8),
                 (bf, "unet1 stage 0", 2, 90 * 64 * 64, 64),
@@ -529,22 +596,13 @@ def check_backward_kernels(dev, torch, rows):
         # dA, dB are f32 sums over up to 1.47M values in another order, dx
         # ends in one rounding (bf16: rtol 1e-2 = one flip); atol 1e-3 of
         # the largest value covers the sums' order error and dx near zero
-        e, tol = rel("groupnorm_film_silu_bwd", f"{label} {dtype} B={b} L={l} C={c}",
-                     ("dx", "dA", "dB"), got, want, rtol=0.0 if dtype == torch.float32 else 1e-2,
-                     atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
+        rel("groupnorm_film_silu_bwd", f"{label} {dtype} B={b} L={l} C={c}",
+            ("dx", "dA", "dB"), got, want, rtol=0.0 if dtype == torch.float32 else 1e-2,
+            atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
         if not all(torch.equal(a, b_) for a, b_ in zip(got, gn.groupnorm_film_bwd(*args))):
             raise AssertionError("groupnorm_film_silu_bwd: two calls differ (the fold order)")
-        if dtype == bf:
-            kms = time_ms(lambda: gn.groupnorm_film_bwd(*args))
-            bnd, by = bound(3 * x.numel() * 2)  # read x and g, write dx
-            if "groupnorm_film_silu_bwd" not in rows:
-                rows["groupnorm_film_silu_bwd"] = dict(
-                    max_abs_err=e, tolerance=tol, shape=f"x{tuple(x.shape)} bf16", ms=kms,
-                    plain_ms=time_ms(lambda: gn.groupnorm_film_bwd_reference(*args), iters=3),
-                    library_ms=None, bound_ms=bnd, bound_by=by)
-            else:
-                log(f"  ms={kms:.4f} bound_ms={bnd:.4f}")
         del x, gy, got, want
+    rows[gn_rows.BWD] = check_gn_map(torch, dev, gn_rows.BWD)
     torch.cuda.empty_cache()
     return rows
 
@@ -692,7 +750,8 @@ def check_conv_kernels(dev, torch, rows):
         del x, wt, got, want
 
     # row 9: the fused block's GroupNorm-FiLM-SiLU backward on the conv
-    # output, the row-4 kernel counted under its own entry
+    # output, the row-4 kernel counted under its own entry: the standing
+    # check, then gn_rows' hold and the time at every shape of the map
     for dtype, label, (b, l, c) in ((torch.float32, "f32 check", (2, 4097, 128)),
                                     (bf, "unet1 stage 0", (2, 90 * 64 * 64, 64))):
         y = (torch.randn(b, l, c, generator=g, device=dev) * 2 + 0.3).to(dtype)
@@ -705,20 +764,14 @@ def check_conv_kernels(dev, torch, rows):
         a_vec, b_vec = fb.fold_ab(gamma, beta, s_, t_, b)
         args = (y, gy, a_vec, b_vec, mean, rstd, 8)
         got = gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL)
-        e, tl = rel("fused_block_gn_bwd", f"{label} {dtype} B={b} L={l} C={c}", ("dy", "dA", "dB"),
-                    got, gn.groupnorm_film_bwd_reference(*args),
-                    rtol=tol[dtype]["rtol"], atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
+        rel("fused_block_gn_bwd", f"{label} {dtype} B={b} L={l} C={c}", ("dy", "dA", "dB"),
+            got, gn.groupnorm_film_bwd_reference(*args),
+            rtol=tol[dtype]["rtol"], atol_frac=1e-5 if dtype == torch.float32 else 1e-3)
         if not all(torch.equal(a, b_) for a, b_ in zip(
                 got, gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL))):
             raise AssertionError("fused_block_gn_bwd: two calls differ (the fold order)")
-        if dtype == bf:
-            bnd, by = bound(3 * y.numel() * 2)  # read y and g, write dy
-            rows["fused_block_gn_bwd"] = dict(
-                max_abs_err=e, tolerance=tl, shape=f"y{tuple(y.shape)} bf16",
-                ms=time_ms(lambda: gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL)),
-                plain_ms=time_ms(lambda: gn.groupnorm_film_bwd_reference(*args), iters=3),
-                library_ms=None, bound_ms=bnd, bound_by=by)
         del y, gy
+    rows[gn_rows.ROW9] = check_gn_map(torch, dev, gn_rows.ROW9)
     torch.cuda.empty_cache()
     return rows
 
@@ -1174,7 +1227,8 @@ def serve(dev, torch, path: str, profile: bool = False):
     for cfg_batch, count in groups_at.items():
         calls.update({key: n * steps * count for key, n in serve_shapes(cfg_batch).items()})
     shapes.check(path, conv_path_shapes(path, {2 * 90 * r["batch_size"] for r in results}),
-                 calls if path in ("serve", "serve_conv") else None)
+                 calls if path in ("serve", "serve_conv") else None,
+                 gn_path_calls(path, groups_at, steps))
 
     for i, res in enumerate(results):
         vid = res["video"]
@@ -1237,25 +1291,35 @@ CONV_SHAPES = all_shapes()
 
 
 class ShapeRecord:
-    """Counts the calls that reach the conv kernels' wrappers and the
-    cross-attention wrapper while it is entered, by shape (the callers look
-    each wrapper up by name in its module): conv3x3 (x's shape, Co),
-    conv3x3_wgrad (x's shape, Co), conv3x3_bias_stats (x's shape, Co, batch
-    rows), cross_attention (q's shape, m)."""
+    """Counts the calls that reach the conv kernels' wrappers, the
+    cross-attention wrapper and the GroupNorm wrappers while it is entered,
+    by shape (the callers look each wrapper up by name in its module):
+    conv3x3 (x's shape, Co), conv3x3_wgrad (x's shape, Co),
+    conv3x3_bias_stats (x's shape, Co, batch rows), cross_attention (q's
+    shape, m), groupnorm_film_silu (the kernel row's name, x's shape, G),
+    groupnorm_film_bwd (the counting kernel's name, x's shape, G)."""
 
     def __init__(self):
         from dalle2_video_tpu_torch.models import layers
         from dalle2_video_tpu_torch.ops import fused_block as fb
+        from dalle2_video_tpu_torch.ops import groupnorm_film as gn
         from dalle2_video_tpu_torch.ops import spatial_conv as sc
 
-        self.targets = {"conv3x3": (sc, "conv3x3", lambda x, w: (*x.shape, w.shape[0])),
+        self.targets = {"conv3x3": (sc, "conv3x3", lambda x, w, **_: (*x.shape, w.shape[0])),
                         "conv3x3_wgrad": (sc, "conv3x3_wgrad",
-                                          lambda x, dy: (*x.shape, dy.shape[3])),
+                                          lambda x, dy, **_: (*x.shape, dy.shape[3])),
                         "conv3x3_bias_stats": (fb, "conv_bias_stats",
-                                               lambda x, w, bias, batch: (*x.shape, w.shape[0],
-                                                                          batch)),
+                                               lambda x, w, bias, batch, **_: (
+                                                   *x.shape, w.shape[0], batch)),
                         "cross_attention": (layers, "cross_attention",
-                                            lambda q, k, v: (*q.shape, k.shape[1]))}
+                                            lambda q, k, v, **_: (*q.shape, k.shape[1])),
+                        "groupnorm_film_silu": (
+                            layers, "groupnorm_film_silu",
+                            lambda x, *a, **_: (gn_rows.FWD, *x.shape, a[4])),
+                        "groupnorm_film_bwd": (
+                            gn, "groupnorm_film_bwd",
+                            lambda x, g, av, bv, m, r, groups, kernel=gn.BWD_KERNEL, **_: (
+                                kernel.name, *x.shape, groups))}
         self.seen = {k: Counter() for k in self.targets}
         self._orig = {}
 
@@ -1264,7 +1328,7 @@ class ShapeRecord:
             orig = self._orig[name] = getattr(mod, attr)
 
             def recording(*args, _orig=orig, _key=key, _seen=self.seen[name], **kw):
-                _seen[_key(*args)] += 1
+                _seen[_key(*args, **kw)] += 1
                 return _orig(*args, **kw)
 
             setattr(mod, attr, recording)
@@ -1274,20 +1338,45 @@ class ShapeRecord:
         for name, (mod, attr, _) in self.targets.items():
             setattr(mod, attr, self._orig[name])
 
-    def check(self, path, want_conv, want_xattn=None):
-        """The conv kernels took exactly the shapes of ``want_conv``, and the
-        cross-attention wrapper exactly the calls ``want_xattn`` counts
-        (none if None)."""
+    def check(self, path, want_conv, want_xattn=None, want_gn=None):
+        """The conv kernels took exactly the shapes of ``want_conv``, the
+        cross-attention wrapper exactly the calls ``want_xattn`` counts, and
+        the GroupNorm wrappers (rows 3, 4, 9) exactly the calls ``want_gn``
+        counts by (row, b, L, C, G) (none if None)."""
         conv = {k: set(self.seen[k]) for k in KERNELS}
         xattn = self.seen["cross_attention"]
+        gn_calls = self.seen["groupnorm_film_silu"] + self.seen["groupnorm_film_bwd"]
         log(f"{path}: conv kernel shapes {({k: len(v) for k, v in conv.items()})}, "
-            f"cross-attention calls by (b, n, h, d, m) {dict(xattn)}")
+            f"cross-attention calls by (b, n, h, d, m) {dict(xattn)}, GroupNorm calls by "
+            f"(row, b, L, C, G) {dict(gn_calls)}")
+        if gn_calls != (want_gn or Counter()):
+            raise AssertionError(f"{path}: GroupNorm calls {dict(gn_calls)}; the unets give "
+                                 f"{dict(want_gn or {})} (probes/gn_rows.py: the map)")
         if conv != want_conv:
             raise AssertionError(f"{path}: the conv kernels took shapes {conv}; "
                                  f"the path gives {want_conv} (check_conv_kernels: CONV_SHAPES)")
         if xattn != (want_xattn or Counter()):
             raise AssertionError(f"{path}: cross-attention calls {dict(xattn)}; the unets give "
                                  f"{dict(want_xattn or {})} (probes/xattn_rows.py: SERVE_SITES)")
+
+
+def gn_path_calls(path, groups_at=None, steps=0):
+    """Rows 3, 4 and 9's calls by (row, b, L, C, G) over a path's run, from
+    the map (probes/gn_rows.py): "serve" each group's DDIM steps at its CFG
+    batch (``groups_at``: groups by batch); "train" and "train_conv"
+    ``steps`` train steps of both unets at the training batch; none
+    elsewhere."""
+    out = Counter()
+    if path == "serve":
+        for b, count in groups_at.items():
+            out.update({(gn_rows.FWD, *key): n * steps * count
+                        for key, n in gn_rows.serve_step(b).items()})
+    elif path in ("train", "train_conv"):
+        for name in (gn_rows.FWD, gn_rows.BWD) if path == "train" else (gn_rows.ROW9,):
+            for u in (1, 2):
+                out.update({(name, *key): n * steps
+                            for key, n in gn_rows.calls(name, TRAIN_BATCH, u).items()})
+    return out
 
 
 def check_bwd_routes(label, launches):
@@ -1430,7 +1519,7 @@ def train(dev, torch, path: str, profile: bool = False):
                 for k, v in got.items():
                     totals[k] += v
                 log(f"{path}: step {step} unet {u}: loss {loss:.4f}, {t_ms:.1f} ms")
-    shapes.check(path, conv_path_shapes(path))
+    shapes.check(path, conv_path_shapes(path), want_gn=gn_path_calls(path, steps=n_steps))
     batch = data.batch_items(np.arange(n_steps * b, (n_steps + 1) * b))
     vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
     for u in (1, 2):
@@ -1531,7 +1620,7 @@ def profile_device(label, torch, fn):
     # (the profiled paths run the wgmma mainloop only as row 1)
     groups = {"flash_mqa_fwd": ("flash_mqa_fwd", "flash_fwd_wgmma_kernel"),
               "flash_mqa_bwd": ("flash_mqa_bwd", "tc::dq_kernel", "tc::dkv_kernel"),
-              "groupnorm_film_silu_fwd": ("gn_stats_kernel", "gn_apply_kernel"),
+              "groupnorm_film_silu_fwd": ("gn_fwd_kernel",),
               "groupnorm_film_silu_bwd / fused_block_gn_bwd": ("gn_bwd_",),
               "cross_attention_fwd": ("cross_attention_",),
               "conv3x3 / conv3x3_bias_stats": ("conv3x3_bf16_kernel", "conv3x3_f32_kernel",

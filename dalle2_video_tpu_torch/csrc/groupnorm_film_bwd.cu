@@ -14,251 +14,216 @@
 // gradients, as the JAX package does outside its kernel.
 //
 // What bounds it on the H100: memory. It must read x and g once and write
-// dx once; the sums pass reads x and g a second time (L2 catches part of
-// it at the small shapes).
+// dx once.
 //
-// Design: the TPU kernel carries t1 = sum dz and t2 = sum dz * xhat across a
-// sequential (phase, L) grid. Hopper blocks run in no order, so it is three
-// launches (one counted call):
-//   1. gn_bwd_partial: grid (chunks, B). Each block sums one chunk of rows
-//      with 16-byte vector loads of x and g. C divides the block's vector
-//      stride, so every thread always sees the same channels: it keeps
-//      their coefficients and its sums in registers; the threads' sums go
-//      to shared memory and are folded per channel in a fixed order; one
-//      (t1, t2) row of C values per (batch, chunk) goes to scratch.
-//   2. gn_bwd_reduce: grid (C / 32, B). Sums the chunks per channel in a
-//      fixed order into dA and dB.
-//   3. gn_bwd_dx: grid (blocks, B). Each block folds A * dB and A * dA into
-//      the G group sums (each group's channels in order), keeps its own
-//      channels' coefficients in registers, and makes one vectorised pass
-//      writing dx.
-// No atomics: two calls agree bit for bit.
-// The width rule is the forward's: C a power of two from the vector width
-// (8 bf16 / 4 f32) up to 1024, a multiple of G; G divides 256.
+// Design (csrc/groupnorm_film.cuh): one cooperative launch, one block per
+// SM. Phase 1 streams the block's slice of x and g through a ring of 6
+// shared-memory stages (16 KB of each a stage) filled by TMA bulk copies;
+// each thread keeps its fixed channels' coefficients and its f32 sums of dz
+// and dz * xhat in registers; the block folds them per channel in a fixed
+// order (a butterfly, then a pairwise tree over the warps) into one (t1,
+// t2) row of C values per block; grid.sync(); a warp folds each channel's k
+// rows in one order (one round trip) into dB, dA (outputs) -- every block
+// all of its row's channels where C is at most its 16 warps, else the
+// row's blocks sharing them and a second grid.sync(); each block folds A *
+// dB and A * dA into the G group sums (a warp per group over its channels)
+// and walks its slice in reverse writing dx: the last 6 tiles (96 KB of x
+// and of g) never left shared memory, the rest is read again from L2 where
+// it still is. silu' takes its sigmoid with __fdividef (within 2 ulp).
 
-#include "common.cuh"
+#include "groupnorm_film.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxG = 32;
-constexpr int kMaxC = 1024;
-template <typename T>
-using Vec = d2v::Vec16<T>;
+namespace gn = d2v::gn;
+constexpr int kStages = 6;  // 96 KB each of x and g
+constexpr size_t kSmem = static_cast<size_t>(kStages) * 2 * gn::kTileBytes +
+                         (gn::kRedFloats + 3 * gn::kMaxC + 2 * gn::kMaxG) * sizeof(float) +
+                         kStages * sizeof(uint64_t);
+static_assert(kSmem <= 232448, "the ring and scratch must fit an SM's shared memory");
 
 struct Coef {  // one channel's forward coefficients
   float mean, rstd, a, b;
 };
 
-__device__ __forceinline__ Coef load_coef(const float* a_vec, const float* b_vec,
-                                          const float* mean, const float* rstd,
-                                          size_t i) {
-  return Coef{mean[i], rstd[i], a_vec[i], b_vec[i]};
-}
-
 // dz = g * silu'(z) and xhat, recomputed from the saved statistics
-__device__ __forceinline__ void dz_xhat(float xv, float gv, const Coef& k,
-                                        float* dz, float* xhat) {
+__device__ __forceinline__ void dz_xhat(float xv, float gv, const Coef& k, float* dz,
+                                        float* xhat) {
   const float xh = (xv - k.mean) * k.rstd;
   const float z = fmaf(xh, k.a, k.b);
-  const float sig = 1.f / (1.f + __expf(-z));
+  const float sig = __fdividef(1.f, 1.f + __expf(-z));
   *dz = gv * sig * fmaf(z, 1.f - sig, 1.f);
   *xhat = xh;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                      const float* __restrict__ a_vec,
-                      const float* __restrict__ b_vec,
-                      const float* __restrict__ mean,
-                      const float* __restrict__ rstd,
-                      float* __restrict__ partial, int L, int C,
-                      int rows_per_chunk) {
-  constexpr int N = Vec<T>::N;
-  using Raw = typename Vec<T>::Raw;
-  __shared__ float red1[kThreads * 8];  // each thread's N channel sums
-  __shared__ float red2[kThreads * 8];
-  const int b = blockIdx.y;
-  const int chunk = blockIdx.x;
+__global__ void __launch_bounds__(gn::kThreads, 1)
+gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+              const float* __restrict__ a_vec, const float* __restrict__ b_vec,
+              const float* __restrict__ mean, const float* __restrict__ rstd,
+              T* __restrict__ dx, float* __restrict__ da, float* __restrict__ db,
+              float* __restrict__ partial, int B, int L, int C, int G) {
+  constexpr int N = gn::Vec<T>::N;
+  using Raw = typename gn::Vec<T>::Raw;
+  extern __shared__ __align__(128) char smem[];
+  float* red = reinterpret_cast<float*>(smem + kStages * 2 * gn::kTileBytes);
+  float* chan1 = red + gn::kRedFloats;
+  float* chan2 = chan1 + gn::kMaxC;
+  float* arow = chan2 + gn::kMaxC;  // this batch row's A
+  float* gs1 = arow + gn::kMaxC;
+  float* gs2 = gs1 + gn::kMaxG;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gs2 + gn::kMaxG);
 
+  const int j = blockIdx.x, k = gridDim.x;
   const int c0 = (threadIdx.x * N) % C;
-  Coef coef[N];
-#pragma unroll
-  for (int e = 0; e < N; ++e)
-    coef[e] = load_coef(a_vec, b_vec, mean, rstd, static_cast<size_t>(b) * C + c0 + e);
-  float t1[N], t2[N];
-#pragma unroll
-  for (int e = 0; e < N; ++e) t1[e] = t2[e] = 0.f;
-
-  const int r0 = chunk * rows_per_chunk;
-  const int r1 = min(L, r0 + rows_per_chunk);
-  const size_t v0 = (static_cast<size_t>(b) * L + r0) * C / N;
-  const size_t nv = static_cast<size_t>(max(r1 - r0, 0)) * C / N;
-  const Raw* xv = reinterpret_cast<const Raw*>(x) + v0;
-  const Raw* gv = reinterpret_cast<const Raw*>(g) + v0;
-#pragma unroll 2
-  for (size_t i = threadIdx.x; i < nv; i += kThreads) {
-    Raw xr = xv[i], gr = gv[i];
-    const T* xs = reinterpret_cast<const T*>(&xr);
-    const T* gs = reinterpret_cast<const T*>(&gr);
-#pragma unroll
-    for (int e = 0; e < N; ++e) {
-      float dz, xh;
-      dz_xhat(d2v::to_f(xs[e]), d2v::to_f(gs[e]), coef[e], &dz, &xh);
-      t1[e] += dz;
-      t2[e] = fmaf(dz, xh, t2[e]);
-    }
-  }
-  // lanes l and l + C/N see the same channels (C/N is a power of two): a
-  // butterfly of shuffles gives each of them the warp's sum
-  const int period = C / N;
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    for (int off = period; off < 32; off <<= 1) {
-      t1[e] += __shfl_xor_sync(0xffffffffu, t1[e], off);
-      t2[e] += __shfl_xor_sync(0xffffffffu, t2[e], off);
-    }
-  }
-  // thread t's element e is channel (t N + e) % C, at red[t N + e]; channel
-  // c's distinct sums sit at c + k * max(C, 32 N): one per warp, or one per
-  // lane period -- folded in that order
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    red1[threadIdx.x * N + e] = t1[e];
-    red2[threadIdx.x * N + e] = t2[e];
-  }
-  __syncthreads();
-  float* p = partial + (static_cast<size_t>(b) * gridDim.x + chunk) * 2 * C;
-  const int step = max(C, 32 * N);
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float a1 = 0.f, a2 = 0.f;
-    for (int k = c; k < kThreads * N; k += step) {
-      a1 += red1[k];
-      a2 += red2[k];
-    }
-    p[c] = a1;
-    p[C + c] = a2;
-  }
-}
-
-// 8 chunk lanes x 32 channels per block; fixed summation order
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_reduce_kernel(const float* __restrict__ partial, int n_chunks, int C,
-                     float* __restrict__ da, float* __restrict__ db) {
-  __shared__ float r1[8][32];
-  __shared__ float r2[8][32];
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  const int row = threadIdx.x / 32;
-  const int c = blockIdx.x * 32 + lane;
-  float a1 = 0.f, a2 = 0.f;
-  if (c < C) {
-    for (int k = row; k < n_chunks; k += 8) {
-      const float* p = partial + (static_cast<size_t>(b) * n_chunks + k) * 2 * C;
-      a1 += p[c];
-      a2 += p[C + c];
-    }
-  }
-  r1[row][lane] = a1;
-  r2[row][lane] = a2;
-  __syncthreads();
-  if (row == 0 && c < C) {
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      s1 += r1[k][lane];
-      s2 += r2[k][lane];
-    }
-    db[static_cast<size_t>(b) * C + c] = s1;  // dB = sum dz
-    da[static_cast<size_t>(b) * C + c] = s2;  // dA = sum dz * xhat
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                 const float* __restrict__ a_vec,
-                 const float* __restrict__ b_vec,
-                 const float* __restrict__ mean,
-                 const float* __restrict__ rstd,
-                 const float* __restrict__ da, const float* __restrict__ db,
-                 T* __restrict__ dx, int L, int C, int G) {
-  constexpr int N = Vec<T>::N;
-  using Raw = typename Vec<T>::Raw;
-  __shared__ float gs1[kMaxG];
-  __shared__ float gs2[kMaxG];
-  const int b = blockIdx.y;
   const int cpg = C / G;
-  const size_t bc = static_cast<size_t>(b) * C;
-  if (threadIdx.x < G) {  // each group's channels in order
-    float a1 = 0.f, a2 = 0.f;
-    for (size_t c = bc + threadIdx.x * cpg; c < bc + (threadIdx.x + 1) * cpg; ++c) {
-      a1 = fmaf(a_vec[c], db[c], a1);
-      a2 = fmaf(a_vec[c], da[c], a2);
-    }
-    gs1[threadIdx.x] = a1;
-    gs2[threadIdx.x] = a2;
-  }
-  __syncthreads();
-
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const float inv_n = 1.f / (static_cast<float>(L) * static_cast<float>(cpg));
-  const int c0 = (threadIdx.x * N) % C;
-  Coef coef[N];
-  float sg1[N], sg2[N];
+  int grp[N];
 #pragma unroll
-  for (int e = 0; e < N; ++e) {
-    coef[e] = load_coef(a_vec, b_vec, mean, rstd, bc + c0 + e);
-    sg1[e] = gs1[(c0 + e) / cpg] * inv_n;
-    sg2[e] = gs2[(c0 + e) / cpg] * inv_n;
+  for (int e = 0; e < N; ++e) grp[e] = (c0 + e) / cpg;
+  gn::Ring<2> ring{smem, bars, kStages, 0u};
+  const char* src[2] = {reinterpret_cast<const char*>(x), reinterpret_cast<const char*>(g)};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) d2v::mbar_init(&bars[i], 1);
+    d2v::mbar_init_fence();
   }
-  const size_t n_vec = static_cast<size_t>(L) * C / N;
-  const Raw* xv = reinterpret_cast<const Raw*>(x + static_cast<size_t>(b) * L * C);
-  const Raw* gv = reinterpret_cast<const Raw*>(g + static_cast<size_t>(b) * L * C);
-  Raw* ov = reinterpret_cast<Raw*>(dx + static_cast<size_t>(b) * L * C);
-#pragma unroll 2
-  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n_vec; i += static_cast<size_t>(gridDim.x) * kThreads) {
-    Raw xr = xv[i], gr = gv[i];
-    const T* xs = reinterpret_cast<const T*>(&xr);
-    const T* gs = reinterpret_cast<const T*>(&gr);
-    Raw res;
-    T* out = reinterpret_cast<T*>(&res);
+  __syncthreads();  // the barriers are initialised
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  // gridDim.y batch rows a pass, the passes one after another
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const gn::Slice s = gn::slice_of(b, j, k, L, C, N);
+    gn::start(ring, s, src);
+    const size_t bc = static_cast<size_t>(b) * C;
+    Coef coef[N];
 #pragma unroll
     for (int e = 0; e < N; ++e) {
-      float dz, xh;
-      dz_xhat(d2v::to_f(xs[e]), d2v::to_f(gs[e]), coef[e], &dz, &xh);
-      out[e] = d2v::from_f<T>(coef[e].rstd * (coef[e].a * dz - sg1[e] - xh * sg2[e]));
+      const size_t i = bc + c0 + e;
+      coef[e] = Coef{mean[i], rstd[i], a_vec[i], b_vec[i]};
     }
-    ov[i] = res;
+    for (int c = threadIdx.x; c < C; c += gn::kThreads) arow[c] = a_vec[bc + c];
+
+    // phase 1: this thread's channels' sums of dz and dz * xhat
+    float t1[N], t2[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) t1[e] = t2[e] = 0.f;
+    gn::stream_forward(ring, s, src, [&](int t, int n) {
+      const Raw* xt = reinterpret_cast<const Raw*>(ring.tile(t % kStages, 0));
+      const Raw* gt = reinterpret_cast<const Raw*>(ring.tile(t % kStages, 1));
+#pragma unroll
+      for (int r = 0; r < gn::kTileVecs / gn::kThreads; ++r) {
+        const int i = r * gn::kThreads + threadIdx.x;
+        if (i < n) {
+          Raw xr = xt[i], gr = gt[i];
+          const T* xs = reinterpret_cast<const T*>(&xr);
+          const T* gs = reinterpret_cast<const T*>(&gr);
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            float dz, xh;
+            dz_xhat(d2v::to_f(xs[e]), d2v::to_f(gs[e]), coef[e], &dz, &xh);
+            t1[e] += dz;
+            t2[e] = fmaf(dz, xh, t2[e]);
+          }
+        }
+      }
+    });
+    gn::block_channel_sums<N>(t1, t2, red, chan1, chan2, C);
+    // partial (B, 2, C, k): each channel's k block sums contiguous
+    float* pb = partial + bc * 2 * k;
+    for (int c = threadIdx.x; c < C; c += gn::kThreads) {
+      pb[static_cast<size_t>(c) * k + j] = chan1[c];
+      pb[static_cast<size_t>(C + c) * k + j] = chan2[c];
+    }
+    grid.sync();
+
+    // dB, dA: each channel's k block sums folded by one warp in one order.
+    // Where the row has at most a warp per channel of a block, every block
+    // folds them all itself; else the row's warps share its channels and a
+    // second grid.sync() publishes dB, dA. Then S1, S2: each group's sums of
+    // A dB and A dA, a warp per group.
+    if (C <= gn::kWarps) {
+      if (warp < C) {
+        const float2 t = gn::warp_sum2_blocks(pb + static_cast<size_t>(warp) * k,
+                                              pb + static_cast<size_t>(C + warp) * k, k);
+        if (lane == 0) {
+          chan1[warp] = arow[warp] * t.x;
+          chan2[warp] = arow[warp] * t.y;
+          if (j == 0) {
+            db[bc + warp] = t.x;  // dB = sum dz
+            da[bc + warp] = t.y;  // dA = sum dz * xhat
+          }
+        }
+      }
+    } else {
+      for (int c = j * gn::kWarps + warp; c < C; c += k * gn::kWarps) {
+        const float2 t = gn::warp_sum2_blocks(pb + static_cast<size_t>(c) * k,
+                                              pb + static_cast<size_t>(C + c) * k, k);
+        if (lane == 0) {
+          db[bc + c] = t.x;
+          da[bc + c] = t.y;
+        }
+      }
+      grid.sync();
+      for (int c = threadIdx.x; c < C; c += gn::kThreads) {
+        chan1[c] = arow[c] * __ldcg(db + bc + c);
+        chan2[c] = arow[c] * __ldcg(da + bc + c);
+      }
+    }
+    __syncthreads();
+    for (int q = warp; q < G; q += gn::kWarps) {
+      const float2 t = gn::warp_sum2_shared(chan1 + q * cpg, chan2 + q * cpg, cpg);
+      if (lane == 0) {
+        gs1[q] = t.x;
+        gs2[q] = t.y;
+      }
+    }
+    __syncthreads();
+    float sg1[N], sg2[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      sg1[e] = gs1[grp[e]] * inv_n;
+      sg2[e] = gs2[grp[e]] * inv_n;
+    }
+
+    // phase 2: dx, the slice in reverse
+    Raw* ov = reinterpret_cast<Raw*>(dx) + s.v0;
+    gn::stream_reverse(ring, s, src, [&](int t, int n) {
+      const Raw* xt = reinterpret_cast<const Raw*>(ring.tile(t % kStages, 0));
+      const Raw* gt = reinterpret_cast<const Raw*>(ring.tile(t % kStages, 1));
+      Raw* out_t = ov + static_cast<size_t>(t) * gn::kTileVecs;
+#pragma unroll
+      for (int r = 0; r < gn::kTileVecs / gn::kThreads; ++r) {
+        const int i = r * gn::kThreads + threadIdx.x;
+        if (i < n) {
+          Raw xr = xt[i], gr = gt[i];
+          const T* xs = reinterpret_cast<const T*>(&xr);
+          const T* gs = reinterpret_cast<const T*>(&gr);
+          Raw res;
+          T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            float dz, xh;
+            dz_xhat(d2v::to_f(xs[e]), d2v::to_f(gs[e]), coef[e], &dz, &xh);
+            o[e] = d2v::from_f<T>(coef[e].rstd * (coef[e].a * dz - sg1[e] - xh * sg2[e]));
+          }
+          __stcs(out_t + i, res);  // streaming: L2 keeps what is read again
+        }
+      }
+    });
+    __syncthreads();  // the ring and the row's vectors are free for the next pass
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* g, const float* a_vec,
-                   const float* b_vec, const float* mean, const float* rstd,
-                   void* dx, float* da, float* db, float* partial, int B, int L,
-                   int C, int G, int n_chunks, int dx_blocks,
-                   cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  const int rows_per_chunk = (L + n_chunks - 1) / n_chunks;
-  gn_bwd_partial_kernel<T><<<dim3(n_chunks, B), kThreads, 0, stream>>>(
-      xt, gt, a_vec, b_vec, mean, rstd, partial, L, C, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gn_bwd_reduce_kernel<<<dim3((C + 31) / 32, B), kThreads, 0, stream>>>(
-      partial, n_chunks, C, da, db);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gn_bwd_dx_kernel<T><<<dim3(dx_blocks, B), kThreads, 0, stream>>>(
-      xt, gt, a_vec, b_vec, mean, rstd, da, db, static_cast<T*>(dx), L, C, G);
-  return cudaGetLastError();
-}
-
-bool shape_ok(int C, int G, int vec) {
-  if (G <= 0 || G > kMaxG || kThreads % G != 0 || C % G != 0 || C > kMaxC) return false;
-  return C % vec == 0 && (kThreads * vec) % C == 0;
+cudaError_t launch(const void* x, const void* g, const void* a_vec, const void* b_vec,
+                   const void* mean, const void* rstd, void* dx, void* da, void* db,
+                   void* partial, int B, int L, int C, int G, int blocks_per_row,
+                   int rows_per_pass, cudaStream_t stream) {
+  void* args[] = {&x, &g, &a_vec, &b_vec, &mean, &rstd, &dx, &da, &db, &partial,
+                  &B, &L, &C, &G};
+  return gn::launch_cooperative(gn_bwd_kernel<T>, blocks_per_row, rows_per_pass, kSmem, args,
+                                stream);
 }
 
 }  // namespace
@@ -266,25 +231,23 @@ bool shape_ok(int C, int G, int vec) {
 D2V_EXPORT_ERROR_STRING
 
 // x, g, dx (B, L, C); a_vec, b_vec, mean, rstd (B, C) f32 inputs; da, db
-// (B, C) f32 outputs; partial: B * n_chunks * 2 * C floats of scratch.
+// (B, C) f32 outputs; partial: B * 2 * C * blocks_per_row floats of
+// scratch. The grid is (blocks_per_row, rows_per_pass) as the forward's
+// (ops/groupnorm_film.py::plan).
 extern "C" int d2v_groupnorm_film_silu_bwd(
     const void* x, const void* g, const void* a_vec, const void* b_vec,
     const void* mean, const void* rstd, void* dx, void* da, void* db,
-    void* partial, int B, int L, int C, int G, int n_chunks, int dx_blocks,
+    void* partial, int B, int L, int C, int G, int blocks_per_row, int rows_per_pass,
     int dtype, void* stream) {
-  if (B <= 0 || L <= 0 || n_chunks <= 0 || n_chunks > L || dx_blocks <= 0 ||
-      !shape_ok(C, G, dtype == d2v::kBFloat16 ? 8 : 4))
+  const int vec = dtype == d2v::kBFloat16 ? 8 : 4;
+  if (L <= 0 || !gn::shape_ok(B, C, G, blocks_per_row, rows_per_pass, vec))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto* dA = static_cast<float*>(da);
-  auto* dB = static_cast<float*>(db);
-  auto* p = static_cast<float*>(partial);
   if (dtype == d2v::kBFloat16)
-    return launch<__nv_bfloat16>(x, g, f(a_vec), f(b_vec), f(mean), f(rstd), dx,
-                                 dA, dB, p, B, L, C, G, n_chunks, dx_blocks, s);
+    return launch<__nv_bfloat16>(x, g, a_vec, b_vec, mean, rstd, dx, da, db, partial, B, L, C,
+                                 G, blocks_per_row, rows_per_pass, s);
   if (dtype == d2v::kFloat32)
-    return launch<float>(x, g, f(a_vec), f(b_vec), f(mean), f(rstd), dx, dA, dB,
-                         p, B, L, C, G, n_chunks, dx_blocks, s);
+    return launch<float>(x, g, a_vec, b_vec, mean, rstd, dx, da, db, partial, B, L, C, G,
+                         blocks_per_row, rows_per_pass, s);
   return cudaErrorInvalidValue;
 }

@@ -63,6 +63,7 @@ GN_BWD_KERNEL = CudaKernel(
     symbol=gn.BWD_KERNEL.symbol,
     argtypes=gn.BWD_KERNEL.argtypes,
     replaces="dalle2_video_tpu/ops/pallas/fused_block.py:204",
+    defines=gn.DEFINES,
 )
 
 

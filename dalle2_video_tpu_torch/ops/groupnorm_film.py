@@ -3,9 +3,10 @@ dalle2_video_tpu/ops/pallas/groupnorm_film.py).
 
 y = silu(xhat * A + B), A = gamma * (scale + 1), B = beta * (scale + 1) +
 shift, over x (B, L, C) with G groups. For a CUDA tensor the forward
-launches the two-pass kernel in ``csrc/groupnorm_film.cu`` (one call = one
-counted launch: stats pass + apply pass) and the backward the three-pass
-kernel in ``csrc/groupnorm_film_bwd.cu``; for a CPU tensor they use
+launches the kernel in ``csrc/groupnorm_film.cu`` and the backward the one in
+``csrc/groupnorm_film_bwd.cu``: each one cooperative launch of 132 blocks,
+one per SM, that sums, folds across its blocks and writes in one grid
+(``plan``; ``csrc/groupnorm_film.cuh``); for a CPU tensor they use
 ``groupnorm_film_reference`` (the two-pass math of the JAX package's
 ``_reference_math``) and ``groupnorm_film_bwd_reference`` (the formula of
 its ``_bwd_kernel``).
@@ -32,6 +33,12 @@ from dalle2_video_tpu_torch.ops._cuda import (
     stream_ptr,
 )
 
+_THREADS = 512  # csrc/groupnorm_film.cuh: kThreads
+# The kernels' grid: one block per H100 SM, all resident at once (built into
+# the sources as GN_GRID_BLOCKS).
+GRID_BLOCKS = 132
+DEFINES = {"GN_GRID_BLOCKS": GRID_BLOCKS}
+
 KERNEL = CudaKernel(
     name="groupnorm_film_silu_fwd",
     source="groupnorm_film.cu",
@@ -39,6 +46,7 @@ KERNEL = CudaKernel(
     argtypes=[ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/groupnorm_film.py:132",
+    defines=DEFINES,
 )
 BWD_KERNEL = CudaKernel(
     name="groupnorm_film_silu_bwd",
@@ -46,9 +54,8 @@ BWD_KERNEL = CudaKernel(
     symbol="d2v_groupnorm_film_silu_bwd",
     argtypes=[ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/groupnorm_film.py:276",
+    defines=DEFINES,
 )
-_THREADS = 256
-_MAX_APPLY_BLOCKS = 8 * 132  # ~8 blocks per H100 SM in all, split over B
 
 
 def _shape_ok(c: int, groups: int, vec: int) -> bool:
@@ -59,13 +66,14 @@ def _shape_ok(c: int, groups: int, vec: int) -> bool:
     return c % vec == 0 and (_THREADS * vec) % c == 0
 
 
-def _grid(b: int, l: int, c: int, vec: int, max_chunks: int) -> Tuple[int, int]:
-    """(chunks per batch row for the sums pass, blocks per batch row for
-    the elementwise pass)."""
-    n_chunks = max(1, min(max_chunks, (l * c) // (_THREADS * 32), l))
-    blocks = max(1, min(-(-(l * c) // (vec * _THREADS)),
-                        max(1, _MAX_APPLY_BLOCKS // b)))
-    return n_chunks, blocks
+def plan(b: int) -> Tuple[int, int]:
+    """The kernels' grid (blocks_per_row, rows_per_pass), fixed by the batch:
+    every batch row at once, GRID_BLOCKS // b blocks each (concurrent rows
+    measured faster on the card than rows one after another, even where
+    the latter kept every slice in shared memory); past GRID_BLOCKS rows,
+    passes of the largest divisor of b that fits the grid."""
+    rows = next(r for r in range(min(b, GRID_BLOCKS), 0, -1) if b % r == 0)
+    return GRID_BLOCKS // rows, rows
 
 
 def fold_ab(gamma, beta, scale, shift, dtype, batch: int
@@ -83,19 +91,22 @@ def fold_ab(gamma, beta, scale, shift, dtype, batch: int
 
 
 def groupnorm_film_reference(x, gamma, beta, scale, shift, groups: int,
-                             eps: float, return_stats: bool = False):
-    """Plain version (two-pass statistics in f32); output in x.dtype."""
+                             eps: float, return_stats: bool = False,
+                             work: torch.dtype = torch.float32):
+    """Plain version (two-pass statistics in ``work``, f32 unless asked:
+    ``work=torch.float64`` is the exact function's oracle); output in
+    x.dtype, mean / rstd in ``work``."""
     b, l, c = x.shape
-    xf = x.float().reshape(b, l, groups, c // groups)
+    xf = x.to(work).reshape(b, l, groups, c // groups)
     mean = xf.mean(dim=(1, 3), keepdim=True)
     var = xf.var(dim=(1, 3), keepdim=True, unbiased=False)
     rstd = torch.rsqrt(var + eps)
     xhat = ((xf - mean) * rstd).reshape(b, l, c)
-    z = xhat * gamma.float()[None, None, :] + beta.float()[None, None, :]
+    z = xhat * gamma.to(work)[None, None, :] + beta.to(work)[None, None, :]
     if scale is not None:
-        z = z * (scale.float()[:, None, :] + 1.0)
+        z = z * (scale.to(work)[:, None, :] + 1.0)
     if shift is not None:
-        z = z + shift.float()[:, None, :]
+        z = z + shift.to(work)[:, None, :]
     y = (z * torch.sigmoid(z)).to(x.dtype)
     if not return_stats:
         return y
@@ -103,15 +114,18 @@ def groupnorm_film_reference(x, gamma, beta, scale, shift, groups: int,
     return y, per_c(mean), per_c(rstd)
 
 
-def groupnorm_film_bwd_reference(x, g, a_vec, b_vec, mean, rstd, groups: int):
-    """Plain backward: the JAX ``_bwd_kernel`` formula in f32, written out.
-    a_vec, b_vec, mean, rstd are (B, C) f32. Returns dx (x.dtype) and the
-    (B, C) f32 dA = sum_L dz * xhat, dB = sum_L dz."""
+def groupnorm_film_bwd_reference(x, g, a_vec, b_vec, mean, rstd, groups: int,
+                                 work: torch.dtype = torch.float32):
+    """Plain backward: the JAX ``_bwd_kernel`` formula in ``work`` (f32
+    unless asked; ``torch.float64`` is the oracle), written out. a_vec,
+    b_vec, mean, rstd are (B, C). Returns dx (x.dtype) and the (B, C) dA =
+    sum_L dz * xhat, dB = sum_L dz in ``work``."""
     b, l, c = x.shape
-    xhat = (x.float() - mean[:, None, :]) * rstd[:, None, :]
+    a_vec, b_vec, mean, rstd = (t.to(work) for t in (a_vec, b_vec, mean, rstd))
+    xhat = (x.to(work) - mean[:, None, :]) * rstd[:, None, :]
     z = xhat * a_vec[:, None, :] + b_vec[:, None, :]
     sig = torch.sigmoid(z)
-    dz = g.float() * sig * (1.0 + z * (1.0 - sig))
+    dz = g.to(work) * sig * (1.0 + z * (1.0 - sig))
     t1, t2 = dz.sum(1), (dz * xhat).sum(1)
     n_el = l * (c // groups)
 
@@ -158,19 +172,16 @@ def _forward(x, gamma, beta, scale, shift, groups, eps):
     gamma, beta, scale, shift = cast(gamma), cast(beta), cast(scale), cast(shift)
     params = [t for t in (gamma, beta, scale, shift) if t is not None]
     require_cuda("groupnorm_film_silu", [x, *params], (torch.float32, torch.bfloat16))
-    # ~8k elements per stats block, at most 256 chunks per batch row
-    n_chunks, apply_blocks = _grid(b, l, c, 16 // x.element_size(), 256)
+    k, rows = plan(b)
     y = torch.empty_like(x)
     mean = torch.empty((b, c), device=x.device, dtype=torch.float32)
     rstd = torch.empty_like(mean)
-    partial = torch.empty((b, n_chunks, groups, 2), device=x.device,
-                          dtype=torch.float32)
+    partial = torch.empty((b, groups, 2, k), device=x.device, dtype=torch.float32)
     ptr = lambda t: None if t is None else t.data_ptr()
     KERNEL.launch(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(scale), ptr(shift),
         y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
-        b, l, c, groups, n_chunks, apply_blocks, dtype_code(x.dtype),
-        float(eps), stream_ptr(x.device),
+        b, l, c, groups, k, rows, dtype_code(x.dtype), float(eps), stream_ptr(x.device),
     )
     return y, mean, rstd
 
@@ -196,17 +207,15 @@ def groupnorm_film_bwd(x, g, a_vec, b_vec, mean, rstd, groups: int,
     require_cuda("groupnorm_film_bwd", vecs, (torch.float32,))
     if g.dtype != x.dtype:
         raise ValueError("groupnorm_film_bwd: g and x must share a dtype")
-    # ~8k elements per sums block, at most 512 chunks per batch row
-    n_chunks, dx_blocks = _grid(b, l, c, 16 // x.element_size(), 512)
+    k, rows = plan(b)
     dx = torch.empty_like(x)
     da = torch.empty((b, c), device=x.device, dtype=torch.float32)
     db = torch.empty_like(da)
-    partial = torch.empty((b, n_chunks, 2, c), device=x.device, dtype=torch.float32)
+    partial = torch.empty((b, 2, c, k), device=x.device, dtype=torch.float32)
     kernel.launch(
         x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in vecs),
         dx.data_ptr(), da.data_ptr(), db.data_ptr(), partial.data_ptr(),
-        b, l, c, groups, n_chunks, dx_blocks, dtype_code(x.dtype),
-        stream_ptr(x.device),
+        b, l, c, groups, k, rows, dtype_code(x.dtype), stream_ptr(x.device),
     )
     return dx, da, db
 

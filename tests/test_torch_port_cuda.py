@@ -29,9 +29,14 @@ than its row's largest |output|: a flip moves the whole row by an amount
 set by the row's scale); where the keys are many (the flips grow with them)
 the share is held instead to an f64 oracle of the same function (the plain
 version with work=torch.float64): the kernel may differ from it in at
-most 0.25 points more of the values than the plain version does. GroupNorm
-in bf16 keeps 8e-2 absolute on outputs of a few units. The backward
-kernels' tolerances sit with their tests below.
+most 0.25 points more of the values than the plain version does. The bf16
+GroupNorm kernels (rows 3, 4 and 9) are held by ``gn_rows.hold_fwd`` /
+``hold_bwd``: one bf16 step per value (at no less than 2^-8 of its
+channel's largest |value|), a bounded share differing, no further from the
+f64 oracle than the plain version plus a margin, the statistics and dA, dB
+close to the oracle's -- bounds set from what the kernels before the
+one-launch redesign measured. The backward kernels' tolerances sit with
+their tests below.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from dalle2_video_tpu_torch.ops import flash_variants as fv
 from dalle2_video_tpu_torch.ops import fused_block as fb
 from dalle2_video_tpu_torch.ops import groupnorm_film as gn
 from dalle2_video_tpu_torch.ops import spatial_conv as sc
+from dalle2_video_tpu_torch.probes import gn_rows
 from dalle2_video_tpu_torch.probes.conv_rows import FUSED_SITES, SMALL_SITES
 from dalle2_video_tpu_torch.probes.xattn_rows import (
     BATCHES,
@@ -218,11 +224,65 @@ def test_groupnorm_kernel_matches_plain(dev, dtype, c, l):
                                                     return_stats=True)
     atol = 4e-5 if dtype == torch.float32 else 8e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    if dtype == torch.bfloat16:  # one bf16 step, the share, the oracle, the statistics
+        gn_rows.hold_fwd(gn_rows.measure_fwd(
+            lambda *a: gn.groupnorm_film_silu(*a, 1e-5, return_stats=True), gn,
+            x, gamma, beta, scale, shift, 8))
     torch.testing.assert_close(mean, rmean, atol=1e-4, rtol=0)
     torch.testing.assert_close(rstd, rrstd, atol=1e-4, rtol=1e-4)
     # the sums are folded in a fixed order (no atomics): two calls agree
     again = gn.groupnorm_film_silu(x, gamma, beta, scale, shift, 8, return_stats=True)
     assert all(torch.equal(a, b) for a, b in zip((out, mean, rstd), again))
+
+
+def test_groupnorm_kernels_hold_at_every_mapped_shape(dev):
+    """Rows 3, 4 and 9 at every (batch, shape) the paths give them
+    (gn_rows.all_shapes, the map), held by gn_rows' hold on
+    well-conditioned inputs, and at MEAN30_SHAPES on inputs of mean 30;
+    one launch a call."""
+    for name in (gn_rows.FWD, gn_rows.BWD, gn_rows.ROW9):
+        if name == gn_rows.FWD:
+            entry = gn.KERNEL
+            run = lambda *a: gn.groupnorm_film_silu(*a, 1e-5, return_stats=True)  # noqa: E731
+            draw, measure, hold = gn_rows.inputs, gn_rows.measure_fwd, gn_rows.hold_fwd
+        else:
+            entry = gn.BWD_KERNEL if name == gn_rows.BWD else fb.GN_BWD_KERNEL
+            run = lambda *a, _e=entry: gn.groupnorm_film_bwd(*a, kernel=_e)  # noqa: E731
+            draw = lambda *a: gn_rows.bwd_inputs(gn, *a)  # noqa: E731
+            measure, hold = gn_rows.measure_bwd, lambda m, *_: gn_rows.hold_bwd(m)
+        for b, l, c, groups in gn_rows.all_shapes()[name]:
+            before = entry.launches
+            m = measure(run, gn, *draw(dev, b, l, c), groups)
+            assert entry.launches == before + 2  # measure calls it twice
+            hold(m)
+            if (b, l, c) in gn_rows.MEAN30_SHAPES:
+                hold(measure(run, gn, *draw(dev, b, l, c, "mean30"), groups), "mean30", (b, l, c))
+            torch.cuda.empty_cache()
+
+
+def test_groupnorm_kernel_clamps_a_near_constant_group(dev):
+    """One-pass statistics of a (near-)constant group cancel: the kernel
+    clamps E[x^2] - mean^2 at 0 before eps (the JAX kernel does not), so a
+    constant group (of ones: every sum exact) gives rstd = rsqrt(eps) and y
+    = silu(Bv), and a group of 100s with one 100.5 in a thousand stays
+    finite with rstd at most rsqrt(eps) -- where the plain version's two
+    passes find ~45."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, l, c = 2, 90 * 64 * 64, 64
+    x = torch.randn(b, l, c, generator=g, device=dev)
+    x[..., :8] = 1.0  # group 0: constant
+    flip = torch.rand(b, l, 8, generator=g, device=dev) < 1e-3
+    x[..., 8:16] = torch.where(flip, 100.5, 100.0)  # group 1: near-constant
+    x = x.to(torch.bfloat16)
+    gamma, beta = torch.ones(c, device=dev), 0.1 * torch.ones(c, device=dev)
+    y, mean, rstd = gn.groupnorm_film_silu(x, gamma, beta, None, None, 8, return_stats=True)
+    cap = 1e-5**-0.5
+    assert torch.isfinite(y).all() and torch.isfinite(rstd).all()
+    torch.testing.assert_close(rstd[:, :8], torch.full_like(rstd[:, :8], cap), rtol=1e-6, atol=0)
+    assert torch.equal(mean[:, :8], torch.ones_like(mean[:, :8]))
+    silu_b = F.silu(torch.full_like(y[..., :8], 0.1).float())  # Bv = bf16(0.1)
+    torch.testing.assert_close(y[..., :8].float(), silu_b, atol=0, rtol=2**-7)  # one step
+    assert float(rstd[:, 8:16].max()) <= cap * (1 + 1e-6)
 
 
 def _cross_attention_case(dev, dtype, b, n, h, d, m, seed):
@@ -387,6 +447,9 @@ def test_groupnorm_bwd_kernel_matches_plain(dev, dtype, c, l):
                         dtype)
     again = gn.groupnorm_film_bwd(x, gy, a_vec, b_vec, mean, rstd, 8)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if dtype == torch.bfloat16:
+        gn_rows.hold_bwd(gn_rows.measure_bwd(gn.groupnorm_film_bwd, gn, x, gy, a_vec, b_vec,
+                                             mean, rstd, 8))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -411,6 +474,9 @@ def test_fused_block_gn_bwd_kernel_bit_for_bit_twice(dev, dtype, b, l, c):
     _assert_grads_close(got, gn.groupnorm_film_bwd_reference(*args), dtype)
     again = gn.groupnorm_film_bwd(*args, kernel=fb.GN_BWD_KERNEL)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if dtype == torch.bfloat16:
+        gn_rows.hold_bwd(gn_rows.measure_bwd(
+            lambda *a: gn.groupnorm_film_bwd(*a, kernel=fb.GN_BWD_KERNEL), gn, *args))
 
 
 @pytest.mark.parametrize("film", [True, False])

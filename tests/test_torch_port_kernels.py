@@ -36,7 +36,7 @@ from dalle2_video_tpu_torch.ops import flash_mqa as port_flash
 from dalle2_video_tpu_torch.ops import fused_block as port_fb
 from dalle2_video_tpu_torch.ops import groupnorm_film as port_gn
 from dalle2_video_tpu_torch.ops import spatial_conv as port_sc
-from dalle2_video_tpu_torch.probes import xattn_rows
+from dalle2_video_tpu_torch.probes import gn_rows, xattn_rows
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -173,12 +173,65 @@ def test_mqa_attention_heads_fold_matches_jax():
 
 
 # ---------------------------------------------------------------- GroupNorm
-@pytest.mark.parametrize("c,groups,l", [(8, 8, 200), (64, 8, 200), (64, 8, 77), (16, 4, 33)])
-def test_groupnorm_film_silu_matches_jax(c, groups, l):
+# bf16 (rows 3 and 4 as the serving and training paths run them): the JAX
+# kernel takes one-pass f32 statistics (E[x^2] - mean^2), the port's plain
+# version two passes, so a bf16 output differs where the two f32 results
+# straddle a bf16 rounding. Measured on these draws (CPU, XLA's lowest
+# optimisation level): well-conditioned inputs (2 randn + 0.5) 4 of 65,536
+# forward outputs (0.0061%) and 7 of 65,536 dx values (0.0107%), each one
+# step; inputs of mean 30 and spread 1, where the one-pass variance loses
+# bits to cancellation, 0.81% of the forward's outputs (the plain version
+# is the f64 oracle's there) and 1.08% of dx. Each bound sits near its
+# measure.
+GN_BF16_SHARE = {"bf16": 1e-4, "bf16-mean30": 1e-2}
+GN_BF16_BWD_SHARE = {"bf16": 2e-4, "bf16-mean30": 1.5e-2}
+
+
+def _gn_bf16_inputs(kind, b, l, c, seed):
+    """x (2 randn + 0.5, or 30 + randn for "bf16-mean30") and the FiLM
+    parameters, rounded to bf16 (held in f32 for both sides)."""
+    rng = np.random.default_rng(seed)
+    x = _np(rng, b, l, c)
+    x = x + 30.0 if kind == "bf16-mean30" else x * 2.0 + 0.5
+    return [_bf16(a) for a in (x, _np(rng, c) * 0.1 + 1.0, _np(rng, c) * 0.1,
+                               _np(rng, b, c) * 0.1, _np(rng, b, c) * 0.1)]
+
+
+def _bf16_steps_np(got, want):
+    """Largest |got - want| in bf16 steps of the larger value, taken at no
+    less than gn_rows.STEP_FLOOR of the (batch, channel)'s largest |want|
+    (the card's step count, gn_rows.bf16_steps)."""
+    floor = gn_rows.STEP_FLOOR * np.abs(want).max(1, keepdims=True)
+    scale = np.maximum(np.maximum(np.abs(got), np.abs(want)), floor)
+    return float((np.abs(got - want) / _bf16_ulp(scale)).max())
+
+
+_GN_FWD_CASES = [(8, 8, 200, "f32"), (64, 8, 200, "f32"), (64, 8, 77, "f32"), (16, 4, 33, "f32"),
+                 (64, 8, 512, "bf16"), (64, 8, 512, "bf16-mean30")]
+
+
+@pytest.mark.parametrize("c,groups,l,kind", _GN_FWD_CASES,
+                         ids=[f"{c}-{g}-{l}" + ("" if k == "f32" else f"-{k}")
+                              for c, g, l, k in _GN_FWD_CASES])
+def test_groupnorm_film_silu_matches_jax(c, groups, l, kind):
     """C = 8 (one channel per group, the SR unet's first stage), C = 64, and
-    ragged L (77, 33: not a multiple of the TPU block)."""
-    rng = np.random.default_rng(c + l)
+    ragged L (77, 33: not a multiple of the TPU block), in f32; and the
+    bf16 cases (GN_BF16_SHARE): within one bf16 step where the inputs are
+    well-conditioned, the share that differs bounded in both."""
     b = 2
+    if kind != "f32":
+        args = _gn_bf16_inputs(kind, b, l, c, seed=c + l)
+        to_jax = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+        want = _o0(lambda *a: jax_gn(*[to_jax(t) for t in a], groups, 1e-5, 64, True), *args)
+        want = np.asarray(want.astype(jnp.float32))
+        got = port_gn.groupnorm_film_silu(*[_t(a).to(torch.bfloat16) for a in args],
+                                          groups=groups, eps=1e-5).float().numpy()
+        share = float((got != want).mean())
+        assert share <= GN_BF16_SHARE[kind], f"{share:.4%} of the bf16 outputs differ"
+        if kind == "bf16":
+            assert _bf16_steps_np(got, want) <= 1.0
+        return
+    rng = np.random.default_rng(c + l)
     x = _np(rng, b, l, c) * 2.0 + 0.5
     gamma = _np(rng, c) * 0.1 + 1.0
     beta = _np(rng, c) * 0.1
@@ -204,6 +257,96 @@ def test_groupnorm_stats_and_no_film_match_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=ATOL)
     np.testing.assert_allclose(gm.numpy(), np.asarray(mean)[:, 0, :c], atol=ATOL)
     np.testing.assert_allclose(gr.numpy(), np.asarray(rstd)[:, 0, :c], atol=1e-4)
+
+
+def test_groupnorm_hold_admits_the_jax_kernel_and_refuses_another_function():
+    """The card's bf16 check of rows 3 and 4 (gn_rows.hold_fwd), here on the
+    CPU: the JAX kernel -- one-pass f32 statistics, another f32
+    implementation of the function -- passes it against the plain version;
+    the unbiased variance, a function 1/n away, fails it."""
+    b, l, c, groups = 2, 512, 64, 8
+    args = [_t(a).to(torch.bfloat16) for a in _gn_bf16_inputs("bf16", b, l, c, seed=7)]
+    compiled = {}
+
+    def jax_run(x, gamma, beta, scale, shift, groups):
+        ins = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+               for t in (x, gamma, beta, scale, shift)]
+        if "f" not in compiled:
+            compiled["f"] = jax.jit(lambda *a: jax_gn_fwd(*a, groups, 1e-5, 64, True)).lower(
+                *ins).compile(compiler_options=_O0)
+        y, mean, rstd = compiled["f"](*ins)
+        return (_t(np.asarray(y.astype(jnp.float32))).to(torch.bfloat16),
+                _t(np.asarray(mean)[:, 0, :c]), _t(np.asarray(rstd)[:, 0, :c]))
+
+    m = gn_rows.measure_fwd(jax_run, port_gn, *args, groups)
+    gn_rows.hold_fwd(m)
+    assert m["share"] > 0  # the two f32 orders do differ somewhere
+
+    def unbiased(x, gamma, beta, scale, shift, groups):
+        xf = x.float().reshape(b, l, groups, c // groups)
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        rstd = torch.rsqrt(xf.var(dim=(1, 3), keepdim=True, unbiased=True) + 1e-5)
+        z = (((xf - mean) * rstd).reshape(b, l, c) * gamma.float() + beta.float()) * (
+            scale.float()[:, None] + 1) + shift.float()[:, None]
+        per_c = lambda t: t.reshape(b, groups, 1).expand(b, groups, c // groups).reshape(b, c)  # noqa: E731
+        return (z * torch.sigmoid(z)).to(x.dtype), per_c(mean), per_c(rstd)
+
+    with pytest.raises(AssertionError):
+        gn_rows.hold_fwd(gn_rows.measure_fwd(unbiased, port_gn, *args, groups))
+
+
+def test_groupnorm_near_constant_group_stays_finite():
+    """A group whose values are all 100 but one in a thousand 100.5 (true
+    rstd ~45): one-pass f32 statistics lose its variance to cancellation
+    (E[x^2] - mean^2 = 0; below -eps it would be NaN), and the JAX kernel
+    returns rsqrt(eps) there. The port's plain version takes two passes:
+    finite, and its statistics are the f64 oracle's. The card's kernel takes
+    the one pass and clamps the variance at 0, so it never gives NaN
+    (tests/test_torch_port_cuda.py::test_groupnorm_kernel_clamps_a_near_constant_group)."""
+    b, l, c, groups = 1, 1024, 16, 8
+    x = _np(np.random.default_rng(0), b, l, c)
+    flip = np.random.default_rng(1).random((b, l, 2)) < 1e-3
+    x[..., :2] = np.where(flip, 100.5, 100.0)  # group 0: channels 0-1
+    x = _bf16(x)
+    ones, zeros = np.ones(c, np.float32), np.zeros(c, np.float32)
+    zb = np.zeros((b, c), np.float32)
+    to_jax = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    _, _, jax_rstd = _o0(lambda *a: jax_gn_fwd(*[to_jax(t) for t in a], groups, 1e-5, 64, True),
+                         x, ones, zeros, zb, zb)
+    y, _, rstd = port_gn.groupnorm_film_silu(_t(x), _t(ones), _t(zeros), None, None, groups,
+                                             return_stats=True)
+    _, _, orstd = port_gn.groupnorm_film_reference(_t(x), _t(ones), _t(zeros), None, None,
+                                                   groups, 1e-5, return_stats=True,
+                                                   work=torch.float64)
+    assert torch.isfinite(y).all()
+    np.testing.assert_allclose(rstd.numpy()[0, 0], orstd.numpy()[0, 0], rtol=1e-5)
+    assert 20 < float(rstd[0, 0]) < 100
+    np.testing.assert_allclose(np.asarray(jax_rstd)[0, 0, 0], 1e-5**-0.5, rtol=1e-6)
+
+
+def test_groupnorm_kernel_plan_fits_the_grid():
+    """The kernels' grid (port_gn.plan): every batch row at once on
+    GRID_BLOCKS // b blocks; past GRID_BLOCKS rows, passes of a divisor of
+    b; never more blocks than the card holds at once."""
+    for b in (1, 2, 3, 4, 132, 133, 264, 1000):
+        k, rows = port_gn.plan(b)
+        assert b % rows == 0 and rows * k <= port_gn.GRID_BLOCKS and k >= 1
+        if b <= port_gn.GRID_BLOCKS:
+            assert (k, rows) == (port_gn.GRID_BLOCKS // b, b)
+
+
+def test_groupnorm_map_follows_the_unet_structure():
+    """probes/gn_rows.py's map, counted on meta tensors, gives chip_smoke.py's
+    launch counts: row 3 at 54 / 66 sites per forward of unet 1 / 2 (twice
+    per ResnetBlock3D) -- 16 (L, C) shapes, 32 at CFG batch 2 and 4 --, row
+    4 the same sites per backward, row 9 the 44 / 19 fused sites."""
+    pallas, fused = gn_rows.sites("pallas"), gn_rows.sites("fused")
+    assert [sum(pallas[u].values()) for u in (1, 2)] == [54, 66]
+    assert [sum(fused[u].values()) for u in (1, 2)] == [44, 19]
+    shapes = gn_rows.all_shapes()
+    assert [len(shapes[k]) for k in (gn_rows.FWD, gn_rows.BWD, gn_rows.ROW9)] == [32, 16, 9]
+    assert sum(gn_rows.serve_step(4).values()) == 120
+    assert max(shapes[gn_rows.FWD], key=lambda s: s[0] * s[1] * s[2]) == (4, 90 * 64 * 64, 64, 8)
 
 
 # ---------------------------------------------------------- cross-attention
@@ -415,15 +558,39 @@ def test_flash_bwd_plain_bf16_follows_the_jax_routing(b):
         assert diff.max() <= 2**-7 * np.abs(w).max(), name
 
 
-@pytest.mark.parametrize("c,l", [(8, 200), (64, 77)])  # C = 8 and C = 64, ragged L
-def test_groupnorm_bwd_plain_matches_pallas_backward(c, l):
+_GN_BWD_CASES = [(8, 200, "f32"), (64, 77, "f32"), (64, 512, "bf16"), (64, 512, "bf16-mean30")]
+
+
+@pytest.mark.parametrize("c,l,kind", _GN_BWD_CASES,  # C = 8 and C = 64, ragged L
+                         ids=[f"{c}-{l}" + ("" if k == "f32" else f"-{k}")
+                              for c, l, k in _GN_BWD_CASES])
+def test_groupnorm_bwd_plain_matches_pallas_backward(c, l, kind):
     """All five gradients (x, gamma, beta, FiLM scale and shift) through
     the port's autograd Function, and dx / dA / dB of the plain backward,
-    against jax.grad of the Pallas kernel pair in interpret mode."""
+    against jax.grad of the Pallas kernel pair in interpret mode; in bf16,
+    dx through both autograds (GN_BF16_BWD_SHARE differ, within one bf16
+    step where the inputs are well-conditioned)."""
     from dalle2_video_tpu.ops.pallas.groupnorm_film import _fold_ab
 
-    rng = np.random.default_rng(30 + c)
     b, groups = 2, 8
+    if kind != "f32":
+        args = _gn_bf16_inputs(kind, b, l, c, seed=30 + c + l)
+        g = _bf16(_np(np.random.default_rng(c + l), b, l, c))
+        to_jax = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+        want = _o0(jax.grad(lambda *a: jnp.sum(
+            jax_gn(*a, groups, 1e-5, 64, True).astype(jnp.float32) * jnp.asarray(g))),
+            *[to_jax(a) for a in args])
+        want = np.asarray(want.astype(jnp.float32))
+        x = _t(args[0]).to(torch.bfloat16).requires_grad_()
+        y = port_gn.groupnorm_film_silu(x, *[_t(a).to(torch.bfloat16) for a in args[1:]],
+                                        groups=groups, eps=1e-5)
+        got = torch.autograd.grad(y, x, _t(g).to(torch.bfloat16))[0].float().numpy()
+        share = float((got != want).mean())
+        assert share <= GN_BF16_BWD_SHARE[kind], f"{share:.4%} of the bf16 dx values differ"
+        if kind == "bf16":
+            assert _bf16_steps_np(got, want) <= 1.0
+        return
+    rng = np.random.default_rng(30 + c)
     x = _np(rng, b, l, c) * 2.0 + 0.5
     gamma, beta = _np(rng, c) * 0.1 + 1.0, _np(rng, c) * 0.1
     scale, shift = _np(rng, b, c) * 0.1, _np(rng, b, c) * 0.1
