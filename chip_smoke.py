@@ -51,6 +51,21 @@ Phases (any failure exits non-zero and prints no result line):
      as the unet structure predicts, and no weight-gradient shape that
      phase 2 did not check. Prints ms per step, samples/s and peak
      memory;
+ 5b. train_data: the "train" recipe trained from a CelebV-Text store
+     through the entry point's data path (train/__main__.py: the dataset
+     and split main builds from videos.preprocessed / videos.embed,
+     train_decoder, loader grain = 4 worker processes, pinned batches
+     copied without blocking): a .vshard store of 10 CLIP-normalised clips
+     at the preprocessor's celebv_text shape (3, 150, 224, 224) f32 written
+     to a temporary directory, the reader built by g++ from
+     native/shard_reader.cpp, 3 steps of each unet at batch 2, the
+     validation batch and a checkpoint. Every batch the trainer receives
+     must equal the store's clips in BatchLoader's order, every loss be
+     finite, the step and EMA counts right, every step's launches and the
+     GroupNorm calls as the unet structure predicts; paired_random_crop on
+     the card must equal its CPU result at the same offsets. Prints the
+     build and write times, ms per step, samples/s, peak memory and the
+     loop's wait on the loader beside each step;
   6. probes: the flash probes' variants (rows 10 and 11: the r2 forward, at
      block_k 1024 and 2048, and the inner-kv forward, inner 2 / 4 x chain /
      par) against their plain versions at the probes' geometry (bf16, q
@@ -1563,6 +1578,228 @@ def train(dev, torch, path: str, profile: bool = False):
     return totals
 
 
+# --------------------------------------------------------------- phase 5b
+# "train_data": the "train" path's recipe trained from a CelebV-Text store
+# through the entry point's own data path (train_decoder with the dataset
+# and split that main builds from videos.preprocessed / videos.embed):
+# a .vshard store of DATA_RECORDS clips at the preprocessor's output shape
+# for celebv_text ((3, seq_len * fps, frame_size, frame_size) f32, 150 x
+# 224^2, 90.3 MB a clip), read by DATA_WORKERS worker processes
+# (loader: grain), DATA_STEPS steps of each unet at batch 2, the validation
+# batch and a checkpoint.
+DATA_RECORDS = 10
+DATA_STEPS = 3
+DATA_WORKERS = 4
+DATA_PATH = dict(overrides=[*TRAIN_PATHS["train"]["overrides"], "loader=grain",
+                            f"loader_workers={DATA_WORKERS}", "decoder.epochs=1"])
+
+
+def write_store(cfg, root, n, seed=0):
+    """The store main reads: ``n`` clips of seeded uniform [0, 1) frames
+    normalised with the CLIP mean / std, as preprocess_frames leaves them
+    (the card's machine has no cv2 to decode mp4s), in a .vshard file, and
+    an (n, dim) f32 embed.npy. Returns the paths and the clips channels-last
+    (T, S, S, 3), as the loader yields them."""
+    import numpy as np
+
+    from dalle2_video_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
+    from dalle2_video_tpu_torch.data.shards import ShardWriter
+
+    frames, size = cfg["seq_len"] * cfg["fps"], cfg["frame_size"]
+    rng = np.random.default_rng(seed)
+    clips = []
+    store, embed = f"{root}/videos.vshard", f"{root}/embed.npy"
+    with ShardWriter(store, (3, frames, size, size), np.float32) as w:
+        for _ in range(n):
+            clip = (rng.random((frames, size, size, 3), dtype=np.float32) - CLIP_MEAN) / CLIP_STD
+            w.append(clip.transpose(3, 0, 1, 2))
+            clips.append(clip)
+    np.save(embed, rng.standard_normal((n, cfg["dim"])).astype(np.float32))
+    return store, embed, clips
+
+
+def check_paired_crop(torch, dev, b, frames, size, crop):
+    """ops/video.py::paired_random_crop on the card at offsets drawn there
+    equals its CPU result at the same offsets, for the video and the
+    low-res conditioning video, bit for bit."""
+    from dalle2_video_tpu_torch.ops.video import paired_random_crop
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    video = torch.randn(b, frames, size, size, 3, generator=g, device=dev)
+    lowres = torch.randn(b, frames, size, size, 3, generator=g, device=dev)
+    oh = torch.randint(0, size - crop + 1, (b,), generator=g, device=dev)
+    ow = torch.randint(0, size - crop + 1, (b,), generator=g, device=dev)
+    got = paired_random_crop(video, crop, lowres, offsets=(oh, ow))
+    want = paired_random_crop(video.cpu(), crop, lowres.cpu(), offsets=(oh.cpu(), ow.cpu()))
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(got, want)):
+        raise AssertionError("paired_random_crop: the card's windows differ from the CPU's")
+    log(f"train_data: paired_random_crop of ({b}, {frames}, {size}, {size}, 3) to {crop} at "
+        f"offsets {oh.tolist()} / {ow.tolist()}: the card's equals the CPU's bit for bit")
+
+
+def train_data(dev, torch):
+    """Train the decoder from a store through the entry point's data path
+    (DATA_PATH). Checks: every batch the trainer receives (on the device)
+    equals the store's clips in BatchLoader's order (train shuffled by
+    seed + epoch, val in order); finite losses; step and EMA counts; every
+    step's and eval's kernel launches as train_expected("train", ...);
+    the GroupNorm calls as the map's; a checkpoint written. Prints the
+    reader's g++ build time, the store's write time, ms per step per unet,
+    samples/s, peak memory, and per step the time the loop waited on the
+    loader beside the step time."""
+    import tempfile
+    from collections import deque
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.data import shards
+    from dalle2_video_tpu_torch.data.datasets import BatchLoader
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.train import __main__ as entry
+    from dalle2_video_tpu_torch.train import has_checkpoint
+    from dalle2_video_tpu_torch.train.trainer import DecoderTrainer
+
+    card = card_line()
+    t = time.time()
+    built = not shards.lib_path().exists()
+    shards.build_native()
+    log(f"train_data: shard reader (native/shard_reader.cpp) "
+        f"{'built by g++' if built else 'already built'} in {time.time() - t:.2f} s")
+    cfg, knobs = path_config(DATA_PATH)
+    kernels = all_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        store, embed, clips = write_store(cfg, tmp, DATA_RECORDS)
+        log(f"train_data: wrote {DATA_RECORDS} clips of {clips[0].shape} f32 "
+            f"({DATA_RECORDS * clips[0].nbytes / 1e9:.2f} GB) in {time.time() - t:.1f} s")
+        cfg = {**cfg, "run_dir": f"{tmp}/runs",
+               "videos": {**cfg["videos"], "preprocessed": store, "embed": embed}}
+        dataset, splits = entry.store_dataset(cfg)
+        b = cfg["decoder"]["batch_size"]
+        order = {"train": BatchLoader(dataset, b, splits["train"], seed=cfg["seed"]),
+                 "val": BatchLoader(dataset, b, splits["val"], shuffle=False)}
+        expect = deque()  # (kind, indices) of the batches the loop will hand on, in order
+        for kind in ("train", "val"):
+            idx = order[kind]._epoch_indices()
+            n = DATA_STEPS if kind == "train" else len(idx) // b
+            expect.extend((kind, idx[i * b:(i + 1) * b]) for i in range(n))
+        waits, records, seen = {"train": [], "val": []}, [], []
+
+        class Timed:
+            """The entry point's loader, timed: ms the loop waits on each
+            next batch."""
+
+            def __init__(self, inner, kind):
+                self.inner, self.kind = inner, kind
+
+            def __len__(self):
+                return len(self.inner)
+
+            def __iter__(self):
+                it = iter(self.inner)
+                try:
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            return
+                        waits[self.kind].append((time.perf_counter() - t0) * 1e3)
+                        yield batch
+                finally:
+                    if hasattr(it, "close"):
+                        it.close()
+
+        def checked(orig, backward):
+            def call(self, video, *, video_embed=None, unet_number=1, **kw):
+                u = unet_number
+                torch.cuda.synchronize()
+                if u == 1:  # the batch this step received: the store's clips in order
+                    kind, idx = expect.popleft()
+                    want = torch.from_numpy(np.stack([clips[i] for i in idx])).to(dev)
+                    emb = torch.from_numpy(dataset.video_embeds[idx]).to(dev)
+                    if not (torch.equal(video, want) and torch.equal(video_embed, emb)):
+                        raise AssertionError(f"train_data: {kind} batch {idx.tolist()} differs "
+                                             f"from the store's clips")
+                    seen.append((kind, idx.tolist()))
+                    del want
+                for k in kernels:
+                    k.reset()
+                t0 = time.perf_counter()
+                out = orig(self, video, video_embed=video_embed, unet_number=u, **kw)
+                loss = float(out)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got = {k.name: k.launches for k in kernels}
+                recompute = backward and cfg[f"unet{u}"].get("checkpoint_during_training", False)
+                want_l = {k.name: 0 for k in kernels}
+                want_l.update(train_expected("train", u, backward, recompute))
+                if got != want_l:
+                    raise AssertionError(f"train_data: unet {u} launches {got}, the unet "
+                                         f"structure predicts {want_l}")
+                check_bwd_routes("train_data", got)
+                if not np.isfinite(loss):
+                    raise AssertionError(f"train_data: unet {u} loss {loss}")
+                records.append(dict(kind="train" if backward else "val", unet=u, ms=ms,
+                                    loss=loss))
+                for k, v in got.items():
+                    totals[k] += v
+                return out
+            return call
+
+        totals = {k.name: 0 for k in kernels}
+        saved = (entry.make_loaders, DecoderTrainer.train_step, DecoderTrainer.eval_loss)
+        entry.make_loaders = lambda *a: tuple(
+            Timed(loader, kind) for loader, kind in zip(saved[0](*a), ("train", "val")))
+        DecoderTrainer.train_step = checked(saved[1], backward=True)
+        DecoderTrainer.eval_loss = checked(saved[2], backward=False)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        try:
+            with ShapeRecord() as shapes:
+                summary = entry.train_decoder(cfg, dataset, splits, dev, max_steps=DATA_STEPS)
+        finally:
+            entry.make_loaders, DecoderTrainer.train_step, DecoderTrainer.eval_loss = saved
+        wall = time.time() - t
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer = summary["trainer"]
+        log(f"train_data: {' '.join(knobs)}; {len(dataset)} clips, split "
+            f"{len(splits['train'])} / {len(splits['val'])}, batches seen {seen}")
+        if expect:
+            raise AssertionError(f"train_data: batches never reached the trainer: {list(expect)}")
+        if trainer.steps != [DATA_STEPS] * 2 or [e.step for e in trainer.ema] != [DATA_STEPS] * 2:
+            raise AssertionError(f"train_data: steps {trainer.steps}, EMA steps "
+                                 f"{[e.step for e in trainer.ema]}")
+        if not has_checkpoint(f"{cfg['run_dir']}/decoder_{cfg['train_name']}"):
+            raise AssertionError("train_data: no checkpoint written")
+        want_gn = gn_path_calls("train", steps=DATA_STEPS)
+        for u in (1, 2):  # the validation batch: one forward of each unet
+            want_gn.update({(gn_rows.FWD, *key): n
+                            for key, n in gn_rows.calls(gn_rows.FWD, TRAIN_BATCH, u).items()})
+        shapes.check("train_data", conv_path_shapes("train_data"), want_gn=want_gn)
+        del trainer, summary
+    steps = [r for r in records if r["kind"] == "train"]
+    for i in range(DATA_STEPS):
+        u1, u2 = steps[2 * i], steps[2 * i + 1]
+        log(f"train_data: step {i}: waited on the loader {waits['train'][i]:.1f} ms, then unet 1 "
+            f"{u1['ms']:.1f} ms (loss {u1['loss']:.4f}), unet 2 {u2['ms']:.1f} ms "
+            f"(loss {u2['loss']:.4f}) [{card}]")
+    steady = {u: [r["ms"] for r in steps if r["unet"] == u][1:] for u in (1, 2)}
+    mean = {u: sum(v) / len(v) for u, v in steady.items()}
+    log(f"train_data: ms per step (mean after the first): unet 1 {mean[1]:.1f}, unet 2 "
+        f"{mean[2]:.1f}; samples/s unet 1 {b / mean[1] * 1e3:.2f}, unet 2 "
+        f"{b / mean[2] * 1e3:.2f}, both {b / (mean[1] + mean[2]) * 1e3:.2f}; loader waits "
+        f"(ms) train {[round(w, 1) for w in waits['train']]}, val "
+        f"{[round(w, 1) for w in waits['val']]}; peak memory {peak:.2f} GiB; "
+        f"train_decoder wall {wall:.1f} s [{card}]")
+    log(f"train_data: launches over {DATA_STEPS} + {DATA_STEPS} steps and one eval a unet "
+        f"{totals}")
+    size = cfg["frame_sizes"][-1]
+    check_paired_crop(torch, dev, b, cfg["frame_numbers"][-1], size, size * 3 // 4)
+    torch.cuda.empty_cache()
+    return totals
+
+
 # --------------------------------------------------------------- phase 6
 def probes(dev, torch):
     """The flash probes' rows (dalle2_video_tpu_torch/probes), counts set to
@@ -1742,6 +1979,7 @@ def main() -> int:
         runs[path] = phase(path, serve, dev, torch, path, args.profile)
     for path in TRAIN_PATHS:
         runs[path] = phase(path, train, dev, torch, path, args.profile)
+    runs["train_data"] = phase("train_data", train_data, dev, torch)
     runs["probes"] = phase("probes", probes, dev, torch)
     log("phase times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total since start {time.time() - t_start:.1f}")

@@ -1,19 +1,157 @@
-"""Index splits and the epoch batch iterator (port of the JAX-free parts of
-dalle2_video_tpu/data/datasets.py: ``split_indices``, ``BatchLoader``).
+"""The CelebV-Text dataset, index splits and the epoch batch iterator (port
+of dalle2_video_tpu/data/datasets.py: ``CelebVTextDataset``,
+``split_indices``, ``BatchLoader``).
 
-The CelebV-Text dataset reader (h5 / .vshard video stores) is not ported:
-it waits until the data files are in the repository. Any object with
-``__len__`` and ``batch_items(indices) -> dict of arrays`` is a dataset
-here (the training entry point's synthetic set is one).
+The dataset picks its stage from the artifacts it is given, as the JAX
+one does: tokenised texts + a video store (CLIP), text + video embeds
+(prior), video embeds + a video store (decoder). A video store is an h5
+file (dataset "videos", (N, 3, T, S, S) f32, the reference layout) or a
+``.vshard`` file (``data/shards.py``); videos are read at batch time, one
+gathered read per batch, and come out channels-last (b, T, S, S, 3).
+Any object with ``__len__`` and ``batch_items(indices) -> dict of arrays``
+is a dataset for the loaders (the training entry point's synthetic set is
+one). The worker-process loader is ``data/worker_loader.py``.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import queue
 import threading
+from pathlib import Path
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+log = logging.getLogger("dalle2_video_tpu_torch.data")
+
+
+def _load_array(path) -> np.ndarray:
+    """A .npy, .npz (its first array) or torch .pt / .pth tensor file."""
+    p = Path(path)
+    if p.suffix == ".npy":
+        return np.load(p)
+    if p.suffix == ".npz":
+        with np.load(p) as z:
+            return z[z.files[0]]
+    if p.suffix in (".pt", ".pth"):
+        import torch
+
+        t = torch.load(p, map_location="cpu", weights_only=True)
+        return t.numpy() if hasattr(t, "numpy") else np.asarray(t)
+    raise ValueError(f"unsupported array format: {path}")
+
+
+def _is_vshard(path) -> bool:
+    return str(path).endswith(".vshard")
+
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as exc:
+        raise ImportError("an h5 video store needs h5py (or convert it to .vshard with "
+                          "data/shards.py::h5_to_vshard where h5py is installed)") from exc
+    return h5py
+
+
+class CelebVTextDataset:
+    """Stage-detecting dataset over CelebV-Text artifacts. ``batch_items``
+    returns the stage's arrays for a batch of indices: {"texts", "videos"}
+    (CLIP), {"text_embeds", "video_embeds"} (prior), {"video_embeds",
+    "videos"} (decoder). Its length is the artifacts' count, capped by the
+    video store's.
+
+    The store handle is opened lazily in the process that reads (a loader
+    worker opens its own) and is never pickled: a handle opened before a
+    fork is dropped in the child and reopened."""
+
+    def __init__(self, texts_path=None, videos_path=None, text_embeds_path=None,
+                 video_embeds_path=None, h5_dataset_name: str = "videos"):
+        self.videos_path = videos_path
+        self.h5_dataset_name = h5_dataset_name
+        self._store = None
+        self._store_pid = None
+        if texts_path is not None and videos_path is not None:
+            self.stage = "CLIP"
+            self.texts = _load_array(texts_path)
+            n = len(self.texts)
+        elif text_embeds_path is not None and video_embeds_path is not None:
+            self.stage = "prior"
+            self.text_embeds = _load_array(text_embeds_path).astype(np.float32)
+            self.video_embeds = _load_array(video_embeds_path).astype(np.float32)
+            if len(self.text_embeds) != len(self.video_embeds):
+                raise ValueError(f"{len(self.text_embeds)} text embeds, "
+                                 f"{len(self.video_embeds)} video embeds")
+            n = len(self.text_embeds)
+        elif video_embeds_path is not None and videos_path is not None:
+            self.stage = "decoder"
+            self.video_embeds = _load_array(video_embeds_path).astype(np.float32)
+            n = len(self.video_embeds)
+        else:
+            raise ValueError("cannot infer stage: give (texts, videos) for CLIP, "
+                             "(text_embeds, video_embeds) for prior, or "
+                             "(video_embeds, videos) for decoder")
+        if videos_path is not None:
+            if _is_vshard(videos_path):
+                from dalle2_video_tpu_torch.data.shards import ShardReader
+
+                reader = ShardReader(videos_path)
+                n_videos = len(reader)
+                reader.close()
+            else:
+                with _h5py().File(videos_path, "r") as f:
+                    n_videos = f[h5_dataset_name].shape[0]
+            n = min(n, n_videos)
+        self._len = n
+        log.info("CelebVTextDataset stage=%s size=%d", self.stage, n)
+
+    def __len__(self) -> int:
+        return self._len
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_store"] = state["_store_pid"] = None
+        return state
+
+    def _videos(self):
+        """This process's store handle: a ShardReader, or the h5 dataset."""
+        if self._store is None or self._store_pid != os.getpid():
+            if _is_vshard(self.videos_path):
+                from dalle2_video_tpu_torch.data.shards import ShardReader
+
+                self._store = ShardReader(self.videos_path)
+            else:
+                self._store = _h5py().File(self.videos_path, "r")[self.h5_dataset_name]
+            self._store_pid = os.getpid()
+        return self._store
+
+    def load_videos(self, indices) -> np.ndarray:
+        """(b, T, S, S, 3) channels-last videos for ``indices`` (any order),
+        in the store's dtype: one gather from a .vshard store; from h5 one
+        read at the sorted indices, put back in the asked order."""
+        indices = np.asarray(indices)
+        store = self._videos()
+        if _is_vshard(self.videos_path):
+            vids = store.gather(indices)
+        else:
+            order = np.argsort(indices)
+            vids = store[indices[order].tolist()]  # h5 fancy indexing wants sorted
+            unsort = np.empty_like(order)
+            unsort[order] = np.arange(len(order))
+            vids = vids[unsort]
+        return np.ascontiguousarray(np.transpose(vids, (0, 2, 3, 4, 1)))
+
+    def batch_items(self, indices) -> Dict[str, np.ndarray]:
+        indices = np.asarray(indices)
+        if self.stage == "CLIP":
+            return {"texts": self.texts[indices], "videos": self.load_videos(indices)}
+        if self.stage == "prior":
+            return {"text_embeds": self.text_embeds[indices],
+                    "video_embeds": self.video_embeds[indices]}
+        return {"video_embeds": self.video_embeds[indices],
+                "videos": self.load_videos(indices)}
 
 
 def split_indices(n: int, train_ratio: float = 0.8, seed: int = 1234
@@ -22,6 +160,15 @@ def split_indices(n: int, train_ratio: float = 0.8, seed: int = 1234
     perm = np.random.RandomState(seed).permutation(n)
     n_train = int(n * train_ratio)
     return {"train": perm[:n_train], "val": perm[n_train:]}
+
+
+def epoch_order(indices: np.ndarray, shuffle: bool, seed: int, epoch: int) -> np.ndarray:
+    """One epoch's order of ``indices``: permuted by ``RandomState(seed +
+    epoch)`` when ``shuffle`` (both of the port's loaders batch it, the
+    remainder dropped)."""
+    if not shuffle:
+        return indices
+    return indices[np.random.RandomState(seed + epoch).permutation(len(indices))]
 
 
 PREFETCH = 2  # batches read ahead by the loader's thread
@@ -48,10 +195,7 @@ class BatchLoader:
         return len(self.indices) // self.batch_size
 
     def _epoch_indices(self) -> np.ndarray:
-        idx = self.indices
-        if self.shuffle:
-            idx = idx[np.random.RandomState(self.seed + self.epoch).permutation(len(idx))]
-        return idx
+        return epoch_order(self.indices, self.shuffle, self.seed, self.epoch)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._epoch_indices()

@@ -12,11 +12,10 @@ utils/keys.py). Every loop also takes injected draws -- the initial noise
 port and the JAX package the same numbers. The training loss draws from a
 ``torch.Generator`` and takes every draw injected the same way (``draws``:
 times, noise, video keep mask, self-cond coin, blur coin, lowres noise
-levels and noise).
+levels and noise, the random crop's offsets).
 
 Not ported yet: DPM++, inpainting, negative prompts, latent (VAE) stages,
-random crops, text-encoding conditioning (so no text keep mask) and long
-video.
+text-encoding conditioning (so no text keep mask) and long video.
 """
 
 from __future__ import annotations
@@ -45,7 +44,11 @@ from dalle2_video_tpu_torch.engine.conditioner import (
 from dalle2_video_tpu_torch.models.layers import JointSpaceTimeAttention
 from dalle2_video_tpu_torch.models.unet3d import UNet3D, UNet3DConfig
 from dalle2_video_tpu_torch.models.unet_temporal import UnetTemporalConv
-from dalle2_video_tpu_torch.ops.video import resize_video, resize_video_time
+from dalle2_video_tpu_torch.ops.video import (
+    paired_random_crop,
+    resize_video,
+    resize_video_time,
+)
 from dalle2_video_tpu_torch.utils.device import DeviceLike, dtype_from_name, resolve_device
 from dalle2_video_tpu_torch.utils.keys import RowKeys
 
@@ -167,6 +170,8 @@ class VideoDecoder(nn.Module):
         self.use_blur_for_lowres = (False, *ublur)
 
         self.random_crop_sizes = _cast_tuple(cfg.random_crop_sizes, n)
+        if self.random_crop_sizes[0] is not None:
+            raise ValueError("no random crop for the base unet")
 
         bs = cfg.beta_schedule
         if bs is None:
@@ -326,8 +331,8 @@ class VideoDecoder(nn.Module):
         ``unet`` replaces the stage's module as the network to call (the
         trainer passes its bf16 functional call). ``draws`` injects any of
         "times", "noise", "video_keep", "self_cond", "blur",
-        "lowres_noise_levels", "lowres_noise"; the rest come from
-        ``generator``."""
+        "lowres_noise_levels", "lowres_noise", "crop_offsets" (oh, ow); the
+        rest come from ``generator``."""
         cfg = self.config
         i = unet_number - 1
         draws = draws or {}
@@ -336,8 +341,6 @@ class VideoDecoder(nn.Module):
         size, frames = cfg.frame_sizes[i], cfg.frame_numbers[i]
         if video.shape[2] < size or video.shape[3] < size:
             raise ValueError(f"video {tuple(video.shape)} smaller than frame size {size}")
-        if self.random_crop_sizes[i] is not None:
-            raise NotImplementedError("random crops are not ported yet")
         video = video.to(self.device, torch.float32)
         b = video.shape[0]
         times = draws.get("times")
@@ -357,6 +360,13 @@ class VideoDecoder(nn.Module):
                 noise=draws.get("lowres_noise"))
 
         video = resize_video_time(resize_video(video, size), frames)
+        crop = self.random_crop_sizes[i]
+        if crop is not None:
+            # one window per sample, shared by the video and its low-res
+            # conditioning video (JAX decoder.py loss)
+            video, lowres_video = paired_random_crop(
+                video, crop, lowres_video, generator=generator,
+                offsets=draws.get("crop_offsets"))
         return self._p_losses(
             i, self.unets[i] if unet is None else unet, video, times,
             video_embed=video_embed, lowres_cond_video=lowres_video,

@@ -18,7 +18,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from dalle2_video_tpu_torch.ops.groupnorm_film import groupnorm_film_reference
 
 # the bf16 constant of jax.nn.gelu(approximate=False): 1 / sqrt(2) rounded
 _GELU_SQRT_HALF = 0.70703125
@@ -75,11 +74,7 @@ def groupnorm_film_silu_as_jax(x: torch.Tensor, gamma: torch.Tensor, beta: torch
                                groups: int, eps: float) -> torch.Tensor:
     """The JAX Block3D's plain tail (``norm_impl`` xla) on x (B, L, C):
     flax GroupNorm, then FiLM y * (scale + 1) + shift and ``nn.silu`` as
-    ops in the activation dtype; scale / shift (B, C) or None. In f32 this
-    is ``groupnorm_film_reference``."""
-    out = torch.promote_types(torch.promote_types(x.dtype, gamma.dtype), beta.dtype)
-    if not _rounds(out):
-        return groupnorm_film_reference(x.to(out), gamma, beta, scale, shift, groups, eps)
+    ops in the activation dtype; scale / shift (B, C) or None."""
     y = groupnorm_as_flax(x, gamma, beta, groups, eps)
     if scale is not None:
         y = y * (scale[:, None, :] + 1.0)

@@ -7,9 +7,9 @@ launches the kernel in ``csrc/groupnorm_film.cu`` and the backward the one in
 ``csrc/groupnorm_film_bwd.cu``: each one cooperative launch of 132 blocks,
 one per SM, that sums, folds across its blocks and writes in one grid
 (``plan``; ``csrc/groupnorm_film.cuh``); for a CPU tensor they use
-``groupnorm_film_reference`` (the two-pass math of the JAX package's
-``_reference_math``) and ``groupnorm_film_bwd_reference`` (the formula of
-its ``_bwd_kernel``).
+``groupnorm_film_reference`` (the function of the JAX kernel ``_kernel``:
+one-pass f32 sums in its block order, A and B folded) and
+``groupnorm_film_bwd_reference`` (the formula of its ``_bwd_kernel``).
 
 ``groupnorm_film_silu`` is differentiable (the JAX ``custom_vjp``): when a
 gradient is needed it saves x and the forward's per-channel mean / rstd,
@@ -90,28 +90,82 @@ def fold_ab(gamma, beta, scale, shift, dtype, batch: int
     return a_vec.expand(batch, c).contiguous(), b_vec.expand(batch, c).contiguous()
 
 
+# The JAX kernel's tiling of L (``_fwd_impl``), which fixes the order of its
+# f32 sums: the default ``block_l`` of ``groupnorm_film_silu`` and the
+# paths' Block3D.
+BLOCK_L = 1024
+
+
+def pack_factor(c: int, l: int) -> int:
+    """``_pack_factor``: f consecutive L-rows folded into the lanes, the
+    least power of two with c * f >= 128 that divides l."""
+    f = 1
+    while c * f < 128 and l % (f * 2) == 0:
+        f *= 2
+    return f
+
+
 def groupnorm_film_reference(x, gamma, beta, scale, shift, groups: int,
                              eps: float, return_stats: bool = False,
-                             work: torch.dtype = torch.float32):
-    """Plain version (two-pass statistics in ``work``, f32 unless asked:
-    ``work=torch.float64`` is the exact function's oracle); output in
-    x.dtype, mean / rstd in ``work``."""
+                             work: torch.dtype = torch.float32,
+                             block_l: int = BLOCK_L):
+    """Plain version: the function of the JAX kernel ``_kernel``
+    (``ops/pallas/groupnorm_film.py``). x is viewed as ``_fwd_impl`` packs
+    it, (B, L / f, C f) with f = ``pack_factor``, cut into blocks of
+    ``block_l`` packed rows (zero-padded); per block the lane sums of x and
+    x^2, accumulated block after block, then folded over each group's lanes;
+    mean = S / n, var = S2 / n - mean^2, rstd = rsqrt(var + eps); y =
+    silu((x - mean) * rstd * A + B) with A, B folded as ``_fold_ab`` folds
+    them (the parameters cast to x's dtype first, as the kernels take them).
+    All of it in ``work`` (f32 unless asked: ``work=torch.float64`` is the
+    exact function's oracle); output in x.dtype, mean / rstd per channel in
+    ``work``.
+
+    One deviation: the variance is clamped at 0. Where f32 cancellation
+    takes E[x^2] - mean^2 below -eps (a near-constant group far from 0) the
+    JAX kernel's rsqrt gives NaN; here, as in the port's kernel, rstd is
+    then rsqrt(eps)."""
     b, l, c = x.shape
-    xf = x.to(work).reshape(b, l, groups, c // groups)
-    mean = xf.mean(dim=(1, 3), keepdim=True)
-    var = xf.var(dim=(1, 3), keepdim=True, unbiased=False)
+    f = pack_factor(c, l)
+    lp, cp = l // f, c * f
+    bl = min(block_l, lp) if lp >= 8 else lp
+    if bl >= 8:
+        bl -= bl % 8
+    n_l = -(-lp // bl)
+    xf = x.to(work).reshape(b, lp, cp)
+    xb = torch.nn.functional.pad(xf, (0, 0, 0, n_l * bl - lp)).reshape(b, n_l, bl, cp)
+    part_s, part_q = xb.sum(2), (xb * xb).sum(2)  # (b, n_l, cp): each block's sums
+    s, q = part_s[:, 0], part_q[:, 0]
+    for i in range(1, n_l):  # the kernel's accumulation, block after block
+        s, q = s + part_s[:, i], q + part_q[:, i]
+    def fold(t):
+        # the kernel's membership matmul: lane j carries channel j % c, and
+        # each group's lanes are added one after another in lane order (at
+        # mean 30 one rounding of this sum moves rstd by ~1e-4)
+        lanes = t.reshape(b, f, groups, c // groups).transpose(1, 2).reshape(b, groups, -1)
+        acc = lanes[..., 0]
+        for j in range(1, lanes.shape[-1]):
+            acc = acc + lanes[..., j]
+        return acc
+
+    n_el = lp * (cp // groups)
+    mean = fold(s) / n_el
+    var = (fold(q) / n_el - mean * mean).clamp_min(0.0)
     rstd = torch.rsqrt(var + eps)
-    xhat = ((xf - mean) * rstd).reshape(b, l, c)
-    z = xhat * gamma.to(work)[None, None, :] + beta.to(work)[None, None, :]
-    if scale is not None:
-        z = z * (scale.to(work)[:, None, :] + 1.0)
+    per_c = lambda t: t[:, :, None].expand(b, groups, c // groups).reshape(b, c)  # noqa: E731
+    mean_c, rstd_c = per_c(mean), per_c(rstd)
+    g32, b32 = gamma.to(x.dtype).to(work), beta.to(x.dtype).to(work)
+    s1 = 1.0 if scale is None else scale.to(x.dtype).to(work) + 1.0
+    a_vec = (g32[None, :] * s1).expand(b, c)
+    b_vec = (b32[None, :] * s1).expand(b, c)
     if shift is not None:
-        z = z + shift.to(work)[:, None, :]
+        b_vec = b_vec + shift.to(x.dtype).to(work)
+    z = (x.to(work) - mean_c[:, None, :]) * rstd_c[:, None, :]
+    z = z * a_vec[:, None, :] + b_vec[:, None, :]
     y = (z * torch.sigmoid(z)).to(x.dtype)
     if not return_stats:
         return y
-    per_c = lambda s: s.reshape(b, groups, 1).expand(b, groups, c // groups).reshape(b, c)
-    return y, per_c(mean), per_c(rstd)
+    return y, mean_c, rstd_c
 
 
 def groupnorm_film_bwd_reference(x, g, a_vec, b_vec, mean, rstd, groups: int,
@@ -158,12 +212,13 @@ def _require_kernel_shape(name, x, groups):
         raise ValueError(f"{name}: kernel does not take C={c}, G={groups}")
 
 
-def _forward(x, gamma, beta, scale, shift, groups, eps):
+def _forward(x, gamma, beta, scale, shift, groups, eps, block_l=BLOCK_L):
     """(y, mean, rstd): the kernel for a CUDA tensor, the plain version for
-    a CPU tensor."""
+    a CPU tensor (its sums in the JAX kernel's ``block_l`` order; the card's
+    kernel keeps its own fixed order)."""
     if x.device.type == "cpu":
         return groupnorm_film_reference(x, gamma, beta, scale, shift, groups,
-                                        eps, return_stats=True)
+                                        eps, return_stats=True, block_l=block_l)
     forbid_grad("groupnorm_film_silu", [x, gamma, beta, scale, shift],
                 "return_stats=True gives no gradient")
     _require_kernel_shape("groupnorm_film_silu", x, groups)
@@ -222,8 +277,8 @@ def groupnorm_film_bwd(x, g, a_vec, b_vec, mean, rstd, groups: int,
 
 class _GroupNormFilmSiLU(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, scale, shift, groups, eps):
-        y, mean, rstd = _forward(x, gamma, beta, scale, shift, groups, eps)
+    def forward(ctx, x, gamma, beta, scale, shift, groups, eps, block_l):
+        y, mean, rstd = _forward(x, gamma, beta, scale, shift, groups, eps, block_l)
         ctx.save_for_backward(x, gamma, beta, scale, shift, mean, rstd)
         ctx.groups = groups
         return y
@@ -244,7 +299,7 @@ class _GroupNormFilmSiLU(torch.autograd.Function):
                       + db * beta.to(x.dtype).float()[None, :]).to(scale.dtype)
         if shift is not None and need[4]:
             dshift = db.to(shift.dtype)
-        return dx if need[0] else None, dgamma, dbeta, dscale, dshift, None, None
+        return dx if need[0] else None, dgamma, dbeta, dscale, dshift, None, None, None
 
 
 def groupnorm_film_silu(
@@ -262,11 +317,12 @@ def groupnorm_film_silu(
     """x (B, L, C); gamma, beta (C,); scale, shift (B, C) or None (= 0).
     Returns y (B, L, C) in x.dtype [, mean, rstd (B, C) f32, the
     per-channel broadcast of each group's statistics; not differentiable]."""
-    del block_l, interpret  # TPU tuning only
+    del interpret  # TPU only
+    block_l = BLOCK_L if block_l is None else block_l
     _validate(x, gamma, beta, scale, shift, groups)
     inputs = (x, gamma, beta, scale, shift)
     if (not return_stats and torch.is_grad_enabled()
             and any(t is not None and t.requires_grad for t in inputs)):
-        return _GroupNormFilmSiLU.apply(*inputs, groups, eps)
-    y, mean, rstd = _forward(x, gamma, beta, scale, shift, groups, eps)
+        return _GroupNormFilmSiLU.apply(*inputs, groups, eps, block_l)
+    y, mean, rstd = _forward(x, gamma, beta, scale, shift, groups, eps, block_l)
     return (y, mean, rstd) if return_stats else y

@@ -9,7 +9,7 @@ reference on 128->64, 90->16, 7->3 and 3->7.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +20,7 @@ __all__ = [
     "gaussian_blur_video",
     "pixel_unshuffle_spatial",
     "pixel_shuffle_spatial",
+    "paired_random_crop",
 ]
 
 
@@ -99,3 +100,36 @@ def pixel_shuffle_spatial(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     c = cf // (f * f)
     x = x.reshape(b, t, h, w, c, f, f).permute(0, 1, 2, 5, 3, 6, 4)
     return x.reshape(b, t, h * f, w * f, c)
+
+
+def paired_random_crop(
+    video: torch.Tensor,
+    crop: int,
+    lowres: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    offsets: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A random ``crop`` x ``crop`` spatial window per sample, the same
+    window for the video and its low-res conditioning video (both (B, T, H,
+    W, C) at one size). The offsets (oh, ow), each (B,) in [0, H - crop] /
+    [0, W - crop], are drawn from ``generator`` (oh first) on the video's
+    device unless given in ``offsets``."""
+    b, _, h, w, _ = video.shape
+    dev = video.device
+    if offsets is None:
+        oh = torch.randint(0, h - crop + 1, (b,), generator=generator, device=dev)
+        ow = torch.randint(0, w - crop + 1, (b,), generator=generator, device=dev)
+    else:
+        oh, ow = (torch.as_tensor(o).to(dev, torch.long) for o in offsets)
+    if not (oh.shape == ow.shape == (b,)):
+        raise ValueError(f"crop offsets must be ({b},) each")
+    ar = torch.arange(crop, device=dev)
+    rows = (oh[:, None] + ar)[:, :, None]  # (b, crop, 1)
+    cols = (ow[:, None] + ar)[:, None, :]  # (b, 1, crop)
+    bi = torch.arange(b, device=dev)[:, None, None]
+
+    def take(v):
+        # (b, h, w, t, c) indexed by (b, crop, crop) -> (b, crop, crop, t, c)
+        return v.permute(0, 2, 3, 1, 4)[bi, rows, cols].permute(0, 3, 1, 2, 4).contiguous()
+
+    return take(video), (None if lowres is None else take(lowres))

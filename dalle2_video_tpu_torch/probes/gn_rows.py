@@ -146,10 +146,11 @@ def bound_ms(kernel: str, b: int, l: int, c: int) -> float:
 # --------------------------------------------------------------- the holds
 # Rows 3, 4 and 9 compute the JAX kernels' function: one-pass f32 group
 # statistics (sums of x and x^2, var = E[x^2] - mean^2), then elementwise
-# math in f32 rounded once to bf16. The plain versions take two-pass
-# statistics in f32. On well-conditioned inputs the two agree up to f32
-# roundings, so a bf16 output differs only where its f32 value lies within
-# such a rounding of a bf16 midpoint, by one step; steps are counted at the
+# math in f32 rounded once to bf16. The plain versions compute the same
+# function with the sums in the JAX kernel's block order, the kernels in
+# their own fixed order. The two agree up to f32 roundings, so a bf16
+# output differs only where its f32 value lies within such a rounding of a
+# bf16 midpoint, by one step; steps are counted at the
 # value or at STEP_FLOOR of its (batch, channel)'s largest |value|,
 # whichever is larger (an f32 error is relative to the terms of z, not to a
 # z that cancels to near 0). The bounds are set from what the kernels the

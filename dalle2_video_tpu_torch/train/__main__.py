@@ -1,28 +1,38 @@
 """Train the cascaded video decoder (counterpart of scripts/train_decoder.py).
 
     python -m dalle2_video_tpu_torch.train [configs/celebv_text.yaml] [key=value ...]
+    python -m dalle2_video_tpu_torch.train videos.preprocessed=<store> videos.embed=<npy>
     python -m dalle2_video_tpu_torch.train smoke=true        # synthetic-data run
     python -m dalle2_video_tpu_torch.train smoke=true device=cpu
 
-Without a YAML path the built-in celebv_text settings are used. Both unets
-are trained on every batch, then a validation pass; a rolling checkpoint
-(newest K, best 1 by summed val loss, every ``ckpt_keep_period``-th step)
-is written each epoch and ``resume=true`` restarts from the newest one.
-SIGTERM saves a checkpoint and exits 143. ``max_steps`` (optional) stops
-after that many batches. Runs on CUDA unless ``device=cpu``. The unets'
-kernel knobs train through their backward kernels:
-``unetN.attention_impl=auto`` (flash), ``unetN.groupnorm_impl=pallas`` or
-``fused`` (conv + GroupNorm block kernels), ``unetN.spatial_conv_impl=
-pallas_small`` (conv kernel forward, plain conv backward); training keeps
-``unetN.cross_attention_impl=xla`` (that kernel is forward-only).
+Without a YAML path the built-in celebv_text settings are used. The data
+are ``CelebVTextDataset(video_embeds_path=videos.embed,
+videos_path=videos.preprocessed)`` (an h5 or ``.vshard`` store written by
+``python -m dalle2_video_tpu_torch.data.preprocess``) split by
+``split_indices(len, train_ratio, seed)``; ``smoke=true`` trains on
+synthetic videos instead. ``loader: grain`` reads batches in
+``loader_workers`` worker processes (``data/worker_loader.py``; pinned
+host memory on CUDA), ``loader: thread`` in one background thread
+(``BatchLoader``); both give the same batches, reshuffled with seed +
+epoch. Batches reach the device with non-blocking copies.
 
-Not ported yet (they raise): the CelebV-Text dataset reader (the data files
-are not in the repository; ``smoke=true`` trains on synthetic videos), and
-a ``mesh`` over more than one device (data-parallel training). The
-``loader`` key is ignored: batches come from the in-process ``BatchLoader``.
-So is ``decoder_trainer.steps_per_scan``, the JAX loop's fusion of K steps
-into one dispatch: here each batch is one step per unet, the same updates
-in the same order for each unet.
+Both unets are trained on every batch, then a validation pass; a rolling
+checkpoint (newest K, best 1 by summed val loss, every
+``ckpt_keep_period``-th step) is written each epoch and ``resume=true``
+restarts from the newest one. SIGTERM saves a checkpoint and exits 143.
+``max_steps`` (optional) stops after that many batches. Runs on CUDA unless
+``device=cpu``. The unets' kernel knobs train through their backward
+kernels: ``unetN.attention_impl=auto`` (flash), ``unetN.groupnorm_impl=
+pallas`` or ``fused`` (conv + GroupNorm block kernels),
+``unetN.spatial_conv_impl=pallas_small`` (conv kernel forward, plain conv
+backward); training keeps ``unetN.cross_attention_impl=xla`` (that kernel
+is forward-only).
+
+Not ported yet (it raises): a ``mesh`` over more than one device
+(data-parallel training, with the loaders' per-host shards).
+``decoder_trainer.steps_per_scan``, the JAX loop's fusion of K steps into
+one dispatch, is ignored: here each batch is one step per unet, the same
+updates in the same order for each unet.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from dalle2_video_tpu_torch.data.datasets import BatchLoader
+from dalle2_video_tpu_torch.data.datasets import BatchLoader, CelebVTextDataset, split_indices
+from dalle2_video_tpu_torch.data.worker_loader import make_worker_loader
 from dalle2_video_tpu_torch.engine.decoder import build_decoder
 from dalle2_video_tpu_torch.train.checkpoint import (
     PreemptionGuard,
@@ -101,6 +112,29 @@ def _check_single_device(cfg: Dict[str, Any]) -> None:
             "(one device only)")
 
 
+def make_loaders(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray], dev):
+    """The train (shuffled, seed + epoch) and val loaders: worker processes
+    under ``loader: grain`` (pinned memory on CUDA), else the thread loader;
+    the smoke run's synthetic set always takes the thread loader."""
+    bs = cfg["decoder"]["batch_size"]
+    if str(cfg.get("loader", "thread")) == "grain" and not bool(cfg.get("smoke", False)):
+        kw = dict(worker_count=int(cfg.get("loader_workers", 4)),
+                  pin_memory=torch.device(dev).type == "cuda")
+        return (make_worker_loader(dataset, bs, splits["train"], shuffle=True,
+                                   seed=cfg["seed"], **kw),
+                make_worker_loader(dataset, bs, splits["val"], shuffle=False, **kw))
+    return (BatchLoader(dataset, bs, splits["train"], shuffle=True, seed=cfg["seed"]),
+            BatchLoader(dataset, bs, splits["val"], shuffle=False))
+
+
+def store_dataset(cfg: Dict[str, Any]):
+    """The decoder-stage CelebVTextDataset of ``videos.preprocessed`` /
+    ``videos.embed`` and its seeded train / val split."""
+    dataset = CelebVTextDataset(video_embeds_path=cfg["videos"]["embed"],
+                                videos_path=cfg["videos"]["preprocessed"])
+    return dataset, split_indices(len(dataset), cfg["train_ratio"], cfg["seed"])
+
+
 def train_decoder(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray],
                   device: DeviceLike = None, max_steps: Optional[int] = None
                   ) -> Dict[str, Any]:
@@ -108,9 +142,7 @@ def train_decoder(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray],
     the trainer and the last epoch's mean train / val losses per unet."""
     _check_single_device(cfg)
     dev = resolve_device(device)
-    bs = cfg["decoder"]["batch_size"]
-    train_loader = BatchLoader(dataset, bs, splits["train"], shuffle=True, seed=cfg["seed"])
-    val_loader = BatchLoader(dataset, bs, splits["val"], shuffle=False)
+    train_loader, val_loader = make_loaders(cfg, dataset, splits, dev)
     trainer = build_trainer(cfg, build_decoder(cfg, dev))
 
     name = f"decoder_{cfg['train_name']}"
@@ -124,7 +156,7 @@ def train_decoder(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray],
         keep_period=int(cfg["ckpt_keep_period"]) if cfg.get("ckpt_keep_period") else None)
     mlog = MetricsLogger(cfg["run_dir"], name, cfg["use_wandb"], cfg)
     guard = PreemptionGuard()
-    as_dev = lambda a: torch.as_tensor(a, device=dev)
+    as_dev = lambda a: torch.as_tensor(a).to(dev, non_blocking=True)  # noqa: E731
     summary: Dict[str, Any] = {"trainer": trainer}
     batches = 0
     try:
@@ -180,9 +212,7 @@ def main(argv=None) -> None:
                                   cfg["dim"], cfg["channels"])
         splits = {"train": np.arange(bs), "val": np.arange(bs, 2 * bs)}
     else:
-        raise NotImplementedError(
-            "the CelebV-Text dataset reader is not ported yet (the data files are not "
-            "in the repository); run with smoke=true for synthetic videos")
+        dataset, splits = store_dataset(cfg)
     max_steps = cfg.get("max_steps")
     train_decoder(cfg, dataset, splits, cfg.get("device"),
                   None if max_steps is None else int(max_steps))

@@ -262,11 +262,11 @@ def test_groupnorm_kernels_hold_at_every_mapped_shape(dev):
 
 def test_groupnorm_kernel_clamps_a_near_constant_group(dev):
     """One-pass statistics of a (near-)constant group cancel: the kernel
-    clamps E[x^2] - mean^2 at 0 before eps (the JAX kernel does not), so a
-    constant group (of ones: every sum exact) gives rstd = rsqrt(eps) and y
-    = silu(Bv), and a group of 100s with one 100.5 in a thousand stays
-    finite with rstd at most rsqrt(eps) -- where the plain version's two
-    passes find ~45."""
+    clamps E[x^2] - mean^2 at 0 before eps (the JAX kernel does not; the
+    plain version clamps as the kernel does), so a constant group (of ones:
+    every sum exact) gives rstd = rsqrt(eps) and y = silu(Bv), and a group
+    of 100s with one 100.5 in a thousand stays finite with rstd at most
+    rsqrt(eps) -- where the f64 oracle finds ~45."""
     g = torch.Generator(device=dev).manual_seed(3)
     b, l, c = 2, 90 * 64 * 64, 64
     x = torch.randn(b, l, c, generator=g, device=dev)
@@ -777,3 +777,24 @@ def test_flash_variant_wrappers_raise_instead_of_falling_back(dev):
     z = torch.zeros(2, 8, 32, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="not differentiable"):
         fv.r2_fwd(z, z, z)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paired_random_crop_on_cuda_equals_the_cpu(dev, dtype):
+    """ops/video.py::paired_random_crop on the card takes the windows it
+    takes on the CPU at the same offsets, bit for bit, for the video and
+    its low-res conditioning video; drawn offsets stay in range."""
+    from dalle2_video_tpu_torch.ops.video import paired_random_crop
+
+    g = torch.Generator().manual_seed(0)
+    video = torch.randn(3, 5, 40, 36, 3, generator=g).to(dtype)
+    lowres = torch.randn(3, 5, 40, 36, 3, generator=g).to(dtype)
+    offsets = (torch.tensor([0, 7, 16]), torch.tensor([12, 0, 5]))
+    want = paired_random_crop(video, 24, lowres, offsets=offsets)
+    got = paired_random_crop(video.to(dev), 24, lowres.to(dev), offsets=offsets)
+    for w, o in zip(want, got):
+        assert o.device.type == "cuda" and o.shape == (3, 5, 24, 24, 3)
+        assert torch.equal(o.cpu(), w)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    v, lr = paired_random_crop(video.to(dev), 24, lowres.to(dev), generator=gen)
+    assert v.shape == lr.shape == (3, 5, 24, 24, 3)

@@ -288,6 +288,49 @@ def test_decoder_loss_and_grads_match_jax(stage, case):
         assert float(got["null_video_embed"].grad.abs().max()) > 0
 
 
+def test_decoder_loss_with_random_crop_matches_jax(stage):
+    """random_crop_sizes=(None, 24): unet 2's loss crops the 32 px video and
+    its low-res conditioning video after the resizes, one window per
+    sample for both; with the JAX offsets injected (``draws["crop_offsets"]``,
+    the k_crop split of decoder.py:533) and the JAX draws at the cropped
+    shape, the loss equals the JAX decoder's (f32, 5e-5 relative, as
+    without a crop). A crop on the base unet is refused, as in JAX."""
+    crop = 24
+    jdec = JaxDecoder(JaxDecoderConfig(unets=(JaxUCfg(**UNET1), JaxUCfg(**UNET2)),
+                                       random_crop_sizes=(None, crop), **DEC))
+    shape = (B, 2, crop, crop, 3)
+
+    def offsets(rng):
+        kh, kw = jax.random.split(jax.random.split(rng, 4)[2])
+        return tuple(np.array(jax.random.randint(k, (B,), 0, 32 - crop + 1)) for k in (kh, kw))
+
+    # a key with the blur and self-conditioning coins whose two samples take
+    # different windows
+    for seed in range(1000):
+        key = jax.random.PRNGKey(seed)
+        draws, (oh, ow) = _jax_draws(jdec, key, 2, shape), offsets(key)
+        if draws["blur"] and draws["self_cond"] and (oh[0], ow[0]) != (oh[1], ow[1]):
+            break
+    draws["crop_offsets"] = tuple(torch.from_numpy(o) for o in offsets(key))
+    params = stage["params"]
+    want = _compiled(lambda p, k: jdec.loss({**params, "unet_1": p}, k,
+                                            jnp.asarray(stage["video"]),
+                                            video_embed=jnp.asarray(stage["embed"]),
+                                            unet_number=2), params["unet_1"], key)(
+        params["unet_1"], key)
+    dec = VideoDecoder(VideoDecoderConfig(unets=(UNet3DConfig(**UNET1), UNet3DConfig(**UNET2)),
+                                          random_crop_sizes=(None, crop), **DEC), device=CPU)
+    for i, unet in enumerate(dec.unets):
+        load_from_jax(unet, params[f"unet_{i}"])
+    with torch.no_grad():
+        got = dec.loss(torch.from_numpy(stage["video"]),
+                       video_embed=torch.from_numpy(stage["embed"]), unet_number=2, draws=draws)
+    np.testing.assert_allclose(float(got), float(want), rtol=5e-5)
+    with pytest.raises(ValueError, match="base unet"):
+        VideoDecoder(VideoDecoderConfig(unets=(UNet3DConfig(**UNET1), UNet3DConfig(**UNET2)),
+                                        random_crop_sizes=(crop, None), **DEC), device=CPU)
+
+
 @pytest.mark.parametrize("policy", ["nothing", "dots", "dots_no_batch", "conv", "conv_attn",
                                     "conv_dots"])
 def test_decoder_loss_grads_under_each_remat_policy_match_jax(stage, policy):
@@ -551,7 +594,8 @@ def test_checkpoint_round_trip_and_retention(stage, tmp_path):
 def test_train_entry_point_smoke_and_resume(tmp_path):
     """python -m dalle2_video_tpu_torch.train smoke=true on the CPU: one
     batch through both unets, validation, a checkpoint; resume=true picks it
-    up. The dataset path and a multi-device mesh raise."""
+    up. Without smoke the store is read (tests/test_torch_port_data.py):
+    where there is none, that raises; so does a multi-device mesh."""
     args = ["smoke=true", "device=cpu", f"run_dir={tmp_path}", "decoder.bf16_compute=false",
             "dim=16", "log_level=WARNING"]
     train_main(args)
@@ -560,8 +604,8 @@ def test_train_entry_point_smoke_and_resume(tmp_path):
     assert state["steps"] == [2, 2] and state["ema"][0]["step"] == 2
     lines = (tmp_path / "decoder_default.metrics.jsonl").read_text().splitlines()
     assert len(lines) == 4 and all("nan" not in line for line in lines)
-    with pytest.raises(NotImplementedError, match="dataset"):
-        train_main(["device=cpu"])
+    with pytest.raises(FileNotFoundError, match="embed"):
+        train_main(["device=cpu"])  # no store at the default videos.* paths
     with pytest.raises(NotImplementedError, match="mesh"):
         train_main(args + ["mesh.data=4"])
 
