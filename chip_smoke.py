@@ -41,6 +41,24 @@ Phases (any failure exits non-zero and prints no result line):
      finite (90, 128, 128, 3) video in [0, 1], and every kernel's launch
      count over the path's run must equal what the unet structure predicts
      (no backward kernel);
+  4b. serve_options: the request options of scripts/serve.py::generate_batch
+     on the serve recipe (random weights from seed 0, output convs redrawn),
+     OPTION_STEPS DDIM steps a stage, one request at a time through
+     GenerationEngine: first the serve stack (flash cross-attention) must
+     refuse guided inpainting, launching nothing; then (a) a negative prompt
+     (it must change the plain request's video), (b) inpainting by
+     replacement of the first OPTION_KNOWN of 90 frames (they must equal the
+     conditioning video nearest-resized to 128 px within 1e-6), (c) the
+     same by guidance on a stack with cross_attention_impl xla (rows 1-4
+     inside the sampler), (d) a long video of OPTION_FRAMES frames (3
+     windows; every window must reproduce the frames earlier ones emitted
+     within 1e-6), (e) the DPM++ sampler. Every video finite, in [0, 1], of
+     its shape; every request's launches and the path's as the unet
+     structure predicts (rows 2 and 4 under (c) only, the flash backward on
+     the tensor cores), the kernel shapes the map's; each request's wall
+     time and frames/s printed with the card. Then the three
+     cross-attention routes (broadcast, xla, row 5) timed at the 7 serving
+     shapes;
   5. train: the decoder training path at the same widths and recipe
      (attention_impl auto -> flash at the 5760-token bottlenecks,
      cross_attention_impl xla, bf16 compute, batch 2) on synthetic
@@ -1271,6 +1289,263 @@ def serve(dev, torch, path: str, profile: bool = False):
     return launches
 
 
+# ------------------------------------------------------- phase 4: options
+# serve_options: the request options of scripts/serve.py::generate_batch on
+# the serve recipe (celebv_text at 90 frames, bf16 unets, random weights
+# from seed 0 with the unets' output convs redrawn, so that conditioning
+# moves the output), OPTION_STEPS DDIM steps a stage, one request at a time
+# through GenerationEngine. Each request: its name, its stack, its
+# GenRequest fields and whether it differentiates the unets (guided
+# inpainting). The stacks: "serve" (SERVE_PATHS["serve"]: row 5 and row
+# 3), "xla" (the same with cross_attention_impl xla, the train recipe's
+# knob: row 5 has no backward) and "dpmpp" (the same as "serve" with
+# sampler dpmpp). The extension requests know the first OPTION_KNOWN of 90
+# frames; long video asks for OPTION_FRAMES frames at the default overlap.
+OPTION_STEPS = 10
+OPTION_KNOWN = 22
+OPTION_FRAMES = 180
+OPTION_STACKS = {
+    "serve": SERVE_PATHS["serve"]["overrides"],
+    "xla": [*SERVE_PATHS["serve"]["overrides"], *both_unets("cross_attention_impl=xla")],
+    "dpmpp": [*SERVE_PATHS["serve"]["overrides"], "sampler=dpmpp"],
+}
+
+
+def option_requests(known, mask):
+    """[(name, stack, GenRequest fields, guided)] of serve_options: requests
+    (a)-(e), the plain request (a) is compared with, and (c) a second time."""
+    inpaint = dict(inpaint_video=known, inpaint_mask=mask)
+    return [("plain", "serve", {}, False),
+            ("(a) negative prompt", "serve", dict(negative_prompt="a person frowning"), False),
+            ("(b) inpainting by replacement", "serve", inpaint, False),
+            ("(c) inpainting with guidance", "xla", dict(inpaint, inpaint_method="guided"), True),
+            # again, warm: the first pays the backward's first-call costs
+            ("(c) again", "xla", dict(inpaint, inpaint_method="guided"), True),
+            ("(d) long video", "serve", dict(n_frames=OPTION_FRAMES), False),
+            ("(e) DPM++", "dpmpp", {}, False)]
+
+
+def option_stack(cfg, dev, torch):
+    """build_generate_batch on ``cfg`` with its unets' output convs redrawn
+    (seeded; the JAX init leaves them at zero, and a zero output ignores the
+    conditioning): (generate_batch, the stack's DALLE2Video)."""
+    import logging
+    from unittest import mock
+
+    from dalle2_video_tpu_torch.serve import stack
+
+    made = {}
+    build = stack.build_stack
+
+    def redrawn(cfg_, device):
+        text_enc, wrapper = build(cfg_, device)
+        g = torch.Generator().manual_seed(1)
+        for unet in wrapper.decoder.unets:
+            w = unet.to_out.Conv_0.weight
+            bnd = 1.0 / w[0].numel() ** 0.5
+            with torch.no_grad():
+                w.copy_(torch.empty(w.shape).uniform_(-bnd, bnd, generator=g))
+        made["wrapper"] = wrapper
+        return text_enc, wrapper
+
+    with mock.patch.object(stack, "build_stack", redrawn):
+        gb = stack.build_generate_batch(cfg, logging.getLogger("chip_smoke"), dev)
+    return gb, made["wrapper"]
+
+
+def option_launches(windows: int, guided: bool) -> dict:
+    """One request's launches as the unet structure predicts: per DDIM step
+    of both stages and per window, serve's (rows 1, 3 and 5); with guidance
+    the xla stack's forward (rows 1 and 3) and its backward, once a site
+    (rows 2 and 4)."""
+    per = dict(SERVE_PATHS["serve"]["per_step"])
+    if guided:
+        per.pop("cross_attention_fwd")
+        per.update(flash_mqa_bwd=per["flash_mqa_fwd"],
+                   groupnorm_film_silu_bwd=per["groupnorm_film_silu_fwd"])
+    return {k: windows * OPTION_STEPS * n for k, n in per.items()}
+
+
+def time_xattn_routes(dev, torch):
+    """The three routes of CrossAttention at the 7 serving shapes
+    (probes/xattn_rows.py: SERVE_SITES) at each CFG batch: "broadcast"
+    (ops/cross_attention.py::broadcast_cross_attention), "xla"
+    (cross_attention_reference) and "flash" (row 5's kernel), device ms by
+    CUDA events, each step's sum beside it. Printed, not judged."""
+    from dalle2_video_tpu_torch.ops import cross_attention as xa
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    sc = 64**-0.5
+    routes = {"broadcast": xa.broadcast_cross_attention, "xla": xa.cross_attention_reference,
+              "flash": lambda q, k, v, s: xa.cross_attention(q, k, v, sm_scale=s)}
+    for b in XA_BATCHES:
+        step = Counter()
+        for unet, n, m, sites in SERVE_SITES:
+            q = torch.randn(b, n, 8, 64, generator=g, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn(b, m, 8, 64, generator=g, device=dev).to(q.dtype)
+                    for _ in range(2))
+            ms = {r: time_ms(lambda f=f: f(q, k, v, sc)) for r, f in routes.items()}
+            step.update({r: sites * t for r, t in ms.items()})
+            log(f"serve_options: cross-attention unet{unet} b={b} n={n} m={m}: "
+                + ", ".join(f"{r} {t:.4f} ms" for r, t in ms.items())
+                + f" (broadcast / flash {ms['broadcast'] / ms['flash']:.2f}, "
+                f"xla / flash {ms['xla'] / ms['flash']:.2f})")
+            del q, k, v
+        log(f"serve_options: cross-attention, one DDIM step's {sites_per_step()} calls at "
+            f"batch {b}: " + ", ".join(f"{r} {t:.3f} ms" for r, t in step.items()))
+        torch.cuda.empty_cache()
+
+
+def serve_options(dev, torch):
+    """serve_options: the refusal of guided inpainting on the serve stack,
+    then requests (a)-(e) (option_requests), each alone, checked and timed;
+    the path's launch counts and kernel shapes as the structure predicts,
+    rows 2 and 4 launched under (c) only and on the tensor-core route; then
+    the cross-attention routes timed (time_xattn_routes)."""
+    from concurrent.futures import TimeoutError as FutureTimeout
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.ops.flash_mqa import BWD_KERNEL
+    from dalle2_video_tpu_torch.ops.video import resize_video
+    from dalle2_video_tpu_torch.serve.engine import GenerationEngine, GenRequest
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    card = card_line()
+    cfgs = {name: load_config(None, knobs) for name, knobs in OPTION_STACKS.items()}
+    t_win, size = cfgs["serve"]["frame_numbers"][-1], cfgs["serve"]["frame_sizes"][-1]
+    # the conditioning video at the base stage's size, resized to each stage's
+    known = np.random.default_rng(0).random(
+        (t_win, *(cfgs["serve"]["frame_sizes"][0],) * 2, 3), dtype=np.float32)
+    mask = np.zeros((t_win, 1, 1, 1), np.float32)
+    mask[:OPTION_KNOWN] = 1.0
+    known_out = resize_video(torch.from_numpy(known[None]), size, clamp_range=(0.0, 1.0))[0]
+    known_out = known_out.numpy()
+    requests = option_requests(known, mask)
+    overlap = t_win // 4
+    windows = 1 + -(-(OPTION_FRAMES - t_win) // (t_win - overlap))
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset()
+    want, results, passes = Counter(), {}, Counter()
+    with ShapeRecord() as shapes:
+        for name, cfg in cfgs.items():
+            cfg["sample_seed"] = 0
+            t0 = time.time()
+            gb, wrapper = option_stack(cfg, dev, torch)
+            log(f"serve_options: stack {name!r} built in {time.time() - t0:.1f} s "
+                f"({' '.join(OPTION_STACKS[name][2:])})")
+            engine = GenerationEngine(gb, buckets=(1,), max_wait_ms=5.0,
+                                      default_cond_scale=3.0, default_ddim_steps=OPTION_STEPS)
+            try:
+                if name == "serve":
+                    # before any of them: the serve stack (flash cross-attention)
+                    # refuses guidance, and launches nothing for it
+                    fut = engine.submit(GenRequest("a person smiling", seed=7, cond_scale=3.0,
+                                                   ddim_steps=OPTION_STEPS, inpaint_video=known,
+                                                   inpaint_mask=mask, inpaint_method="guided"))
+                    try:
+                        fut.result(timeout=300)
+                    except ValueError as exc:
+                        if "forward-only" not in str(exc):
+                            raise
+                        log(f"serve_options: the serve stack refuses guided inpainting: {exc}")
+                    except FutureTimeout:
+                        raise AssertionError("serve_options: the refusal did not come") from None
+                    else:
+                        raise AssertionError("serve_options: the serve stack (cross_attention_impl "
+                                             "flash) answered guided inpainting")
+                    if any(k.launches for k in kernels):
+                        raise AssertionError("serve_options: the refused request launched kernels")
+                windows_seen = []
+                for label, stack_name, fields, guided in requests:
+                    if stack_name != name:
+                        continue
+                    long = "n_frames" in fields
+                    if long:
+                        sample = wrapper.decoder.sample
+
+                        def recording(*a, _sample=sample, **kw):
+                            out = _sample(*a, **kw)
+                            windows_seen.append(out)
+                            return out
+
+                        wrapper.decoder.sample = recording
+                    before = {k.name: k.launches for k in kernels}
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.time()
+                    try:
+                        res = engine.generate(GenRequest("a person smiling", seed=7,
+                                                         cond_scale=3.0, ddim_steps=OPTION_STEPS,
+                                                         **fields), timeout=600)
+                    finally:
+                        if long:
+                            del wrapper.decoder.sample
+                    wall = time.time() - t0
+                    got = {k.name: k.launches - before[k.name] for k in kernels}
+                    n = windows if long else 1
+                    expect = option_launches(n, guided)
+                    if {k: v for k, v in got.items() if v} != expect:
+                        raise AssertionError(f"serve_options {label}: launches {got}, the unet "
+                                             f"structure gives {expect}")
+                    want.update(expect)
+                    passes[guided] += n
+                    vid = res["video"]
+                    frames = OPTION_FRAMES if long else t_win
+                    if vid.shape != (frames, size, size, 3):
+                        raise AssertionError(f"serve_options {label}: shape {vid.shape}")
+                    if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+                        raise AssertionError(f"serve_options {label}: values not finite in [0, 1]")
+                    results[label] = vid
+                    log(f"serve_options {label}: wall {wall:.3f} s (generate_batch "
+                        f"{res['device_ms'] / 1e3:.3f} s), {frames / wall:.2f} frames/s, peak "
+                        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+                        f"{expect}; mean {float(vid.mean()):.3f} std {float(vid.std()):.3f}; {card}")
+                    if "inpaint_video" in fields:
+                        err = float(np.abs(vid[:OPTION_KNOWN] - known_out[:OPTION_KNOWN]).max())
+                        log(f"serve_options {label}: known frames vs the conditioning video at "
+                            f"{size} px: max |diff| {err:.3e}")
+                        if err > 1e-6:
+                            raise AssertionError(f"serve_options {label}: the known frames moved "
+                                                 f"by {err:.3e}")
+                    if long:
+                        if len(windows_seen) != windows:
+                            raise AssertionError(f"serve_options {label}: {len(windows_seen)} "
+                                                 f"windows, expected {windows}")
+                        for j, win in enumerate(windows_seen[1:], start=1):
+                            start = j * (t_win - overlap)
+                            err = float((win[0, :overlap].float().cpu()
+                                         - torch.from_numpy(vid[start:start + overlap]))
+                                        .abs().max())
+                            log(f"serve_options {label}: window {j} reproduces frames "
+                                f"{start}-{start + overlap - 1}: max |diff| {err:.3e}")
+                            if err > 1e-6:
+                                raise AssertionError(f"serve_options {label}: window {j} moved "
+                                                     f"frames an earlier window emitted")
+            finally:
+                engine.close()
+            del gb, wrapper, engine
+            torch.cuda.empty_cache()
+        launches = {k.name: k.launches for k in kernels}
+    moved = float(np.mean(results["plain"] != results["(a) negative prompt"]))
+    log(f"serve_options: the negative prompt changed {100 * moved:.2f}% of the values")
+    if moved == 0.0:
+        raise AssertionError("serve_options: the negative prompt did not reach the unets")
+    forward = passes[False] + passes[True]
+    shapes.check("serve_options", conv_path_shapes("serve_options"),
+                 Counter({key: n * OPTION_STEPS * passes[False]
+                          for key, n in serve_shapes(2).items()}),
+                 gn_path_calls("serve_options", {2: forward}, OPTION_STEPS,
+                               backward_at={2: passes[True]}))
+    log(f"serve_options: launches {launches} expected {dict(want)}")
+    if {k: v for k, v in launches.items() if v} != dict(want):
+        raise AssertionError("serve_options: kernel launch counts differ from the unet structure's")
+    check_bwd_routes("serve_options", launches, need=True)
+    log(f"serve_options: flash backward routes {BWD_KERNEL.routes}")
+    time_xattn_routes(dev, torch)
+    return launches
+
 # --------------------------------------------------------------- phase 5
 TRAIN_BATCH = TRAIN_BT // 90
 # The training paths at the same widths and recipe (attention_impl auto ->
@@ -1375,17 +1650,24 @@ class ShapeRecord:
                                  f"{dict(want_xattn or {})} (probes/xattn_rows.py: SERVE_SITES)")
 
 
-def gn_path_calls(path, groups_at=None, steps=0):
+def gn_path_calls(path, groups_at=None, steps=0, backward_at=None):
     """Rows 3, 4 and 9's calls by (row, b, L, C, G) over a path's run, from
-    the map (probes/gn_rows.py): "serve" each group's DDIM steps at its CFG
-    batch (``groups_at``: groups by batch); "train" and "train_conv"
+    the map (probes/gn_rows.py): "serve" and "serve_options" each group's
+    DDIM steps at its CFG batch (``groups_at``: groups by batch, a long
+    video's window a group), and on "serve_options" row 4 once a site in
+    each DDIM step of the groups that differentiate the unets (guided
+    inpainting; ``backward_at``, by CFG batch); "train" and "train_conv"
     ``steps`` train steps of both unets at the training batch; none
     elsewhere."""
     out = Counter()
-    if path == "serve":
+    if path in ("serve", "serve_options"):
         for b, count in groups_at.items():
             out.update({(gn_rows.FWD, *key): n * steps * count
                         for key, n in gn_rows.serve_step(b).items()})
+        for b, count in (backward_at or {}).items():
+            for u in (1, 2):
+                out.update({(gn_rows.BWD, *key): n * steps * count
+                            for key, n in gn_rows.calls(gn_rows.BWD, b, u).items()})
     elif path in ("train", "train_conv"):
         for name in (gn_rows.FWD, gn_rows.BWD) if path == "train" else (gn_rows.ROW9,):
             for u in (1, 2):
@@ -1394,12 +1676,15 @@ def gn_path_calls(path, groups_at=None, steps=0):
     return out
 
 
-def check_bwd_routes(label, launches):
+def check_bwd_routes(label, launches, need=False):
     """Every flash backward of a main path is bf16 at batch >= 2: the
-    tensor-core route (the JAX package's _bwd_pallas arithmetic)."""
+    tensor-core route (the JAX package's _bwd_pallas arithmetic); with
+    ``need``, the path launched it (serve_options: guided inpainting)."""
     from dalle2_video_tpu_torch.ops.flash_mqa import BWD_KERNEL
 
     n = launches.get(BWD_KERNEL.name, 0)
+    if need and not n:
+        raise AssertionError(f"{label}: no flash backward launched")
     if n and BWD_KERNEL.routes != {"tensor_cores": n}:
         raise AssertionError(f"{label}: flash backward routes {BWD_KERNEL.routes}, "
                              f"expected {n} on the tensor cores")
@@ -1897,7 +2182,7 @@ def profile_request(cfg, dev, torch, steps: int, label: str):
         wrapper.generate(keys, text_enc(tokens), cond_scale=3.0, sample_timesteps=2)
         embed, t_text = timed(lambda: text_enc(tokens))
         k_prior, k_dec = keys.split()
-        vemb, t_prior = timed(lambda: wrapper._prior_embeds(k_prior, embed, 1.0, None))
+        vemb, t_prior = timed(lambda: wrapper._prior_embeds(k_prior, embed, 1.0, None)[0])
         k0, k1 = k_dec.split(2)
         v0, t_s0 = timed(lambda: dec.sample_stage(0, k0, batch_size=1, video_embed=vemb,
                                                    cond_scale=3.0, sample_timesteps=steps))
@@ -1977,6 +2262,7 @@ def main() -> int:
     runs = {}
     for path in SERVE_PATHS:
         runs[path] = phase(path, serve, dev, torch, path, args.profile)
+    runs["serve_options"] = phase("serve_options", serve_options, dev, torch)
     for path in TRAIN_PATHS:
         runs[path] = phase(path, train, dev, torch, path, args.profile)
     runs["train_data"] = phase("train_data", train_data, dev, torch)

@@ -6,16 +6,29 @@ package. With ``sample_compute_dtype="bfloat16"`` the unets run in bf16 (a
 bf16 copy of each unet is made at first use) while the diffusion math stays
 float32. The loops are Python loops over the static DDIM/DDPM time grid.
 
+Three samplers, as in the JAX package: DDPM (ancestral, every timestep),
+DDIM and DPM-Solver++(2M) over the static DDIM time grid (``sampler``).
+Each takes the request options of the JAX loops: a negative video embed as
+the CFG baseline (``_unet_apply``), and inpainting (``inpaint_video`` /
+``inpaint_mask``, 1 = known) by replacement -- the known region re-noised
+to q(x_t | x0) after every step, so the last step returns it exactly -- or
+by reconstruction guidance (VDM eq. 7: the gradient of the known region's
+x0 error through the unet, taken with ``torch.autograd.grad`` w.r.t. x
+only). ``sample`` re-applies the constraint at every cascade stage at its
+geometry and chunks the batch (``max_batch_size``) keeping each row's key.
+
 Sampling randomness comes from ``RowKeys`` (one generator per row, see
 utils/keys.py). Every loop also takes injected draws -- the initial noise
-``init_noise`` and, for DDPM, the per-step noises -- so tests can feed the
-port and the JAX package the same numbers. The training loss draws from a
-``torch.Generator`` and takes every draw injected the same way (``draws``:
-times, noise, video keep mask, self-cond coin, blur coin, lowres noise
-levels and noise, the random crop's offsets).
+``init_noise``, for DDPM (and DDIM at eta > 0) the per-step noises
+``step_noises``, and for inpainting the known region's noises
+``known_noises`` -- so tests can feed the port and the JAX package the same
+numbers. The training loss draws from a ``torch.Generator`` and takes every
+draw injected the same way (``draws``: times, noise, video keep mask,
+self-cond coin, blur coin, lowres noise levels and noise, the random crop's
+offsets).
 
-Not ported yet: DPM++, inpainting, negative prompts, latent (VAE) stages,
-text-encoding conditioning (so no text keep mask) and long video.
+Not ported yet: latent (VAE) stages and text-encoding conditioning (so no
+text keep mask and no negative text encodings).
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ from dalle2_video_tpu_torch.engine.conditioner import (
     make_noise_schedule,
     noise_video,
 )
-from dalle2_video_tpu_torch.models.layers import JointSpaceTimeAttention
+from dalle2_video_tpu_torch.models.layers import CrossAttention, JointSpaceTimeAttention
 from dalle2_video_tpu_torch.models.unet3d import UNet3D, UNet3DConfig
 from dalle2_video_tpu_torch.models.unet_temporal import UnetTemporalConv
 from dalle2_video_tpu_torch.ops.video import (
@@ -49,8 +62,12 @@ from dalle2_video_tpu_torch.ops.video import (
     resize_video,
     resize_video_time,
 )
+from dalle2_video_tpu_torch.utils.chunked import split_batch
 from dalle2_video_tpu_torch.utils.device import DeviceLike, dtype_from_name, resolve_device
 from dalle2_video_tpu_torch.utils.keys import RowKeys
+
+SAMPLERS = ("ddim", "dpmpp")
+INPAINT_METHODS = ("replace", "guided")
 
 
 def ddim_time_pairs(total: int, timesteps: int):
@@ -58,6 +75,53 @@ def ddim_time_pairs(total: int, timesteps: int):
     times = np.linspace(-1, total - 1, timesteps + 1).astype(int)
     times = list(reversed(times.tolist()))
     return [(a, b) for a, b in zip(times[:-1], times[1:]) if a > b]
+
+
+def dpmpp_coefficients(alphas_cumprod: np.ndarray, pairs) -> np.ndarray:
+    """DPM-Solver++(2M)'s per-step coefficients over the (t_now, t_next)
+    grid, on the host in float64 as the JAX loop computes them
+    (decoder.py:1018-1034), then rounded to f32: rows (coef_x, coef_d, c2,
+    a-bar at t_now, a-bar at t_next). First order (c2 = 0) on the first and
+    the last step; at the terminal step lambda = +inf, so coef_x = 0 and
+    coef_d = a_t = 1: the step returns its data prediction."""
+    acp = np.concatenate([[1.0], np.asarray(alphas_cumprod, np.float64)])
+    t_now = np.array([p[0] for p in pairs], np.int64)
+    t_next = np.array([p[1] for p in pairs], np.int64)
+    a_s, s_s = np.sqrt(acp[t_now + 1]), np.sqrt(1.0 - acp[t_now + 1])
+    a_t, s_t = np.sqrt(acp[t_next + 1]), np.sqrt(1.0 - acp[t_next + 1])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        lam_s = np.log(a_s / s_s)
+        lam_t = np.log(a_t / s_t)
+        h = lam_t - lam_s
+        r = np.concatenate([[np.nan], h[:-1]]) / h
+    first = np.zeros(len(pairs), bool)
+    first[0] = first[-1] = True
+    first |= ~np.isfinite(r)
+    coef_x = np.where(np.isfinite(s_t / s_s), s_t / s_s, 0.0)
+    coef_d = -a_t * np.expm1(-h)
+    c2 = np.where(first, 0.0, 1.0 / (2.0 * np.where(first, 1.0, r)))
+    return np.stack([coef_x, coef_d, c2, acp[t_now + 1], acp[t_next + 1]], 1).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Inpaint:
+    """A stage's inpainting constraint in model space: the known video
+    ``x0k`` (normalised), ``mask`` (f32, 1 = known, broadcastable to the
+    sample), the method and the guidance weight."""
+
+    x0k: torch.Tensor
+    mask: torch.Tensor
+    method: str = "replace"
+    weight: float = 10.0
+
+    def replace(self, x_next: torch.Tensor, acp_next: torch.Tensor,
+                noise: torch.Tensor) -> torch.Tensor:
+        """The replacement step (VDM section 4, RePaint eq. 8): the known
+        region overwritten with q(x_t | x0) = sqrt(a-bar) x0 + sqrt(1 -
+        a-bar) eps at the level the sampler just produced; at the terminal
+        step a-bar = 1 and it is the known video exactly."""
+        known = self.x0k * torch.sqrt(acp_next) + torch.sqrt(1.0 - acp_next) * noise
+        return self.mask * known + (1.0 - self.mask) * x_next
 
 
 def build_unet(cfg: UNet3DConfig) -> nn.Module:
@@ -149,8 +213,8 @@ class VideoDecoder(nn.Module):
             raise ValueError("unets, frame_sizes and frame_numbers must align")
         if tuple(cfg.frame_sizes) != tuple(sorted(cfg.frame_sizes)):
             raise ValueError("frame_sizes must be ascending")
-        if cfg.sampler != "ddim":
-            raise NotImplementedError(f"sampler {cfg.sampler!r} is not ported yet")
+        if cfg.sampler not in SAMPLERS:
+            raise ValueError(f"sampler {cfg.sampler!r} not in {SAMPLERS}")
         self.config = cfg
         self.device = resolve_device(device)
         self.compute_dtype = dtype_from_name(cfg.sample_compute_dtype)
@@ -250,14 +314,19 @@ class VideoDecoder(nn.Module):
 
     def _unet_apply(self, i: int, x, t, *, cond_scale: float = 1.0,
                     video_embed=None, lowres_cond_video=None,
-                    lowres_noise_level=None, self_cond=None) -> torch.Tensor:
-        """forward_with_cond_scale as ONE 2x-batched forward; returns f32."""
+                    lowres_noise_level=None, self_cond=None,
+                    negative_video_embed=None) -> torch.Tensor:
+        """forward_with_cond_scale as ONE 2x-batched forward; returns f32.
+        Under CFG the baseline half is the learned null embedding, or the
+        ``negative_video_embed`` (broadcast from e.g. (1, d), kept) when one
+        is given with a video embed: guided = neg + (cond - neg) * scale."""
         unet = self.sampling_unet(i)
         cdt = self.compute_dtype
         castf = lambda a: None if a is None else a.to(cdt)
         if cdt is not None:
             x, video_embed = castf(x), castf(video_embed)
             lowres_cond_video, self_cond = castf(lowres_cond_video), castf(self_cond)
+            negative_video_embed = castf(negative_video_embed)
         kw = dict(video_embed=video_embed, lowres_cond_video=lowres_cond_video,
                   lowres_noise_level=lowres_noise_level, self_cond=self_cond)
         if cond_scale == 1.0:
@@ -266,10 +335,14 @@ class VideoDecoder(nn.Module):
             raise ValueError("decoder was not trained with conditional dropout: no CFG")
         b = x.shape[0]
         dup = lambda a: None if a is None else torch.cat([a, a], dim=0)
+        kw2 = {k: dup(v) for k, v in kw.items()}
         keep = torch.cat([torch.ones(b, dtype=torch.bool, device=x.device),
                           torch.zeros(b, dtype=torch.bool, device=x.device)])
-        out2 = unet(dup(x), dup(t), video_keep_mask=keep,
-                    **{k: dup(v) for k, v in kw.items()}).float()
+        if negative_video_embed is not None and video_embed is not None:
+            neg = negative_video_embed.to(video_embed.dtype).expand_as(video_embed)
+            kw2["video_embed"] = torch.cat([video_embed, neg], dim=0)
+            keep = torch.ones(2 * b, dtype=torch.bool, device=x.device)
+        out2 = unet(dup(x), dup(t), video_keep_mask=keep, **kw2).float()
         logits, null_logits = out2[:b], out2[b:]
         guided = null_logits + (logits - null_logits) * cond_scale
         phi = self.config.cfg_rescale
@@ -297,12 +370,16 @@ class VideoDecoder(nn.Module):
         return out.chunk(2, dim=-1)
 
     def _p_mean_variance(self, i: int, x, t, *, clip_denoised: bool = True,
-                         cond_scale: float = 1.0, model_output=None, **cond):
+                         cond_scale: float = 1.0, model_output=None,
+                         x_start_adjust: Optional[Callable] = None, **cond):
         sched = self.schedules[i]
         out = (self._unet_apply(i, x, t, cond_scale=cond_scale, **cond)
                if model_output is None else model_output)
         pred, var_frac = self._split_output(i, out)
         x_start = self._predict_x_start(i, x, t, pred)
+        if x_start_adjust is not None:
+            # reconstruction guidance's shift, before the clip
+            x_start = x_start_adjust(x_start)
         if clip_denoised:
             x_start = self.dynamic_threshold(x_start)
         mean, var, log_var = sched.q_posterior(x_start, x, t)
@@ -446,35 +523,91 @@ class VideoDecoder(nn.Module):
         return loss + vb.mean() * cfg.vb_loss_weight
 
     # ------------------------------------------------------------------ #
+    def _x0_of(self, i: int, x, t, *, cond_scale: float, self_cond, cond):
+        """The unet's data prediction at x: (x0, the unet output)."""
+        out = self._unet_apply(i, x, t, cond_scale=cond_scale, self_cond=self_cond, **cond)
+        pred, _ = self._split_output(i, out)
+        return self._predict_x_start(i, x, t, pred), out
+
+    def _recon_grad(self, i: int, x, t, inpaint: Inpaint, **kw):
+        """value_and_grad of sum(mask (x0 - x0k)^2) through the unet, w.r.t.
+        x only (no parameter gradient, no graph kept past the step):
+        (x0, the unet output, the gradient)."""
+        with torch.enable_grad():
+            xin = x.detach().requires_grad_(True)
+            x0, out = self._x0_of(i, xin, t, **kw)
+            err = (inpaint.mask * (x0 - inpaint.x0k) ** 2).sum()
+            (g,) = torch.autograd.grad(err, xin)
+        return x0.detach(), out.detach(), g
+
+    def check_inpaint(self, inpaint_method: str, start_at_unet_number: int = 1,
+                      stop_at_unet_number: Optional[int] = None) -> None:
+        """Refuse an inpainting request before anything is sampled: an
+        unknown method, or 'guided' where a stage that will run has
+        cross_attention_impl 'flash'. Reconstruction guidance differentiates
+        the sampling unet, and the tiny-context cross-attention kernel has no
+        backward, as in the JAX package, whose grad through it fails; on the
+        CPU its plain version would differentiate silently."""
+        if inpaint_method not in INPAINT_METHODS:
+            raise ValueError(f"inpaint_method {inpaint_method!r} not in {INPAINT_METHODS}")
+        if inpaint_method != "guided":
+            return
+        for i in range(start_at_unet_number - 1, stop_at_unet_number or self.config.num_unets):
+            if any(isinstance(m, CrossAttention) and m.impl == "flash"
+                   for m in self.sampling_unet(i).modules()):
+                raise ValueError(
+                    f"inpaint_method 'guided' differentiates unet {i + 1}, whose "
+                    "cross_attention_impl 'flash' is forward-only (no backward, as in "
+                    "the JAX package); build the stack with cross_attention_impl: xla")
+
+    def _draw(self, keys: RowKeys, k: int, shape, given):
+        """Step k's noise: ``given[k]`` when injected, else from its key."""
+        if given is None:
+            return keys.fold_in(k).normal(shape, self.device)
+        return given[k].to(self.device, torch.float32)
+
+    def _start(self, keys: RowKeys, shape, init_noise, cond):
+        """x_T and the conditioning (its low-res video normalised)."""
+        x = (keys.normal(shape, self.device) if init_noise is None
+             else init_noise.to(self.device, torch.float32))
+        if cond.get("lowres_cond_video") is not None:
+            cond["lowres_cond_video"] = self._normalize(cond["lowres_cond_video"])
+        return x
+
     @torch.no_grad()
     def p_sample_loop_ddpm(self, i: int, keys: RowKeys, shape, *,
                            cond_scale: float = 1.0,
                            init_noise: Optional[torch.Tensor] = None,
                            step_noises: Optional[Sequence[torch.Tensor]] = None,
+                           inpaint: Optional[Inpaint] = None,
+                           known_noises: Optional[Sequence[torch.Tensor]] = None,
                            **cond) -> torch.Tensor:
-        """Ancestral sampling over all timesteps. ``step_noises[k]`` is the
-        noise of the k-th step (t = T-1-k)."""
+        """Ancestral sampling over all timesteps. ``step_noises[k]`` and
+        ``known_noises[k]`` are the k-th step's (t = T-1-k) noises."""
         sched = self.schedules[i]
         ucfg = self.unet_configs[i]
         b = shape[0]
-        k_init, k_loop = keys.split()
-        x = (k_init.normal(shape, self.device) if init_noise is None
-             else init_noise.to(self.device, torch.float32))
-        if cond.get("lowres_cond_video") is not None:
-            cond["lowres_cond_video"] = self._normalize(cond["lowres_cond_video"])
+        k_init, k_loop, k_known = keys.split(3)
+        x = self._start(k_init, shape, init_noise, cond)
+        acp_pad = torch.cat([torch.ones(1, device=self.device), sched.alphas_cumprod])
         x_start = torch.zeros_like(x)
         for k, ts in enumerate(range(sched.num_timesteps - 1, -1, -1)):
             t = torch.full((b,), ts, dtype=torch.long, device=self.device)
+            kw = dict(cond_scale=cond_scale, self_cond=x_start if ucfg.self_cond else None)
+            out = adjust = None
+            if inpaint is not None and inpaint.method == "guided":
+                _, out, g = self._recon_grad(i, x, t, inpaint, cond=cond, **kw)
+                w = 0.5 * inpaint.weight * torch.sqrt(acp_pad[ts + 1])
+                adjust = lambda xs: xs - w * g
             mean, _, log_var, x_start = self._p_mean_variance(
-                i, x, t, clip_denoised=self.config.clip_denoised,
-                cond_scale=cond_scale,
-                self_cond=x_start if ucfg.self_cond else None, **cond)
+                i, x, t, clip_denoised=self.config.clip_denoised, model_output=out,
+                x_start_adjust=adjust, **kw, **cond)
             if ts > 0:
-                noise = (k_loop.fold_in(k).normal(shape, self.device)
-                         if step_noises is None else step_noises[k].to(self.device))
-                x = mean + torch.exp(0.5 * log_var) * noise
+                x = mean + torch.exp(0.5 * log_var) * self._draw(k_loop, k, shape, step_noises)
             else:
                 x = mean
+            if inpaint is not None:
+                x = inpaint.replace(x, acp_pad[ts], self._draw(k_known, k, shape, known_noises))
         return self._unnormalize(x)
 
     @torch.no_grad()
@@ -482,26 +615,28 @@ class VideoDecoder(nn.Module):
                            cond_scale: float = 1.0,
                            init_noise: Optional[torch.Tensor] = None,
                            step_noises: Optional[Sequence[torch.Tensor]] = None,
+                           inpaint: Optional[Inpaint] = None,
+                           known_noises: Optional[Sequence[torch.Tensor]] = None,
                            **cond) -> torch.Tensor:
         """DDIM over ddim_time_pairs; eta = config.ddim_sampling_eta (at
-        eta 0 the loop is deterministic once x_T is fixed)."""
+        eta 0 the loop is deterministic once x_T is fixed, inpainting by
+        replacement apart)."""
         sched = self.schedules[i]
         ucfg = self.unet_configs[i]
         eta = self.config.ddim_sampling_eta
         b = shape[0]
-        k_init, k_loop = keys.split()
-        x = (k_init.normal(shape, self.device) if init_noise is None
-             else init_noise.to(self.device, torch.float32))
-        if cond.get("lowres_cond_video") is not None:
-            cond["lowres_cond_video"] = self._normalize(cond["lowres_cond_video"])
+        k_init, k_loop, k_known = keys.split(3)
+        x = self._start(k_init, shape, init_noise, cond)
         acp_pad = torch.cat([torch.ones(1, device=self.device), sched.alphas_cumprod])
         x_start = torch.zeros_like(x)
         for k, (t_now, t_next) in enumerate(ddim_time_pairs(sched.num_timesteps, timesteps)):
             t = torch.full((b,), t_now, dtype=torch.long, device=self.device)
-            out = self._unet_apply(i, x, t, cond_scale=cond_scale,
-                                   self_cond=x_start if ucfg.self_cond else None, **cond)
-            pred, _ = self._split_output(i, out)
-            x_start = self._predict_x_start(i, x, t, pred)
+            kw = dict(cond_scale=cond_scale, self_cond=x_start if ucfg.self_cond else None)
+            if inpaint is not None and inpaint.method == "guided":
+                x_start, _, g = self._recon_grad(i, x, t, inpaint, cond=cond, **kw)
+                x_start = x_start - (0.5 * inpaint.weight * torch.sqrt(acp_pad[t_now + 1])) * g
+            else:
+                x_start, _ = self._x0_of(i, x, t, cond=cond, **kw)
             if self.config.clip_denoised:
                 x_start = self.dynamic_threshold(x_start)
             pred_noise = sched.predict_noise_from_start(x, t, x_start)
@@ -510,9 +645,49 @@ class VideoDecoder(nn.Module):
             c2 = torch.sqrt(torch.clamp((1 - alpha_next) - c1**2, min=0.0))
             x = x_start * torch.sqrt(alpha_next) + c2 * pred_noise
             if eta > 0 and t_next >= 0:
-                noise = (k_loop.fold_in(k).normal(shape, self.device)
-                         if step_noises is None else step_noises[k].to(self.device))
-                x = x + c1 * noise
+                x = x + c1 * self._draw(k_loop, k, shape, step_noises)
+            if inpaint is not None:
+                x = inpaint.replace(x, alpha_next, self._draw(k_known, k, shape, known_noises))
+        return self._unnormalize(x)
+
+    @torch.no_grad()
+    def p_sample_loop_dpmpp(self, i: int, keys: RowKeys, shape, *, timesteps: int,
+                            cond_scale: float = 1.0,
+                            init_noise: Optional[torch.Tensor] = None,
+                            inpaint: Optional[Inpaint] = None,
+                            known_noises: Optional[Sequence[torch.Tensor]] = None,
+                            **cond) -> torch.Tensor:
+        """DPM-Solver++(2M) over ddim_time_pairs (JAX decoder.py:981-1095):
+        per step s -> t, with lambda = log(alpha / sigma), h = lambda_t -
+        lambda_s, r = h_prev / h and x0 the data prediction,
+        D = (1 + 1/(2r)) x0_s - 1/(2r) x0_prev and x_t = (sigma_t / sigma_s)
+        x_s - alpha_t expm1(-h) D; coefficients from ``dpmpp_coefficients``.
+        Deterministic once x_T is fixed (inpainting by replacement apart)."""
+        sched = self.schedules[i]
+        ucfg = self.unet_configs[i]
+        b = shape[0]
+        pairs = ddim_time_pairs(sched.num_timesteps, timesteps)
+        coefs = torch.from_numpy(dpmpp_coefficients(
+            sched.alphas_cumprod.cpu().numpy(), pairs)).to(self.device)
+        k_init, _, k_known = keys.split(3)
+        x = self._start(k_init, shape, init_noise, cond)
+        x0_prev = torch.zeros_like(x)
+        for k, (t_now, _) in enumerate(pairs):
+            cx, cd, c2, acp_now, acp_next = coefs[k]
+            t = torch.full((b,), t_now, dtype=torch.long, device=self.device)
+            kw = dict(cond_scale=cond_scale, self_cond=x0_prev if ucfg.self_cond else None)
+            if inpaint is not None and inpaint.method == "guided":
+                x0, _, g = self._recon_grad(i, x, t, inpaint, cond=cond, **kw)
+                x0 = x0 - (0.5 * inpaint.weight * torch.sqrt(acp_now)) * g
+            else:
+                x0, _ = self._x0_of(i, x, t, cond=cond, **kw)
+            if self.config.clip_denoised:
+                x0 = self.dynamic_threshold(x0)
+            d = (1.0 + c2) * x0 - c2 * x0_prev
+            x = cx * x + cd * d
+            if inpaint is not None:
+                x = inpaint.replace(x, acp_next, self._draw(k_known, k, shape, known_noises))
+            x0_prev = x0
         return self._unnormalize(x)
 
     # ------------------------------------------------------------------ #
@@ -521,10 +696,21 @@ class VideoDecoder(nn.Module):
                      video_embed: Optional[torch.Tensor] = None,
                      cond_scale: float = 1.0,
                      sample_timesteps: Optional[int] = None,
+                     inpaint_video: Optional[torch.Tensor] = None,
+                     inpaint_mask: Optional[torch.Tensor] = None,
+                     inpaint_method: str = "replace",
+                     inpaint_guidance_weight: float = 10.0,
+                     negative_video_embed: Optional[torch.Tensor] = None,
                      init_noise: Optional[torch.Tensor] = None,
-                     step_noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                     step_noises: Optional[Sequence[torch.Tensor]] = None,
+                     known_noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """One cascade stage -> video in [0, 1], (b, T_i, S_i, S_i, C).
-        ``sample_timesteps`` overrides the configured step count."""
+        ``sample_timesteps`` overrides the configured step count: below the
+        training timesteps the few-step sampler (``config.sampler``: DDIM or
+        DPM++), else DDPM. ``inpaint_video`` ([0, 1], any (b, T, H, W, C))
+        and ``inpaint_mask`` (1 = known, broadcastable over (b, T, H, W, 1))
+        are resized nearest to this stage's geometry; ``negative_video_embed``
+        replaces the CFG baseline of a stage conditioned on the embed."""
         cfg = self.config
         ucfg = self.unet_configs[i]
         size, frames = cfg.frame_sizes[i], cfg.frame_numbers[i]
@@ -532,6 +718,8 @@ class VideoDecoder(nn.Module):
         cond: Dict[str, torch.Tensor] = {}
         if ucfg.cond_on_video_embeds:
             cond["video_embed"] = video_embed
+            if negative_video_embed is not None:
+                cond["negative_video_embed"] = negative_video_embed
         if ucfg.lowres_cond:
             if prev_video is None:
                 raise ValueError("an SR stage needs the previous stage's video")
@@ -545,14 +733,29 @@ class VideoDecoder(nn.Module):
                 cond["lowres_noise_level"] = level
             cond["lowres_cond_video"] = lowres
         shape = (batch_size, frames, size, size, cfg.channels)
+        loop_kw: Dict[str, Any] = dict(cond_scale=cond_scale, init_noise=init_noise)
+        if inpaint_video is not None:
+            if inpaint_mask is None:
+                raise ValueError("inpaint_video requires inpaint_mask")
+            self.check_inpaint(inpaint_method, i + 1, i + 1)
+            inpaint_video = inpaint_video.to(self.device, torch.float32)
+            known = resize_video_time(
+                resize_video(inpaint_video, size, clamp_range=(0.0, 1.0)), frames)
+            mask = torch.as_tensor(inpaint_mask, dtype=torch.float32, device=self.device)
+            mask = mask.expand(*inpaint_video.shape[:4], 1)
+            mask = resize_video_time(resize_video(mask, size), frames)
+            loop_kw.update(inpaint=Inpaint(self._normalize(known), mask, inpaint_method,
+                                           float(inpaint_guidance_weight)),
+                           known_noises=known_noises)
         st = self.sample_timesteps[i] if sample_timesteps is None else sample_timesteps
         if st is not None and st < cfg.timesteps:
+            if cfg.sampler == "dpmpp":
+                return self.p_sample_loop_dpmpp(i, k_loop, shape, timesteps=st,
+                                                **loop_kw, **cond)
             return self.p_sample_loop_ddim(i, k_loop, shape, timesteps=st,
-                                           cond_scale=cond_scale, init_noise=init_noise,
-                                           step_noises=step_noises, **cond)
-        return self.p_sample_loop_ddpm(i, k_loop, shape, cond_scale=cond_scale,
-                                       init_noise=init_noise, step_noises=step_noises,
-                                       **cond)
+                                           step_noises=step_noises, **loop_kw, **cond)
+        return self.p_sample_loop_ddpm(i, k_loop, shape, step_noises=step_noises,
+                                       **loop_kw, **cond)
 
     @torch.no_grad()
     def sample(self, keys: RowKeys, *, video_embed: Optional[torch.Tensor] = None,
@@ -563,30 +766,55 @@ class VideoDecoder(nn.Module):
                video: Optional[torch.Tensor] = None,
                max_batch_size: Optional[int] = None,
                sample_timesteps: Union[None, int, Tuple[Optional[int], ...]] = None,
-               init_noises: Optional[Sequence[Optional[torch.Tensor]]] = None) -> torch.Tensor:
+               inpaint_video: Optional[torch.Tensor] = None,
+               inpaint_mask: Optional[torch.Tensor] = None,
+               inpaint_method: str = "replace",
+               inpaint_guidance_weight: float = 10.0,
+               negative_video_embed: Optional[torch.Tensor] = None,
+               negative_text_encodings: Optional[torch.Tensor] = None,
+               init_noises: Optional[Sequence[Optional[torch.Tensor]]] = None,
+               known_noises: Optional[Sequence[Optional[Sequence[torch.Tensor]]]] = None
+               ) -> torch.Tensor:
         """Full cascade. ``keys`` holds one key per row, so each row's video
         depends on its own key only, whatever the batch or chunking.
-        ``init_noises[i]`` (optional) is stage i's x_T."""
+        The inpainting constraint is re-applied at every stage at its
+        geometry; a mask or a negative embed of leading dim 1 is shared by
+        every row and every chunk. ``init_noises[i]`` / ``known_noises[i]``
+        (optional) are stage i's x_T and known-region noises."""
         cfg = self.config
         n = cfg.num_unets
+        if negative_text_encodings is not None:
+            raise NotImplementedError(
+                "negative_text_encodings need cond_on_text_encodings, not ported yet")
         if not cfg.unconditional:
             if video_embed is None:
                 raise ValueError("a conditional decoder needs video_embed")
             batch_size = video_embed.shape[0]
         if len(keys) != batch_size:
             raise ValueError(f"{len(keys)} row keys for a batch of {batch_size}")
+        if inpaint_video is not None:
+            self.check_inpaint(inpaint_method, start_at_unet_number, stop_at_unet_number)
         if max_batch_size is not None and batch_size > max_batch_size:
             outs = []
-            for s in range(0, batch_size, max_batch_size):
-                sz = min(max_batch_size, batch_size - s)
+            for s, sz in split_batch(batch_size, max_batch_size):
                 take = lambda a: None if a is None else a[s:s + sz]
+                # a broadcastable mask or negative (leading dim 1) is shared
+                take_shared = lambda a: (a if a is None or a.ndim == 0 or a.shape[0] == 1
+                                         else a[s:s + sz])
                 outs.append(self.sample(
                     keys.take(s, sz), video_embed=take(video_embed), batch_size=sz,
                     cond_scale=cond_scale, start_at_unet_number=start_at_unet_number,
                     stop_at_unet_number=stop_at_unet_number, video=take(video),
                     sample_timesteps=sample_timesteps,
+                    inpaint_video=take(inpaint_video),
+                    inpaint_mask=take_shared(inpaint_mask), inpaint_method=inpaint_method,
+                    inpaint_guidance_weight=inpaint_guidance_weight,
+                    negative_video_embed=take_shared(negative_video_embed),
                     init_noises=None if init_noises is None
                     else [take(z) for z in init_noises],
+                    known_noises=None if known_noises is None
+                    else [None if zs is None else [take(z) for z in zs]
+                          for zs in known_noises],
                 ))
             return torch.cat(outs, dim=0)
 
@@ -594,6 +822,8 @@ class VideoDecoder(nn.Module):
         steps = _cast_tuple(sample_timesteps, n)
         if video_embed is not None:
             video_embed = video_embed.to(self.device, torch.float32)
+        if negative_video_embed is not None:
+            negative_video_embed = negative_video_embed.to(self.device, torch.float32)
         vid = None
         if start_at_unet_number > 1:
             if video is None:
@@ -607,7 +837,12 @@ class VideoDecoder(nn.Module):
                 i, stage_keys[i], batch_size=batch_size, prev_video=vid,
                 video_embed=video_embed, cond_scale=cond_scales[i],
                 sample_timesteps=steps[i],
+                inpaint_video=inpaint_video, inpaint_mask=inpaint_mask,
+                inpaint_method=inpaint_method,
+                inpaint_guidance_weight=inpaint_guidance_weight,
+                negative_video_embed=negative_video_embed,
                 init_noise=None if init_noises is None else init_noises[i],
+                known_noises=None if known_noises is None else known_noises[i],
             )
             if stop_at_unet_number is not None and stop_at_unet_number == i + 1:
                 break
@@ -628,9 +863,12 @@ def build_decoder(cfg: Dict, device: DeviceLike = None) -> VideoDecoder:
     """The cascade from the single-plane config (same keys as
     scripts/train_decoder.py's build_decoder, including the training knobs
     ``memory_efficient``, ``checkpoint_during_training`` and
-    ``remat_policy``), plus the kernel knobs ``unetN.groupnorm_impl``
-    (``pallas`` | ``fused``), ``unetN.spatial_conv_impl`` (``pallas_small``),
-    ``unetN.cross_attention_impl`` and ``flash_attention_sampling``."""
+    ``remat_policy``), the sampling knobs ``sampler`` (``ddim`` |
+    ``dpmpp``), ``cfg_rescale`` and ``sample_compute_dtype``, plus the
+    kernel knobs ``unetN.groupnorm_impl`` (``pallas`` | ``fused``, or the
+    plain ``xla`` | ``skip``), ``unetN.spatial_conv_impl``
+    (``pallas_small``), ``unetN.cross_attention_impl`` (``flash``, or the
+    plain ``xla`` | ``broadcast``) and ``flash_attention_sampling``."""
 
     def unet_cfg(section):
         return UNet3DConfig(

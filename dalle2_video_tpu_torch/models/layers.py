@@ -11,7 +11,9 @@ JAX package's: ``"xla"`` is the plain PyTorch path; ``"pallas"`` and
 ``"fused"`` (Block3D norm), ``"pallas_small"`` (SpatialConv) and ``"flash"``
 (attention) are the hand-written CUDA kernels;
 ``"auto"`` picks flash on CUDA from 4096 joint tokens and the plain path
-below, as the JAX rule does.
+below, as the JAX rule does. ``"broadcast"`` (CrossAttention) and
+``"skip"`` (Block3D norm, a profiling diagnostic: no statistics) are the
+JAX package's other plain routes, ported as plain PyTorch.
 
 Initialisers are the JAX package's: Dense and conv kernels U(+-1/sqrt(fan_in))
 (``torch_kernel_init``), zero biases, N(0, 1) learned null embeddings, the
@@ -47,7 +49,11 @@ from dalle2_video_tpu_torch.ops.as_jax import (
     silu_as_jax,
     softmax_as_jax,
 )
-from dalle2_video_tpu_torch.ops.cross_attention import cross_attention, cross_attention_reference
+from dalle2_video_tpu_torch.ops.cross_attention import (
+    broadcast_cross_attention,
+    cross_attention,
+    cross_attention_reference,
+)
 from dalle2_video_tpu_torch.ops.flash_mqa import mqa_attention
 from dalle2_video_tpu_torch.ops.fused_block import fused_block3d
 from dalle2_video_tpu_torch.ops.groupnorm_film import groupnorm_film_silu
@@ -231,13 +237,15 @@ class Block3D(nn.Module):
     "fused" runs the whole block -- conv, bias, statistics, normalise, FiLM,
     SiLU -- through ops/fused_block.py at qualifying sites (``fused_site``)
     and elsewhere falls back to ``SpatialConv(conv_impl)`` and the plain
-    GroupNorm, as the JAX block does. Same parameters on every path."""
+    GroupNorm, as the JAX block does; "skip" (the JAX package's profiling
+    diagnostic) applies the norm's affine, FiLM and SiLU with no statistics,
+    op by op in the activation dtype. Same parameters on every path."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
                  norm_impl: str = "xla", conv_impl: str = "xla"):
         super().__init__()
-        if norm_impl not in ("xla", "pallas", "fused"):
-            raise NotImplementedError(f"Block3D norm_impl {norm_impl!r} is not ported yet")
+        if norm_impl not in ("xla", "pallas", "fused", "skip"):
+            raise ValueError(f"unknown Block3D norm_impl {norm_impl!r}")
         self.groups = groups
         self.norm_impl = norm_impl
         self.dim_out = dim_out
@@ -254,6 +262,12 @@ class Block3D(nn.Module):
         x = self.project(x)
         b, t, h, w, c = x.shape
         scale, shift = scale_shift if scale_shift is not None else (None, None)
+        if self.norm_impl == "skip":
+            x = x * self.norm.weight.to(x.dtype) + self.norm.bias.to(x.dtype)
+            if scale is not None:
+                x = (x * (scale[:, None, None, None, :] + 1.0)
+                     + shift[:, None, None, None, :])
+            return silu_as_jax(x)
         fn = groupnorm_film_silu if self.norm_impl == "pallas" else groupnorm_film_silu_as_jax
         y = fn(x.reshape(b, t * h * w, c), self.norm.weight, self.norm.bias,
                scale, shift, self.groups, 1e-5)
@@ -261,15 +275,19 @@ class Block3D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Token cross-attention with a learned null kv; impl "flash" runs the
-    tiny-context CUDA kernel (ops/cross_attention.py)."""
+    """Token cross-attention with a learned null kv. impl "flash" runs the
+    tiny-context CUDA kernel (ops/cross_attention.py), which has no mask and
+    is forward-only, so a masked flash call raises; "broadcast" is the JAX
+    package's broadcast-multiply-reduce route (``broadcast_cross_attention``);
+    "xla" takes the einsum route. ``mask`` (b, m) marks the context tokens
+    to attend to; the null token is always kept."""
 
     def __init__(self, dim: int, context_dim: int, heads: int = 8,
                  dim_head: int = 64, cosine_sim: bool = False,
                  cosine_sim_scale: float = 16.0, impl: str = "xla"):
         super().__init__()
-        if impl not in ("xla", "flash"):
-            raise NotImplementedError(f"CrossAttention impl {impl!r} is not ported yet")
+        if impl not in ("xla", "flash", "broadcast"):
+            raise ValueError(f"unknown CrossAttention impl {impl!r}")
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.cosine_sim, self.cosine_sim_scale = cosine_sim, cosine_sim_scale
@@ -281,7 +299,7 @@ class CrossAttention(nn.Module):
         self.to_out = Dense(inner, dim, bias=False)
         self.out_norm = ScaleOnlyLayerNorm(dim)
 
-    def forward(self, x, context):
+    def forward(self, x, context, mask=None):
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         q = self.to_q(self.norm(x)).reshape(b, n, h, d)
@@ -297,10 +315,17 @@ class CrossAttention(nn.Module):
             scale = self.cosine_sim_scale
         else:
             scale = d**-0.5
+        if mask is not None:
+            if self.impl == "flash":
+                raise ValueError("CrossAttention(impl='flash') takes no mask: "
+                                 "the kernel has none; use impl 'xla' or 'broadcast'")
+            mask = F.pad(mask.bool(), (1, 0), value=True)
         if self.impl == "flash":
             out = cross_attention(q, k, v, sm_scale=scale)
+        elif self.impl == "broadcast":
+            out = broadcast_cross_attention(q, k, v, scale, mask)
         else:
-            out = cross_attention_reference(q, k, v, scale)
+            out = cross_attention_reference(q, k, v, scale, mask)
         out = self.to_out(out.reshape(b, n, h * d))
         return attn_out(self.out_norm(out))
 

@@ -6,8 +6,8 @@ keys) held on chip. For a CUDA tensor the wrapper launches the kernel in
 ``csrc/cross_attention.cu``; for a CPU tensor it uses
 ``fused_cross_attention_reference``, the JAX kernel's function step by step.
 
-Row 5 has two plain versions, one for each JAX route of
-``CrossAttention``:
+Row 5 has two plain versions, one for each of the JAX routes of
+``CrossAttention`` that the kernel may stand in for:
 
 * ``fused_cross_attention_reference`` -- ``impl="flash"``, the Pallas
   kernel ``fused_cross_attention`` (``_kernel``): f32 logits from the
@@ -19,6 +19,8 @@ Row 5 has two plain versions, one for each JAX route of
   (``softmax_as_jax``).
 
 In f32 the two are the same function up to the order of f32 roundings.
+The third JAX route, ``impl="broadcast"``, is ``broadcast_cross_attention``
+here: plain PyTorch, no kernel (the JAX route is XLA ops too).
 
 The kernel is forward-only by design, as in the JAX package (training keeps
 the plain path, ``cross_attention_impl: xla``). For a CUDA tensor that
@@ -53,12 +55,42 @@ MAX_M = 16  # kMaxM in csrc/cross_attention.cu
 SUPPORTED_D = (32, 64)
 
 
-def cross_attention_reference(q, k, v, sm_scale: float) -> torch.Tensor:
+def _masked(s: torch.Tensor, mask) -> torch.Tensor:
+    """The logits s (b, h, n, m) with the keys outside ``mask`` (b, m) at
+    the dtype's lowest value (the JAX ``jnp.where(mask, sim, finfo.min)``)."""
+    if mask is None:
+        return s
+    return s.masked_fill(~mask[:, None, None, :], torch.finfo(s.dtype).min)
+
+
+def cross_attention_reference(q, k, v, sm_scale: float, mask=None) -> torch.Tensor:
     """The xla route (``CrossAttention(impl="xla")``): q (b, n, h, d), k/v
     (b, m, h, d), in their dtype as the JAX package's einsum path computes
-    it (bf16 products accumulate in f32 and round, the softmax in bf16)."""
-    s = torch.einsum("bnhd,bmhd->bhnm", q * sm_scale, k)
+    it (bf16 products accumulate in f32 and round, the softmax in bf16).
+    ``mask`` (b, m), True where a key is attended to."""
+    s = _masked(torch.einsum("bnhd,bmhd->bhnm", q * sm_scale, k), mask)
     return torch.einsum("bhnm,bmhd->bnhd", softmax_as_jax(s, dim=-1), v)
+
+
+def broadcast_cross_attention(q, k, v, sm_scale: float, mask=None) -> torch.Tensor:
+    """The broadcast route (``CrossAttention(impl="broadcast")``, JAX
+    layers.py:336-352: ``sum(q[:, None] * (k * scale)[:, :, None], -1)``,
+    ``jax.nn.softmax`` over the context axis, ``sum(p[..., None] * v, 1)``)
+    with the roundings of the jitted JAX program in a narrow dtype: k times
+    the scale (itself rounded to the dtype, a weak-typed constant) rounded;
+    the q . k products and their sum in f32, the logits rounded; s - max
+    rounded, its exp summed in f32 unrounded and the sum rounded, the
+    quotient of the rounded exp by it rounded; the p . v products and their
+    sum in f32, rounded once. ``mask`` (b, m) as the einsum route's. In f32
+    there is nothing to round and this is the plain softmax attention."""
+    dt = q.dtype
+    ks = k * torch.tensor(sm_scale, dtype=dt)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), ks.float()).to(dt)
+    s = _masked(s, mask)
+    z = s - s.amax(-1, keepdim=True)
+    e = torch.exp(z.float())
+    p = e.to(dt) / e.sum(-1, keepdim=True).to(dt)
+    return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(dt)
 
 
 def fused_cross_attention_reference(q, k, v, sm_scale: float,

@@ -8,8 +8,12 @@ when no YAML is given), plus ``device`` (default cuda) and the sampling
 knobs ``unetN.groupnorm_impl=pallas`` (or ``fused``: the fused conv +
 GroupNorm block kernels), ``unetN.spatial_conv_impl=pallas_small`` (the 3x3
 conv kernel at small-spatial sites), ``unetN.cross_attention_impl=flash``
-and ``flash_attention_sampling=true``. Endpoints: POST /v1/generate,
-GET /healthz, GET /v1/stats.
+(or the plain ``xla``, which guided inpainting needs: the kernel has no
+backward), ``flash_attention_sampling=true`` and ``sampler=dpmpp``
+(DPM-Solver++(2M) in place of DDIM). A request may carry a negative
+prompt, a video to inpaint (``replace`` or ``guided``) or a frame count
+beyond the window (long video): see serve/server.py. Endpoints: POST
+/v1/generate, GET /healthz, GET /v1/stats.
 """
 
 from __future__ import annotations

@@ -1,11 +1,15 @@
 """The serving stack: tokenizer -> CLIP text tower -> prior -> cascade
 (the port's counterpart of scripts/serve.py::build_generate_batch).
 
+``generate_batch`` answers every request option of the JAX callable:
+negative prompts (tokenized and run through the text tower and the prior;
+the decoder's CFG baseline), inpainting (``inpaint_video`` /
+``inpaint_mask`` on the device, ``replace`` or ``guided``) and long video
+(``n_frames`` / ``overlap`` route to ``DALLE2Video.generate_long``).
+
 Weights are random, made from ``sample_seed``: the repository holds no
 checkpoints yet, and loading them (and OpenAI CLIP weights) waits until it
-does. Inpainting, negative prompts, long video, distilled students and
-data-parallel serving are not ported yet; a request that asks for them
-fails with NotImplementedError.
+does. Distilled students and data-parallel serving are not ported yet.
 """
 
 from __future__ import annotations
@@ -62,24 +66,40 @@ def build_stack(cfg: Dict[str, Any], device: DeviceLike = None
 
 def build_generate_batch(cfg: Dict[str, Any], log: logging.Logger,
                          device: DeviceLike = None) -> Callable[..., np.ndarray]:
-    """generate_batch(prompts, seeds, *, cond_scale, ddim_steps) -> video
-    (b, T, H, W, C) float32 numpy in [0, 1], the GenerationEngine contract.
-    ddim_steps=None runs each stage's configured schedule (full DDPM when
-    sample_timesteps is null)."""
+    """generate_batch(prompts, seeds, *, cond_scale, ddim_steps, [request
+    options]) -> video (b, T, H, W, C) float32 numpy in [0, 1], the
+    GenerationEngine contract, with scripts/serve.py::generate_batch's
+    keywords. ddim_steps=None runs each stage's configured schedule (full
+    DDPM when sample_timesteps is null); a number runs that many steps of
+    the configured few-step sampler (``sampler``: ddim or dpmpp)."""
     text_enc, wrapper = build_stack(cfg, device)
     dev = wrapper.decoder.device
     log.warning("random weights (no checkpoints in the repository): smoke quality only")
 
+    def embed(texts):
+        return text_enc(torch.as_tensor(tokenize(list(texts)), device=dev))
+
     @torch.no_grad()
-    def generate_batch(prompts, seeds, *, cond_scale, ddim_steps, **extra):
-        if extra:
-            raise NotImplementedError(f"request options not ported yet: {sorted(extra)}")
-        tokens = torch.as_tensor(tokenize(list(prompts)), device=dev)
+    def generate_batch(prompts, seeds, *, cond_scale, ddim_steps,
+                       inpaint_video=None, inpaint_mask=None,
+                       inpaint_method="replace", inpaint_guidance_weight=10.0,
+                       negative_prompts=None, n_frames=None, overlap=None):
         keys = RowKeys.from_request_seeds(np.asarray(seeds, dtype=np.uint32).tolist())
-        video = wrapper.generate(
-            keys, text_enc(tokens), cond_scale=float(cond_scale),
-            sample_timesteps=ddim_steps,
-        )
+        kw = dict(cond_scale=float(cond_scale), sample_timesteps=ddim_steps)
+        if inpaint_video is not None:
+            kw.update(inpaint_video=torch.as_tensor(inpaint_video, dtype=torch.float32,
+                                                    device=dev),
+                      inpaint_mask=torch.as_tensor(inpaint_mask, dtype=torch.float32,
+                                                   device=dev),
+                      inpaint_method=str(inpaint_method),
+                      inpaint_guidance_weight=float(inpaint_guidance_weight))
+        if negative_prompts is not None:
+            kw["negative_text_embed"] = embed(negative_prompts)
+        if n_frames is not None:
+            video = wrapper.generate_long(keys, embed(prompts), n_frames=int(n_frames),
+                                          overlap=int(overlap) if overlap else None, **kw)
+        else:
+            video = wrapper.generate(keys, embed(prompts), **kw)
         return video.float().cpu().numpy()
 
     return generate_batch

@@ -798,3 +798,99 @@ def test_paired_random_crop_on_cuda_equals_the_cpu(dev, dtype):
     gen = torch.Generator(device=dev).manual_seed(1)
     v, lr = paired_random_crop(video.to(dev), 24, lowres.to(dev), generator=gen)
     assert v.shape == lr.shape == (3, 5, 24, 24, 3)
+
+
+def _option_decoders(dev, **knobs):
+    """A one-stage decoder (dim 16, 4 frames at 32 px, the kernels' impls:
+    flash attention, the GroupNorm kernels, xla cross-attention) with its
+    output conv redrawn, on the card and, with the same weights, on the CPU,
+    where every wrapper runs its kernel's plain version."""
+    from dalle2_video_tpu_torch.engine.decoder import VideoDecoder, VideoDecoderConfig
+    from dalle2_video_tpu_torch.models.layers import kernel_init_
+    from dalle2_video_tpu_torch.models.unet3d import UNet3DConfig
+
+    ucfg = UNet3DConfig(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, attn_heads=4,
+                        attn_dim_head=32, video_embed_dim=32, attention_impl="flash",
+                        groupnorm_impl="pallas", cross_attention_impl="xla")
+    cfg = VideoDecoderConfig(unets=(ucfg,), frame_sizes=(32,), frame_numbers=(4,),
+                             learned_variance=False, predict_v=True, **knobs)
+    torch.manual_seed(0)
+    cpu = VideoDecoder(cfg, device="cpu")
+    w = cpu.unets[0].to_out.Conv_0.weight
+    kernel_init_(w, w[0].numel())
+    card = VideoDecoder(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def test_guided_inpainting_gradient_kernels_match_plain(dev):
+    """One reconstruction-guidance step (VDM eq. 7) of a bf16 sampling unet
+    at CFG batch 2: the gradient of the known region's x0 error w.r.t. x
+    through rows 1 -> 2 (flash, the tensor-core backward) and 3 -> 4
+    (GroupNorm) on the card against the same step on the CPU through their
+    plain versions. The existing bf16 bounds of chip_smoke.py's module
+    checks: x0 within 4e-2 of its scale, the gradient within 0.2 relative
+    L2 (GRAD_RTOL), and nonzero."""
+    from dalle2_video_tpu_torch.engine.decoder import Inpaint
+
+    card, cpu = _option_decoders(dev, sample_compute_dtype="bfloat16")
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(1, 4, 32, 32, 3, generator=g)
+    x0k = torch.rand(1, 4, 32, 32, 3, generator=g) * 2 - 1
+    mask = torch.zeros(1, 4, 1, 1, 1)
+    mask[:, :2] = 1.0
+    embed = torch.randn(1, 32, generator=g)
+    t = torch.tensor([500])
+    outs = []
+    for dec, d in ((card, dev), (cpu, torch.device("cpu"))):
+        kernels = (fm.KERNEL, fm.BWD_KERNEL, gn.KERNEL, gn.BWD_KERNEL)
+        before = [k.launches for k in kernels]
+        with torch.no_grad():
+            x0, _, grad = dec._recon_grad(
+                0, x.to(d), t.to(d), Inpaint(x0k.to(d), mask.to(d), "guided"),
+                cond=dict(video_embed=embed.to(d)), cond_scale=3.0, self_cond=None)
+        launched = [k.launches - n for k, n in zip(kernels, before)]
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert all(launched), launched  # rows 1, 2, 3, 4
+            assert fm.BWD_KERNEL.routes.get("tensor_cores", 0) >= launched[1]
+        else:
+            assert not any(launched)
+        assert all(p.grad is None for p in dec.sampling_unet(0).parameters())
+        outs.append((x0.cpu(), grad.cpu()))
+    (x0_k, g_k), (x0_p, g_p) = outs
+    torch.testing.assert_close(x0_k, x0_p, atol=4e-2 * float(x0_p.abs().max()), rtol=0)
+    assert float(g_p.abs().max()) > 0 and torch.isfinite(g_k).all()
+    assert _rel_l2(g_k, g_p) <= 0.2, _rel_l2(g_k, g_p)
+
+
+def test_dpmpp_stage_kernels_match_plain(dev):
+    """A DPM++ stage (3 steps, CFG 3.0, with inpainting by replacement) in
+    f32 on the card through rows 1 and 3 against the same stage on the CPU
+    through their plain versions, from the same x_T and known-region
+    noises: 2e-3 on the video in [0, 1], as the CPU tests hold the port to
+    the JAX package (the first step's x0 scales the f32 disagreement)."""
+    from dalle2_video_tpu_torch.utils.keys import RowKeys
+
+    card, cpu = _option_decoders(dev, sampler="dpmpp", sample_timesteps=(3,))
+    g = torch.Generator().manual_seed(5)
+    x_t = torch.randn(2, 4, 32, 32, 3, generator=g)
+    known = [torch.randn(2, 4, 32, 32, 3, generator=g) for _ in range(3)]
+    video = torch.rand(2, 4, 32, 32, 3, generator=g)
+    mask = torch.zeros(1, 4, 1, 1, 1)
+    mask[:, :1] = 1.0
+    embed = torch.randn(2, 32, generator=g)
+    kw = dict(video_embed=embed, cond_scale=3.0, inpaint_video=video, inpaint_mask=mask,
+              init_noises=[x_t], known_noises=[known])
+    before = fm.KERNEL.launches, gn.KERNEL.launches
+    got = card.sample(RowKeys([0, 1]), **kw).cpu()
+    assert fm.KERNEL.launches > before[0] and gn.KERNEL.launches > before[1]
+    want = cpu.sample(RowKeys([0, 1]), **kw)
+    assert torch.isfinite(got).all() and 0.0 <= float(got.min()) <= float(got.max()) <= 1.0
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+    assert float(((want > 0) & (want < 1)).float().mean()) > 0.5
+    torch.testing.assert_close(got[:, :1], video[:, :1], atol=1e-6, rtol=0)

@@ -37,9 +37,12 @@ def test_source_scan_finds_no_banned_import():
             offenders += [f"{path.relative_to(PKG)}: {n}" for n in names if _banned(n)]
     assert not offenders, offenders
     assert len(list(PKG.rglob("*.py"))) >= 25
-    # the training data path is among the modules scanned and imported
+    # the training data path and the request options' modules are among
+    # the modules scanned and imported
     assert {f"dalle2_video_tpu_torch.data.{m}" for m in (
         "datasets", "shards", "worker_loader", "preprocess")} <= set(_modules())
+    assert {"dalle2_video_tpu_torch.engine.longvideo",
+            "dalle2_video_tpu_torch.utils.chunked"} <= set(_modules())
 
 
 def test_every_module_imports_with_jax_blocked():

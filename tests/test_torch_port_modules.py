@@ -165,6 +165,17 @@ def test_bf16_plain_attention_matches_jax_in_bf16(module):
     np.testing.assert_allclose(got, want, rtol=0, atol=2**-7 * np.abs(want).max())
 
 
+def test_flash_cross_attention_refuses_a_mask():
+    """The tiny-context kernel has no mask: a masked flash call raises on
+    every device rather than running a plain route; xla takes the mask."""
+    from dalle2_video_tpu_torch.models import layers
+
+    x, ctx, mask = torch.zeros(1, 4, 64), torch.zeros(1, 3, 32), torch.ones(1, 3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="takes no mask"):
+        layers.CrossAttention(64, 32, heads=4, dim_head=16, impl="flash")(x, ctx, mask)
+    assert layers.CrossAttention(64, 32, heads=4, dim_head=16)(x, ctx, mask).shape == (1, 4, 64)
+
+
 def test_bf16_flash_cross_attention_matches_jax_in_bf16():
     """CrossAttention(impl="flash") in bf16 against the JAX module with the
     same impl on shared weights, the JAX module op by op and its

@@ -77,8 +77,17 @@ def test_max_batch_size_chunking_keeps_each_rows_video():
 
 
 def test_unported_request_options_fail_loudly(generate_batch):
-    with pytest.raises(NotImplementedError):
-        generate_batch(["x"], [0], cond_scale=1.0, ddim_steps=2, negative_prompts=["y"])
+    """The callable takes exactly scripts/serve.py::generate_batch's
+    keywords: one it does not know (a distilled student's, data-parallel
+    serving's) raises instead of being dropped, and so does an inpainting
+    method other than replace and guided."""
+    with pytest.raises(TypeError):
+        generate_batch(["x"], [0], cond_scale=1.0, ddim_steps=2, student_ckpt="s.pt")
+    with pytest.raises(ValueError, match="inpaint_method"):
+        generate_batch(["x"], [0], cond_scale=1.0, ddim_steps=2,
+                       inpaint_video=np.zeros((1, 2, 32, 32, 3), np.float32),
+                       inpaint_mask=np.ones((1, 2, 1, 1, 1), np.float32),
+                       inpaint_method="blend")
 
 
 def test_http_generate_round_trip(generate_batch):
