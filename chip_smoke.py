@@ -69,21 +69,42 @@ Phases (any failure exits non-zero and prints no result line):
      as the unet structure predicts, and no weight-gradient shape that
      phase 2 did not check. Prints ms per step, samples/s and peak
      memory;
- 5b. train_data: the "train" recipe trained from a CelebV-Text store
-     through the entry point's data path (train/__main__.py: the dataset
-     and split main builds from videos.preprocessed / videos.embed,
-     train_decoder, loader grain = 4 worker processes, pinned batches
-     copied without blocking): a .vshard store of 10 CLIP-normalised clips
-     at the preprocessor's celebv_text shape (3, 150, 224, 224) f32 written
-     to a temporary directory, the reader built by g++ from
-     native/shard_reader.cpp, 3 steps of each unet at batch 2, the
-     validation batch and a checkpoint. Every batch the trainer receives
-     must equal the store's clips in BatchLoader's order, every loss be
+ 5b. stages 1 and 2 (the README's train_clip -> eval_clip -> train_prior),
+     which launch no kernel: "train_clip" times CLIP_STEPS steps of the
+     recipe's ViViT (224^2, patch 56, 150 frames, dim 512, depth 2, 3 x 64
+     heads) against the frozen 12 x 512 text tower at clip.batch_size 64 on
+     seeded device tensors (finite loss, every ViViT parameter and the
+     temperature moved, the text tower bit for bit unchanged, the lr the
+     multistep schedule's at each step), writes a .vshard store of 10
+     CLIP-normalised clips at the preprocessor's celebv_text shape (3, 150,
+     224, 224) f32 and their tokens to a temporary directory (the reader
+     built by g++ from native/shard_reader.cpp), runs python -m
+     ...train.train_clip on it (2 epochs at batch 2) and ...train.eval_clip
+     (the handoff: 10 + 10 embeddings, the tail included, each the towers'
+     output on its clip, eval's text tower bit for bit train's, the
+     retrieval logged); "train_prior" times PRIOR_STEPS steps of the
+     recipe's prior at prior.batch_size 256 (finite losses, every parameter
+     moved), then runs python -m ...train.train_prior on the handoff with
+     an EMA and reloads its checkpoint exactly. Each prints ms per step,
+     samples/s and peak memory;
+ 5c. train_data: the "train" recipe trained from that store and the
+     handoff's video embeddings through the entry point's data path
+     (train/__main__.py: the dataset and split main builds from
+     videos.preprocessed / videos.embed, train_decoder, loader grain = 4
+     worker processes, pinned batches copied without blocking), 3 steps of
+     each unet at batch 2, the validation batch and a checkpoint. Every
+     batch the trainer receives must equal the store's clips in
+     BatchLoader's order (the embeddings the handoff's), every loss be
      finite, the step and EMA counts right, every step's launches and the
      GroupNorm calls as the unet structure predicts; paired_random_crop on
-     the card must equal its CPU result at the same offsets. Prints the
-     build and write times, ms per step, samples/s, peak memory and the
-     loop's wait on the loader beside each step;
+     the card must equal its CPU result at the same offsets. Prints ms per
+     step, samples/s, peak memory and the loop's wait on the loader beside
+     each step;
+ 5d. serve_trained: the serve recipe built from the stages' run directory
+     (build_stack: the prior's checkpoint, its EMA shadow; the decoder's
+     best state's EMA shadows, each checked equal bit for bit) answers one
+     request at OPTION_STEPS DDIM steps a stage: a finite (90, 128, 128, 3)
+     video in [0, 1] and serve_options' plain request's launches;
   6. probes: the flash probes' variants (rows 10 and 11: the r2 forward, at
      block_k 1024 and 2048, and the inner-kv forward, inner 2 / 4 x chain /
      par) against their plain versions at the probes' geometry (bf16, q
@@ -145,7 +166,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -1206,7 +1229,7 @@ def path_config(spec):
     return load_config(spec.get("config"), spec["overrides"]), spec["overrides"]
 
 
-def serve(dev, torch, path: str, profile: bool = False):
+def serve(dev, torch, path: str, run_dir: str, profile: bool = False):
     import logging
     from concurrent.futures import wait
 
@@ -1219,7 +1242,7 @@ def serve(dev, torch, path: str, profile: bool = False):
     spec = SERVE_PATHS[path]
     requests, steps = spec["requests"], spec["steps"]
     cfg, knobs = path_config(spec)
-    cfg["sample_seed"] = 0
+    cfg["sample_seed"], cfg["run_dir"] = 0, run_dir
     frames, size = cfg["frame_numbers"][-1], cfg["frame_sizes"][-1]
     t0 = time.time()
     generate_batch = build_generate_batch(cfg, logging.getLogger("chip_smoke"), dev)
@@ -1337,8 +1360,8 @@ def option_stack(cfg, dev, torch):
     made = {}
     build = stack.build_stack
 
-    def redrawn(cfg_, device):
-        text_enc, wrapper = build(cfg_, device)
+    def redrawn(cfg_, device, **kw):
+        text_enc, wrapper = build(cfg_, device, **kw)
         g = torch.Generator().manual_seed(1)
         for unet in wrapper.decoder.unets:
             w = unet.to_out.Conv_0.weight
@@ -1396,7 +1419,7 @@ def time_xattn_routes(dev, torch):
         torch.cuda.empty_cache()
 
 
-def serve_options(dev, torch):
+def serve_options(dev, torch, run_dir: str):
     """serve_options: the refusal of guided inpainting on the serve stack,
     then requests (a)-(e) (option_requests), each alone, checked and timed;
     the path's launch counts and kernel shapes as the structure predicts,
@@ -1413,7 +1436,8 @@ def serve_options(dev, torch):
     from dalle2_video_tpu_torch.utils.config import load_config
 
     card = card_line()
-    cfgs = {name: load_config(None, knobs) for name, knobs in OPTION_STACKS.items()}
+    cfgs = {name: load_config(None, [*knobs, f"run_dir={run_dir}"])
+            for name, knobs in OPTION_STACKS.items()}
     t_win, size = cfgs["serve"]["frame_numbers"][-1], cfgs["serve"]["frame_sizes"][-1]
     # the conditioning video at the base stage's size, resized to each stage's
     known = np.random.default_rng(0).random(
@@ -1880,11 +1904,12 @@ DATA_PATH = dict(overrides=[*TRAIN_PATHS["train"]["overrides"], "loader=grain",
 
 
 def write_store(cfg, root, n, seed=0):
-    """The store main reads: ``n`` clips of seeded uniform [0, 1) frames
+    """The CLIP stage's store: ``n`` clips of seeded uniform [0, 1) frames
     normalised with the CLIP mean / std, as preprocess_frames leaves them
     (the card's machine has no cv2 to decode mp4s), in a .vshard file, and
-    an (n, dim) f32 embed.npy. Returns the paths and the clips channels-last
-    (T, S, S, 3), as the loader yields them."""
+    (n, 77) seeded int32 tokens (ids in the tokenizer's range) in a .npy.
+    Returns the paths and the clips channels-last (T, S, S, 3), as the
+    loader yields them."""
     import numpy as np
 
     from dalle2_video_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
@@ -1893,14 +1918,35 @@ def write_store(cfg, root, n, seed=0):
     frames, size = cfg["seq_len"] * cfg["fps"], cfg["frame_size"]
     rng = np.random.default_rng(seed)
     clips = []
-    store, embed = f"{root}/videos.vshard", f"{root}/embed.npy"
+    store, tokens = f"{root}/videos.vshard", f"{root}/tokens.npy"
     with ShardWriter(store, (3, frames, size, size), np.float32) as w:
         for _ in range(n):
             clip = (rng.random((frames, size, size, 3), dtype=np.float32) - CLIP_MEAN) / CLIP_STD
             w.append(clip.transpose(3, 0, 1, 2))
             clips.append(clip)
-    np.save(embed, rng.standard_normal((n, cfg["dim"])).astype(np.float32))
-    return store, embed, clips
+    np.save(tokens, rng.integers(1, 49408, (n, 77)).astype(np.int32))
+    return store, tokens, clips
+
+
+class Stages:
+    """What the README's stages hand on, under one temporary directory: the
+    10-clip store and its tokens (written by train_clip), the run directory
+    every stage checkpoints into, the handoff's embeddings (written by
+    eval_clip, read by train_prior and train_data); serve_trained serves
+    the run directory."""
+
+    def __init__(self, root):
+        self.root = root
+        self.run_dir = f"{root}/runs"
+        self.video_embed = f"{root}/handoff/videos.npy"
+        self.text_embed = f"{root}/handoff/texts.npy"
+        self.store = self.tokens = self.clips = None
+
+    def args(self, *extra):
+        """The stages' entry-point overrides (celebv_text otherwise)."""
+        return [f"run_dir={self.run_dir}", f"videos.preprocessed={self.store}",
+                f"texts.tokenized={self.tokens}", f"videos.embed={self.video_embed}",
+                f"texts.embed={self.text_embed}", *extra]
 
 
 def check_paired_crop(torch, dev, b, frames, size, crop):
@@ -1922,22 +1968,21 @@ def check_paired_crop(torch, dev, b, frames, size, crop):
         f"offsets {oh.tolist()} / {ow.tolist()}: the card's equals the CPU's bit for bit")
 
 
-def train_data(dev, torch):
-    """Train the decoder from a store through the entry point's data path
-    (DATA_PATH). Checks: every batch the trainer receives (on the device)
-    equals the store's clips in BatchLoader's order (train shuffled by
+def train_data(dev, torch, stages):
+    """Train the decoder from the stages' store and the handoff's video
+    embeddings (eval_clip's videos.npy) through the entry point's data path
+    (DATA_PATH), into the stages' run directory. Checks: every batch the
+    trainer receives (on the device) equals the store's clips and the
+    handoff's embeddings in BatchLoader's order (train shuffled by
     seed + epoch, val in order); finite losses; step and EMA counts; every
     step's and eval's kernel launches as train_expected("train", ...);
-    the GroupNorm calls as the map's; a checkpoint written. Prints the
-    reader's g++ build time, the store's write time, ms per step per unet,
-    samples/s, peak memory, and per step the time the loop waited on the
-    loader beside the step time."""
-    import tempfile
+    the GroupNorm calls as the map's; a checkpoint written. Prints ms per
+    step per unet, samples/s, peak memory, and per step the time the loop
+    waited on the loader beside the step time."""
     from collections import deque
 
     import numpy as np
 
-    from dalle2_video_tpu_torch.data import shards
     from dalle2_video_tpu_torch.data.datasets import BatchLoader
     from dalle2_video_tpu_torch.ops._cuda import all_kernels
     from dalle2_video_tpu_torch.train import __main__ as entry
@@ -1945,124 +1990,122 @@ def train_data(dev, torch):
     from dalle2_video_tpu_torch.train.trainer import DecoderTrainer
 
     card = card_line()
-    t = time.time()
-    built = not shards.lib_path().exists()
-    shards.build_native()
-    log(f"train_data: shard reader (native/shard_reader.cpp) "
-        f"{'built by g++' if built else 'already built'} in {time.time() - t:.2f} s")
     cfg, knobs = path_config(DATA_PATH)
     kernels = all_kernels()
-    with tempfile.TemporaryDirectory() as tmp:
-        t = time.time()
-        store, embed, clips = write_store(cfg, tmp, DATA_RECORDS)
-        log(f"train_data: wrote {DATA_RECORDS} clips of {clips[0].shape} f32 "
-            f"({DATA_RECORDS * clips[0].nbytes / 1e9:.2f} GB) in {time.time() - t:.1f} s")
-        cfg = {**cfg, "run_dir": f"{tmp}/runs",
-               "videos": {**cfg["videos"], "preprocessed": store, "embed": embed}}
-        dataset, splits = entry.store_dataset(cfg)
-        b = cfg["decoder"]["batch_size"]
-        order = {"train": BatchLoader(dataset, b, splits["train"], seed=cfg["seed"]),
-                 "val": BatchLoader(dataset, b, splits["val"], shuffle=False)}
-        expect = deque()  # (kind, indices) of the batches the loop will hand on, in order
-        for kind in ("train", "val"):
-            idx = order[kind]._epoch_indices()
-            n = DATA_STEPS if kind == "train" else len(idx) // b
-            expect.extend((kind, idx[i * b:(i + 1) * b]) for i in range(n))
-        waits, records, seen = {"train": [], "val": []}, [], []
+    clips = stages.clips
+    cfg = {**cfg, "run_dir": stages.run_dir,
+           "videos": {**cfg["videos"], "preprocessed": stages.store,
+                      "embed": stages.video_embed}}
+    dataset, splits = entry.store_dataset(cfg)
+    handoff = np.load(stages.video_embed)
+    if not (handoff.shape == (DATA_RECORDS, cfg["dim"])
+            and np.array_equal(dataset.video_embeds, handoff)):
+        raise AssertionError(f"train_data: the dataset's video embeds are not the "
+                             f"handoff's {handoff.shape}")
+    log(f"train_data: video embeds from the handoff {stages.video_embed} {handoff.shape}")
+    b = cfg["decoder"]["batch_size"]
+    order = {"train": BatchLoader(dataset, b, splits["train"], seed=cfg["seed"]),
+             "val": BatchLoader(dataset, b, splits["val"], shuffle=False)}
+    expect = deque()  # (kind, indices) of the batches the loop will hand on, in order
+    for kind in ("train", "val"):
+        idx = order[kind]._epoch_indices()
+        n = DATA_STEPS if kind == "train" else len(idx) // b
+        expect.extend((kind, idx[i * b:(i + 1) * b]) for i in range(n))
+    waits, records, seen = {"train": [], "val": []}, [], []
 
-        class Timed:
-            """The entry point's loader, timed: ms the loop waits on each
-            next batch."""
+    class Timed:
+        """The entry point's loader, timed: ms the loop waits on each
+        next batch."""
 
-            def __init__(self, inner, kind):
-                self.inner, self.kind = inner, kind
+        def __init__(self, inner, kind):
+            self.inner, self.kind = inner, kind
 
-            def __len__(self):
-                return len(self.inner)
+        def __len__(self):
+            return len(self.inner)
 
-            def __iter__(self):
-                it = iter(self.inner)
-                try:
-                    while True:
-                        t0 = time.perf_counter()
-                        try:
-                            batch = next(it)
-                        except StopIteration:
-                            return
-                        waits[self.kind].append((time.perf_counter() - t0) * 1e3)
-                        yield batch
-                finally:
-                    if hasattr(it, "close"):
-                        it.close()
+        def __iter__(self):
+            it = iter(self.inner)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    waits[self.kind].append((time.perf_counter() - t0) * 1e3)
+                    yield batch
+            finally:
+                if hasattr(it, "close"):
+                    it.close()
 
-        def checked(orig, backward):
-            def call(self, video, *, video_embed=None, unet_number=1, **kw):
-                u = unet_number
-                torch.cuda.synchronize()
-                if u == 1:  # the batch this step received: the store's clips in order
-                    kind, idx = expect.popleft()
-                    want = torch.from_numpy(np.stack([clips[i] for i in idx])).to(dev)
-                    emb = torch.from_numpy(dataset.video_embeds[idx]).to(dev)
-                    if not (torch.equal(video, want) and torch.equal(video_embed, emb)):
-                        raise AssertionError(f"train_data: {kind} batch {idx.tolist()} differs "
-                                             f"from the store's clips")
-                    seen.append((kind, idx.tolist()))
-                    del want
-                for k in kernels:
-                    k.reset()
-                t0 = time.perf_counter()
-                out = orig(self, video, video_embed=video_embed, unet_number=u, **kw)
-                loss = float(out)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-                got = {k.name: k.launches for k in kernels}
-                recompute = backward and cfg[f"unet{u}"].get("checkpoint_during_training", False)
-                want_l = {k.name: 0 for k in kernels}
-                want_l.update(train_expected("train", u, backward, recompute))
-                if got != want_l:
-                    raise AssertionError(f"train_data: unet {u} launches {got}, the unet "
-                                         f"structure predicts {want_l}")
-                check_bwd_routes("train_data", got)
-                if not np.isfinite(loss):
-                    raise AssertionError(f"train_data: unet {u} loss {loss}")
-                records.append(dict(kind="train" if backward else "val", unet=u, ms=ms,
-                                    loss=loss))
-                for k, v in got.items():
-                    totals[k] += v
-                return out
-            return call
+    def checked(orig, backward):
+        def call(self, video, *, video_embed=None, unet_number=1, **kw):
+            u = unet_number
+            torch.cuda.synchronize()
+            if u == 1:  # the batch this step received: the store's clips in order
+                kind, idx = expect.popleft()
+                want = torch.from_numpy(np.stack([clips[i] for i in idx])).to(dev)
+                emb = torch.from_numpy(dataset.video_embeds[idx]).to(dev)
+                if not (torch.equal(video, want) and torch.equal(video_embed, emb)):
+                    raise AssertionError(f"train_data: {kind} batch {idx.tolist()} differs "
+                                         f"from the store's clips")
+                seen.append((kind, idx.tolist()))
+                del want
+            for k in kernels:
+                k.reset()
+            t0 = time.perf_counter()
+            out = orig(self, video, video_embed=video_embed, unet_number=u, **kw)
+            loss = float(out)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {k.name: k.launches for k in kernels}
+            recompute = backward and cfg[f"unet{u}"].get("checkpoint_during_training", False)
+            want_l = {k.name: 0 for k in kernels}
+            want_l.update(train_expected("train", u, backward, recompute))
+            if got != want_l:
+                raise AssertionError(f"train_data: unet {u} launches {got}, the unet "
+                                     f"structure predicts {want_l}")
+            check_bwd_routes("train_data", got)
+            if not np.isfinite(loss):
+                raise AssertionError(f"train_data: unet {u} loss {loss}")
+            records.append(dict(kind="train" if backward else "val", unet=u, ms=ms,
+                                loss=loss))
+            for k, v in got.items():
+                totals[k] += v
+            return out
+        return call
 
-        totals = {k.name: 0 for k in kernels}
-        saved = (entry.make_loaders, DecoderTrainer.train_step, DecoderTrainer.eval_loss)
-        entry.make_loaders = lambda *a: tuple(
-            Timed(loader, kind) for loader, kind in zip(saved[0](*a), ("train", "val")))
-        DecoderTrainer.train_step = checked(saved[1], backward=True)
-        DecoderTrainer.eval_loss = checked(saved[2], backward=False)
-        torch.cuda.reset_peak_memory_stats()
-        t = time.time()
-        try:
-            with ShapeRecord() as shapes:
-                summary = entry.train_decoder(cfg, dataset, splits, dev, max_steps=DATA_STEPS)
-        finally:
-            entry.make_loaders, DecoderTrainer.train_step, DecoderTrainer.eval_loss = saved
-        wall = time.time() - t
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        trainer = summary["trainer"]
-        log(f"train_data: {' '.join(knobs)}; {len(dataset)} clips, split "
-            f"{len(splits['train'])} / {len(splits['val'])}, batches seen {seen}")
-        if expect:
-            raise AssertionError(f"train_data: batches never reached the trainer: {list(expect)}")
-        if trainer.steps != [DATA_STEPS] * 2 or [e.step for e in trainer.ema] != [DATA_STEPS] * 2:
-            raise AssertionError(f"train_data: steps {trainer.steps}, EMA steps "
-                                 f"{[e.step for e in trainer.ema]}")
-        if not has_checkpoint(f"{cfg['run_dir']}/decoder_{cfg['train_name']}"):
-            raise AssertionError("train_data: no checkpoint written")
-        want_gn = gn_path_calls("train", steps=DATA_STEPS)
-        for u in (1, 2):  # the validation batch: one forward of each unet
-            want_gn.update({(gn_rows.FWD, *key): n
-                            for key, n in gn_rows.calls(gn_rows.FWD, TRAIN_BATCH, u).items()})
-        shapes.check("train_data", conv_path_shapes("train_data"), want_gn=want_gn)
-        del trainer, summary
+    totals = {k.name: 0 for k in kernels}
+    saved = (entry.make_loaders, DecoderTrainer.train_step, DecoderTrainer.eval_loss)
+    entry.make_loaders = lambda *a: tuple(
+        Timed(loader, kind) for loader, kind in zip(saved[0](*a), ("train", "val")))
+    DecoderTrainer.train_step = checked(saved[1], backward=True)
+    DecoderTrainer.eval_loss = checked(saved[2], backward=False)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    try:
+        with ShapeRecord() as shapes:
+            summary = entry.train_decoder(cfg, dataset, splits, dev, max_steps=DATA_STEPS)
+    finally:
+        entry.make_loaders, DecoderTrainer.train_step, DecoderTrainer.eval_loss = saved
+    wall = time.time() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer = summary["trainer"]
+    log(f"train_data: {' '.join(knobs)}; {len(dataset)} clips, split "
+        f"{len(splits['train'])} / {len(splits['val'])}, batches seen {seen}")
+    if expect:
+        raise AssertionError(f"train_data: batches never reached the trainer: {list(expect)}")
+    if trainer.steps != [DATA_STEPS] * 2 or [e.step for e in trainer.ema] != [DATA_STEPS] * 2:
+        raise AssertionError(f"train_data: steps {trainer.steps}, EMA steps "
+                             f"{[e.step for e in trainer.ema]}")
+    if not has_checkpoint(f"{cfg['run_dir']}/decoder_{cfg['train_name']}"):
+        raise AssertionError("train_data: no checkpoint written")
+    want_gn = gn_path_calls("train", steps=DATA_STEPS)
+    for u in (1, 2):  # the validation batch: one forward of each unet
+        want_gn.update({(gn_rows.FWD, *key): n
+                        for key, n in gn_rows.calls(gn_rows.FWD, TRAIN_BATCH, u).items()})
+    shapes.check("train_data", conv_path_shapes("train_data"), want_gn=want_gn)
+    del trainer, summary
     steps = [r for r in records if r["kind"] == "train"]
     for i in range(DATA_STEPS):
         u1, u2 = steps[2 * i], steps[2 * i + 1]
@@ -2083,6 +2126,369 @@ def train_data(dev, torch):
     check_paired_crop(torch, dev, b, cfg["frame_numbers"][-1], size, size * 3 // 4)
     torch.cuda.empty_cache()
     return totals
+
+
+# --------------------------------------------------------------- phase 5c
+# Stages 1 and 2 of the README and serving what the stages trained. No
+# kernel lies on them (ViViT's attention and the prior's are plain einsums
+# in the JAX package too), so train_clip and train_prior launch none; the
+# decoder then trains on the handoff's embeddings (train_data: rows 1-4)
+# and serve_trained answers from the checkpoints (rows 1, 3, 5).
+#   train_clip: the recipe's ViViT (224^2, patch 56, 150 frames, dim 512,
+#     depth 2, 3 heads x 64) and frozen 12 x 512 text tower at clip.batch_size
+#     64 on seeded device tensors, CLIP_STEPS steps with the multistep
+#     schedule over CLIP_STEPS + 1 steps (a boundary at every step); then
+#     python -m ...train.train_clip on the 10-clip store (2 epochs at batch
+#     2, the thread loader) and ...train.eval_clip at batch 4 (a tail of 2).
+#   train_prior: the recipe's prior (depth 6, dim 512, 8 heads x 64, 1000
+#     timesteps) at prior.batch_size 256 on seeded embeddings, PRIOR_STEPS
+#     steps; then python -m ...train.train_prior on the handoff (2 epochs
+#     at batch 2, EMA blending every 2nd step after the 2nd).
+CLIP_STEPS = 3
+PRIOR_STEPS = 3
+STAGE_CLIP = ["loader=thread", "clip.batch_size=2", "clip.epochs=2"]
+STAGE_PRIOR = ["prior.batch_size=2", "prior.epochs=2", "prior.use_ema=true",
+               "prior.ema_update_after_step=2", "prior.ema_update_every=2"]
+
+
+def clip_step_flops(vc, tc, b):
+    """Multiply-adds x 2 of one CLIP train step on b clips: the ViViT's
+    forward (the patch embed, both transformers' projections, q k^T, p v and
+    feed-forwards, the head's two convs and its projection) and its backward
+    (twice the forward, but the patch embed's once: its input, the videos,
+    takes no gradient), plus the frozen text tower's forward. Returns (step,
+    the ViViT forward)."""
+    p2c = vc.patch_size ** 2 * vc.in_channels
+    n = (vc.frame_size // vc.patch_size) ** 2
+    t, d, inner, s = vc.num_frames, vc.dim, vc.heads * vc.dim_head, vc.scale_dim_conv
+
+    def transformer(seqs, tokens):
+        per_token = 3 * d * inner + inner * d + 2 * d * d * vc.scale_dim_attn
+        return vc.depth * seqs * (tokens * per_token + 2 * tokens * tokens * inner)
+
+    embed = t * n * p2c * d
+    vivit = (embed + transformer(t, n) + transformer(1, t)
+             + (t // s) * 3 * s * d * d + (t // s // s) * 3 * s * d * d + (t // s // s) * d * d)
+    w, m = tc.width, tc.context_length
+    text = tc.layers * (m * 12 * w * w + 2 * m * m * w) + w * tc.embed_dim
+    return 2 * b * (3 * vivit - embed + text), 2 * b * vivit
+
+
+def timed_steps(torch, step, n):
+    """n calls of step(), each synchronised: ([ms], [its result])."""
+    ms, outs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(step())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, outs
+
+
+def moved(torch, before, module, label):
+    """Every parameter of ``module`` differs from its copy in ``before``."""
+    still = [k for k, p in module.named_parameters() if torch.equal(p.detach(), before[k])]
+    if still:
+        raise AssertionError(f"{label}: parameters did not move: {still[:6]}")
+
+
+def no_launches(kernels, label):
+    launches = {k.name: k.launches for k in kernels}
+    if any(launches.values()):
+        raise AssertionError(f"{label}: launched kernels {launches}; no kernel lies on it")
+    return launches
+
+
+def train_clip_phase(dev, torch, stages, profile: bool = False):
+    """The CLIP stage on the card: the recipe-width step (finite loss, every
+    ViViT parameter and the temperature moved, the text tower bit for bit
+    unchanged, the lr at each step the schedule's), then the entry points
+    on the 10-clip store: train_clip for 2 epochs, eval_clip writing 10 + 10
+    embeddings (the tail included, each the towers' output on its clip
+    within 1e-4 of the embeddings' scale), eval's frozen text tower bit for
+    bit train's, the retrieval logged. No kernel launches."""
+    import logging
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.data import shards
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.train import eval_clip, train_clip
+    from dalle2_video_tpu_torch.train.clip_trainer import ClipTrainer, ClipTrainerConfig, lr_at
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    card = card_line()
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset()
+    cfg = load_config(None)
+    cc, vc = cfg["clip"], train_clip.vivit_config(cfg)
+    ccfg = ClipTrainerConfig(lr=cc["lr"], lr_scheduler=cc["lr_scheduler"],
+                             lr_multistep_milestones=tuple(cc["lr_multistep_milestones"]),
+                             lr_step_gamma=cc["lr_step_gamma"], total_steps=CLIP_STEPS + 1,
+                             init_temperature=cc["init_temperature"])
+    with ShapeRecord() as shapes:
+        trainer = ClipTrainer(vc, train_clip.text_config(cfg), ccfg, seed=cfg["seed"],
+                              device=dev)
+        b = cc["batch_size"]
+        g = torch.Generator(device=dev).manual_seed(0)
+        videos = torch.randn((b, vc.num_frames, vc.frame_size, vc.frame_size, 3), generator=g,
+                             device=dev)
+        tokens = torch.randint(1, 49408, (b, 77), generator=g, device=dev)
+        vivit0 = {k: p.detach().clone() for k, p in trainer.vivit.named_parameters()}
+        temp0 = trainer.temperature.detach().clone()
+        text0 = {k: v.clone() for k, v in trainer.text_encoder.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        lrs = []
+
+        def step():
+            lrs.append(lr_at(ccfg, trainer.step))
+            m = trainer.train_step(videos, tokens, trainer.dropout_generator)
+            if trainer.optimizer.param_groups[0]["lr"] != lrs[-1]:
+                raise AssertionError("train_clip: the step's lr is not the schedule's")
+            return {k: float(v) for k, v in m.items()}
+
+        ms, metrics = timed_steps(torch, step, CLIP_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want_lrs = [cc["lr"] * cc["lr_step_gamma"] ** i for i in range(CLIP_STEPS)]
+        if not np.allclose(lrs, want_lrs, rtol=1e-12):
+            raise AssertionError(f"train_clip: lr {lrs}, the schedule gives {want_lrs}")
+        if not all(np.isfinite(m["loss"]) for m in metrics):
+            raise AssertionError(f"train_clip: losses {[m['loss'] for m in metrics]}")
+        moved(torch, vivit0, trainer.vivit, "train_clip")
+        if torch.equal(trainer.temperature.detach(), temp0):
+            raise AssertionError("train_clip: the temperature did not move")
+        now = trainer.text_encoder.state_dict()
+        if not all(torch.equal(now[k], v) for k, v in text0.items()):
+            raise AssertionError("train_clip: the frozen text tower changed")
+        flops, fwd = clip_step_flops(vc, trainer.text_encoder.cfg, b)
+        steady = sum(ms[1:]) / len(ms[1:])
+        log(f"train_clip: ViViT {vc.frame_size}^2 patch {vc.patch_size}, {vc.num_frames} frames, "
+            f"dim {vc.dim}, depth {vc.depth}, {vc.heads} x {vc.dim_head} heads, text tower "
+            f"{trainer.text_encoder.cfg.layers} x {trainer.text_encoder.cfg.width}, batch {b}: "
+            f"ms per step {[round(x, 1) for x in ms]} (first apart), mean after the first "
+            f"{steady:.1f} ms, {b / steady * 1e3:.1f} samples/s, ~{flops / 1e12:.2f} TFLOP a step "
+            f"(the ViViT's forward {fwd / 1e12:.2f}, its backward without the patch embed's "
+            f"input gradient, the text tower's forward) -> {flops / steady / 1e9:.1f} TFLOP/s f32; "
+            f"peak memory {peak:.2f} GiB; lr {lrs}; losses "
+            f"{[round(m['loss'], 4) for m in metrics]}, temperature "
+            f"{metrics[-1]['temperature']:.6f}, top1 {metrics[-1]['top1']:.3f} [{card}]")
+        if profile:
+            profile_device("train_clip step", torch, lambda: trainer.train_step(
+                videos, tokens, trainer.dropout_generator))
+        del trainer, videos, tokens, vivit0, text0, now
+        torch.cuda.empty_cache()
+
+        t = time.time()
+        built = not shards.lib_path().exists()
+        shards.build_native()
+        log(f"train_clip: shard reader (native/shard_reader.cpp) "
+            f"{'built by g++' if built else 'already built'} in {time.time() - t:.2f} s")
+        t = time.time()
+        stages.store, stages.tokens, stages.clips = write_store(cfg, stages.root, DATA_RECORDS)
+        clip0 = stages.clips[0]
+        log(f"train_clip: wrote {DATA_RECORDS} clips of {clip0.shape} f32 "
+            f"({DATA_RECORDS * clip0.nbytes / 1e9:.2f} GB) and (10, 77) tokens in "
+            f"{time.time() - t:.1f} s")
+        t = time.time()
+        trained = train_clip.main(stages.args(*STAGE_CLIP))["trainer"]
+        t_train = time.time() - t
+        if trained.step != 2 * 4:  # 8 train clips at batch 2, 2 epochs
+            raise AssertionError(f"train_clip: {trained.step} steps, expected 8")
+        records = []
+        handler = logging.Handler()
+        handler.emit = lambda rec: records.append(rec.getMessage())
+        logging.getLogger("dalle2_video_tpu_torch.eval_clip").addHandler(handler)
+        t = time.time()
+        try:
+            out = eval_clip.main(stages.args(*STAGE_CLIP, "clip.batch_size=4"))
+        finally:
+            logging.getLogger("dalle2_video_tpu_torch.eval_clip").removeHandler(handler)
+        t_eval = time.time() - t
+        etr = out["trainer"]
+        ve, te = np.load(stages.video_embed), np.load(stages.text_embed)
+        if ve.shape != (DATA_RECORDS, vc.dim) or te.shape != (DATA_RECORDS, vc.dim):
+            raise AssertionError(f"eval_clip: wrote {ve.shape} and {te.shape}")
+        a, c = trained.text_encoder.state_dict(), etr.text_encoder.state_dict()
+        if not all(torch.equal(a[k], v) for k, v in c.items()):
+            raise AssertionError("eval_clip: its frozen text tower is not train_clip's")
+        a, c = trained.vivit.state_dict(), etr.vivit.state_dict()
+        if etr.step != trained.step or not all(torch.equal(a[k], v) for k, v in c.items()):
+            raise AssertionError("eval_clip: its ViViT is not train_clip's last checkpoint")
+        errs = []
+        tokens = np.load(stages.tokens)
+        for i, clip in enumerate(stages.clips):  # each row: the towers on that clip alone
+            v1 = etr.embed_video(torch.from_numpy(clip[None])).cpu().numpy()[0]
+            t1 = etr.embed_text(torch.from_numpy(tokens[i:i + 1])).cpu().numpy()[0]
+            errs.append((float(np.abs(ve[i] - v1).max() / np.abs(v1).max()),
+                         float(np.abs(te[i] - t1).max() / np.abs(t1).max())))
+        worst = max(max(e) for e in errs)
+        line = [r for r in records if r.startswith("retrieval over")]
+        log(f"train_clip: train_clip.main {t_train:.1f} s ({trained.step} steps at batch 2), "
+            f"eval_clip.main {t_eval:.1f} s: wrote {ve.shape} video and {te.shape} text "
+            f"embeddings (2 batches of 4 and the tail of 2), each row vs the towers on its clip "
+            f"alone: worst |diff| / max|row| {worst:.2e}; eval's text tower is train's bit for "
+            f"bit; {line} [{card}]")
+        if worst > 1e-4 or not line or "over 10 pairs" not in line[0]:
+            raise AssertionError(f"eval_clip: rows off their clips by {worst:.2e} (1e-4), or no "
+                                 f"retrieval line ({line})")
+        del trained, etr, out
+        torch.cuda.empty_cache()
+    shapes.check("train_clip", conv_path_shapes("train_clip"))
+    return no_launches(kernels, "train_clip")
+
+
+def train_prior_phase(dev, torch, stages, profile: bool = False):
+    """The prior's training on the card: the recipe at prior.batch_size
+    (finite losses, every parameter moved), then python -m
+    ...train.train_prior on the handoff with use_ema: 8 steps, the EMA's,
+    and the newest checkpoint loaded into a fresh trainer equal to the
+    trained one bit for bit (params, Adam state, EMA shadow, step, the
+    draw generator). No kernel launches."""
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.train import load_latest, train_prior
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    card = card_line()
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset()
+    cfg = load_config(None)
+    pc = cfg["prior"]
+    with ShapeRecord() as shapes:
+        trainer = train_prior.build_prior_trainer(cfg, dev)
+        b, d = pc["batch_size"], cfg["dim"]
+        g = torch.Generator(device=dev).manual_seed(1)
+        ve = torch.randn(b, d, generator=g, device=dev)
+        te = torch.randn(b, d, generator=g, device=dev)
+        before = {k: p.detach().clone() for k, p in trainer.prior.network.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = timed_steps(torch, lambda: float(trainer.train_step(ve, te)), PRIOR_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_prior: losses {losses}")
+        moved(torch, before, trainer.prior.network, "train_prior")
+        steady = sum(ms[1:]) / len(ms[1:])
+        n_params = sum(p.numel() for p in trainer.prior.network.parameters())
+        log(f"train_prior: prior depth {pc['depth']}, dim {d}, {pc['heads']} x {pc['dim_head']} "
+            f"heads, {pc['timesteps']} timesteps ({n_params / 1e6:.1f}M params), batch {b}: ms "
+            f"per step {[round(x, 2) for x in ms]} (first apart), mean after the first "
+            f"{steady:.2f} ms, {b / steady * 1e3:.0f} samples/s; peak memory {peak:.3f} GiB; "
+            f"losses {[round(x, 4) for x in losses]} [{card}]")
+        if profile:
+            profile_device("train_prior step", torch, lambda: trainer.train_step(ve, te))
+        del trainer, before
+
+        t = time.time()
+        summary = train_prior.main(stages.args(*STAGE_PRIOR))
+        wall = time.time() - t
+        trained = summary["trainer"]
+        if trained.step != 2 * 4 or trained.ema.step != 2 * 4:
+            raise AssertionError(f"train_prior: steps {trained.step}, EMA {trained.ema.step}")
+        ckpt = f"{stages.run_dir}/prior_default"
+        fresh = train_prior.build_prior_trainer(load_config(None, stages.args(*STAGE_PRIOR)), dev)
+        fresh.load_state_dict(load_latest(ckpt, map_location=dev))
+        _same_state(trained.state_dict(), fresh.state_dict(), "prior")
+        shadow_is_online = all(torch.equal(trained.ema.params[k], p)
+                               for k, p in trained.prior.network.named_parameters())
+        if shadow_is_online:
+            raise AssertionError("train_prior: the EMA shadow equals the online params")
+        log(f"train_prior: train_prior.main on the handoff {wall:.1f} s: {trained.step} steps "
+            f"at batch 2, EMA step {trained.ema.step}, train loss "
+            f"{summary['train_loss']:.4f}, val loss {summary.get('val_loss')}; {ckpt} reloaded "
+            f"into a fresh trainer: params, Adam state, EMA shadow, step and generator equal "
+            f"bit for bit [{card}]")
+        del trained, fresh, summary
+        torch.cuda.empty_cache()
+    shapes.check("train_prior", conv_path_shapes("train_prior"))
+    return no_launches(kernels, "train_prior")
+
+
+def serve_trained(dev, torch, stages):
+    """The serve recipe built from the stages' run directory: the served
+    prior's parameters equal its checkpoint's EMA shadow (and not its
+    online params), the served unets the decoder's best state's EMA
+    shadows; one request at OPTION_STEPS DDIM steps a stage through the
+    engine: a finite (90, 128, 128, 3) video in [0, 1], the launches of
+    serve_options' plain request (rows 1, 3, 5), the kernel shapes the
+    map's."""
+    import logging
+    from unittest import mock
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.serve import stack
+    from dalle2_video_tpu_torch.serve.engine import GenerationEngine, GenRequest
+    from dalle2_video_tpu_torch.train import load_best, load_params_subtree
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    card = card_line()
+    cfg = load_config(None, [*SERVE_PATHS["serve"]["overrides"], f"run_dir={stages.run_dir}"])
+    cfg["sample_seed"] = 0
+    made = {}
+    build = stack.build_stack
+
+    def keep(cfg_, device, **kw):
+        made["stack"] = build(cfg_, device, **kw)
+        return made["stack"]
+
+    t0 = time.time()
+    with mock.patch.object(stack, "build_stack", keep):
+        gb = stack.build_generate_batch(cfg, logging.getLogger("chip_smoke"), dev)
+    t_build = time.time() - t0
+    wrapper = made["stack"][1]
+    prior_ckpt, dec_ckpt = f"{stages.run_dir}/prior_default", f"{stages.run_dir}/decoder_default"
+    shadow = load_params_subtree(prior_ckpt, map_location=dev)
+    served = dict(wrapper.prior.network.named_parameters())
+    if set(served) != set(shadow) or not all(torch.equal(served[k], v) for k, v in shadow.items()):
+        raise AssertionError("serve_trained: the served prior is not its checkpoint's EMA shadow")
+    online = load_best(prior_ckpt, map_location=dev)["params"]
+    if all(torch.equal(served[k], v) for k, v in online.items()):
+        raise AssertionError("serve_trained: the served prior is the online params, not the EMA")
+    state = load_best(dec_ckpt, map_location=dev)
+    for i, unet in enumerate(wrapper.decoder.unets):
+        ema = state["ema"][i]["params"]
+        if not all(torch.equal(p, ema[k]) for k, p in unet.named_parameters()):
+            raise AssertionError(f"serve_trained: unet {i + 1} is not the best state's EMA shadow")
+    log(f"serve_trained: stack built from {stages.run_dir} in {t_build:.1f} s: the prior equals "
+        f"{prior_ckpt}'s EMA shadow (step {load_best(prior_ckpt)['ema']['step']}), unets 1 and 2 "
+        f"the best decoder state's EMA shadows (step {state['steps']}), bit for bit")
+    del state, shadow, online
+    engine = GenerationEngine(gb, buckets=(1,), max_wait_ms=5.0, default_cond_scale=3.0,
+                              default_ddim_steps=OPTION_STEPS)
+    kernels = all_kernels()
+    try:
+        for k in kernels:
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        with ShapeRecord() as shapes:
+            t0 = time.time()
+            res = engine.generate(GenRequest("a person smiling", seed=7, cond_scale=3.0,
+                                             ddim_steps=OPTION_STEPS), timeout=600)
+            wall = time.time() - t0
+        launches = {k.name: k.launches for k in kernels}
+    finally:
+        engine.close()
+    vid = res["video"]
+    frames, size = cfg["frame_numbers"][-1], cfg["frame_sizes"][-1]
+    if vid.shape != (frames, size, size, 3) or not (
+            np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+        raise AssertionError(f"serve_trained: video {vid.shape} not finite in [0, 1]")
+    shapes.check("serve_trained", conv_path_shapes("serve_trained"),
+                 Counter({key: n * OPTION_STEPS for key, n in serve_shapes(2).items()}),
+                 gn_path_calls("serve", {2: 1}, OPTION_STEPS))
+    want = option_launches(1, False)
+    log(f"serve_trained: one request, {OPTION_STEPS} DDIM steps a stage: wall {wall:.3f} s, "
+        f"{frames / wall:.2f} frames/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean {float(vid.mean()):.3f} std "
+        f"{float(vid.std()):.3f}; launches {launches} expected {want} [{card}]")
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError("serve_trained: kernel launch counts differ from the unet structure's")
+    del gb, wrapper, made, engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------- phase 6
@@ -2260,16 +2666,25 @@ def main() -> int:
     phase("module checks", module_checks)
     # each main path's own run: its counts set to 0 before it, read after it
     runs = {}
-    for path in SERVE_PATHS:
-        runs[path] = phase(path, serve, dev, torch, path, args.profile)
-    runs["serve_options"] = phase("serve_options", serve_options, dev, torch)
-    for path in TRAIN_PATHS:
-        runs[path] = phase(path, train, dev, torch, path, args.profile)
-    runs["train_data"] = phase("train_data", train_data, dev, torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        # the random-weight paths serve from a run_dir that holds no stage
+        # checkpoint; only serve_trained serves what the stages write
+        empty = f"{root}/no_checkpoints"
+        for path in SERVE_PATHS:
+            runs[path] = phase(path, serve, dev, torch, path, empty, args.profile)
+        runs["serve_options"] = phase("serve_options", serve_options, dev, torch, empty)
+        for path in TRAIN_PATHS:
+            runs[path] = phase(path, train, dev, torch, path, args.profile)
+        stages = Stages(root)
+        runs["train_clip"] = phase("train_clip", train_clip_phase, dev, torch, stages,
+                                   args.profile)
+        runs["train_prior"] = phase("train_prior", train_prior_phase, dev, torch, stages,
+                                    args.profile)
+        runs["train_data"] = phase("train_data", train_data, dev, torch, stages)
+        runs["serve_trained"] = phase("serve_trained", serve_trained, dev, torch, stages)
     runs["probes"] = phase("probes", probes, dev, torch)
     log("phase times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total since start {time.time() - t_start:.1f}")
-
     out = []
     for k in _cuda.all_kernels():
         r = rows[k.name]

@@ -3,14 +3,16 @@ ViT-B/32 text transformer -- 12 layers, width 512, 8 heads, 77-token
 context, quick-gelu, argmax-EOT pooling through a text projection.
 
 Parameter names follow the flax module (``block{i}.attn_in`` ...), so
-``weights.load_from_jax`` carries JAX weights across. Loading OpenAI CLIP
-weights waits until they are in the repository; random weights are for
-smoke runs only and are not CLIP-compatible.
+``weights.load_from_jax`` carries JAX weights across.
+``load_openai_clip_text_params`` reads an OpenAI CLIP checkpoint's text
+tower into this module's names; random weights are for smoke runs only and
+are not CLIP-compatible.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 
 import torch
 import torch.nn as nn
@@ -81,3 +83,39 @@ class CLIPTextEncoder(nn.Module):
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
         embed = pooled @ self.text_projection
         return (embed, x) if return_encodings else embed
+
+
+def load_openai_clip_text_params(path: str, cfg: CLIPTextConfig = CLIPTextConfig()
+                                 ) -> "OrderedDict[str, torch.Tensor]":
+    """The text tower of an OpenAI CLIP torch checkpoint (a TorchScript
+    archive, as clip.load's files are, a plain state dict, or a dict
+    holding one under ``"state_dict"``) as a state dict of
+    ``CLIPTextEncoder(cfg)``, f32. torch's Linear layout is the port's, so
+    no weight is transposed. A file that is not a TorchScript archive is
+    read with ``weights_only=True``: tensors and containers, no code."""
+    try:
+        obj = torch.jit.load(path, map_location="cpu")
+    except RuntimeError:  # not a TorchScript archive
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(obj, "state_dict"):
+        sd = obj.state_dict()
+    elif isinstance(obj, dict) and "state_dict" in obj:
+        sd = obj["state_dict"]
+    else:
+        sd = obj
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict(
+        token_embedding=sd["token_embedding.weight"].float(),
+        positional_embedding=sd["positional_embedding"].float(),
+        text_projection=sd["text_projection"].float())
+    for leaf in ("weight", "bias"):
+        out[f"ln_final.{leaf}"] = sd[f"ln_final.{leaf}"].float()
+    src = {"ln_1": "ln_1", "ln_2": "ln_2", "attn_out": "attn.out_proj",
+           "mlp_fc": "mlp.c_fc", "mlp_proj": "mlp.c_proj"}
+    for i in range(cfg.layers):
+        p = f"transformer.resblocks.{i}"
+        for ours, theirs in src.items():
+            for leaf in ("weight", "bias"):
+                out[f"block{i}.{ours}.{leaf}"] = sd[f"{p}.{theirs}.{leaf}"].float()
+        out[f"block{i}.attn_in.weight"] = sd[f"{p}.attn.in_proj_weight"].float()
+        out[f"block{i}.attn_in.bias"] = sd[f"{p}.attn.in_proj_bias"].float()
+    return out

@@ -1,12 +1,15 @@
 """Diffusion prior: text embedding -> video embedding (port of
-dalle2_video_tpu/models/prior.py, the sampling half).
+dalle2_video_tpu/models/prior.py).
 
 ``DiffusionPriorNetwork`` is the causal transformer over
 [text_embed, time_embed, noised_video_embed, learned_query] (rotary, T5
 relative-position bias, SwiGLU feed-forward); the prediction is read at the
-learned-query position. ``DiffusionPrior.sample`` is best-of-N DDIM (eta 0)
-with cosine reranking against the text embed. Not ported yet: the training
-loss, mixture-of-experts, the pipelined layer stack, text-encoding
+learned-query position. ``DiffusionPrior.loss`` is the training loss (x0
+scaled by ``embed_scale``, q_sample at uniform times on the schedule, the
+text dropped to the null embed at ``text_cond_drop_prob``, l2 against x0),
+every draw injectable; ``DiffusionPrior.sample`` is best-of-N DDIM (eta 0)
+with cosine reranking against the text embed. Not ported yet (they raise):
+mixture-of-experts, the scanned / pipelined layer stack, text-encoding
 conditioning and self-conditioning.
 """
 
@@ -173,18 +176,49 @@ def prior_from_config(cfg: Dict[str, Any], device: DeviceLike = None) -> "Diffus
 
 
 class DiffusionPrior:
-    """Engine: best-of-N reranked DDIM sampling in embed space, on ``device``
-    (CUDA by default)."""
+    """Engine: the training loss and best-of-N reranked DDIM sampling in
+    embed space, on ``device`` (CUDA by default)."""
 
     def __init__(self, config: DiffusionPriorConfig, device: DeviceLike = None):
         self.config = config
         self.device = resolve_device(device)
         self.network = DiffusionPriorNetwork(config.network).to(self.device).eval()
         self.schedule = DiffusionSchedule.create(
-            config.beta_schedule, config.timesteps, device=self.device)
+            config.beta_schedule, config.timesteps, device=self.device,
+            loss_type=config.loss_type)
         self.embed_scale = (config.video_embed_scale
                             if config.video_embed_scale is not None
                             else config.network.dim**0.5)
+
+    def loss(self, video_embed: torch.Tensor, text_embed: torch.Tensor, *,
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """The denoising loss of a (b, d) batch, a 0-dim f32 tensor, through
+        the network in its current mode (the trainer sets train mode).
+        ``draws`` injects any of "times" (b,), "noise" (b, d) and
+        "text_keep" (b,) bool; the rest come from ``generator``."""
+        cfg = self.config
+        sched = self.schedule
+        dev = self.device
+        draws = draws or {}
+
+        def draw(name, fn):
+            v = draws.get(name)
+            return fn() if v is None else torch.as_tensor(v).to(dev)
+
+        x0 = video_embed.to(dev, torch.float32) * self.embed_scale
+        b = x0.shape[0]
+        times = draw("times", lambda: sched.sample_random_times(b, generator)).long()
+        noise = draw("noise", lambda: torch.randn(x0.shape, generator=generator, device=dev))
+        keep = draw("text_keep", lambda: torch.rand(
+            b, generator=generator, device=dev) < 1.0 - cfg.text_cond_drop_prob)
+        pred = self.network(sched.q_sample(x0, times, noise), times,
+                            text_embed=text_embed.to(dev, torch.float32),
+                            text_keep_mask=keep.bool())
+        if cfg.training_clamp_l2norm:
+            pred = l2_normalize(pred) * self.embed_scale
+        target = x0 if cfg.predict_x_start else noise
+        return sched.loss_fn(pred, target).mean()
 
     def _pred_x0(self, x, t, cond_scale, text_embed):
         b = x.shape[0]

@@ -7,14 +7,22 @@ the decoder's CFG baseline), inpainting (``inpaint_video`` /
 ``inpaint_mask`` on the device, ``replace`` or ``guided``) and long video
 (``n_frames`` / ``overlap`` route to ``DALLE2Video.generate_long``).
 
-Weights are random, made from ``sample_seed``: the repository holds no
-checkpoints yet, and loading them (and OpenAI CLIP weights) waits until it
-does. Distilled students and data-parallel serving are not ported yet.
+Weights, as scripts/serve.py resolves them: the text tower from
+``clip.openai_ckpt`` when set; the prior from ``<run_dir>/prior_
+<train_name>`` when it holds a checkpoint (its params subtree, the EMA
+shadow preferred); the decoder from ``<run_dir>/decoder_<train_name>`` (the
+best state's sampling params: the EMA shadows when the trainer keeps
+them). Whatever has no checkpoint keeps random weights made from
+``sample_seed``, with a warning -- the text tower too: with no OpenAI
+checkpoint it comes from ``sample_seed``, not from the CLIP stage's
+stream, as in the JAX server. Distilled students and data-parallel serving
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -23,8 +31,17 @@ import torch
 from dalle2_video_tpu_torch.data.tokenizer import tokenize
 from dalle2_video_tpu_torch.engine.dalle2video import DALLE2Video
 from dalle2_video_tpu_torch.engine.decoder import build_decoder
-from dalle2_video_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+from dalle2_video_tpu_torch.models.clip_text import (
+    CLIPTextConfig,
+    CLIPTextEncoder,
+    load_openai_clip_text_params,
+)
 from dalle2_video_tpu_torch.models.prior import prior_from_config
+from dalle2_video_tpu_torch.train.checkpoint import (
+    has_checkpoint,
+    load_decoder_sampling_params,
+    load_params_subtree,
+)
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
 from dalle2_video_tpu_torch.utils.keys import RowKeys
 
@@ -49,18 +66,42 @@ def apply_smoke(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return cfg
 
 
-def build_stack(cfg: Dict[str, Any], device: DeviceLike = None
-                ) -> Tuple[CLIPTextEncoder, DALLE2Video]:
-    """Text tower + DALLE2Video with random weights from ``sample_seed``."""
+_log = logging.getLogger("dalle2_video_tpu_torch.serve")
+
+
+def build_stack(cfg: Dict[str, Any], device: DeviceLike = None,
+                log: logging.Logger = _log) -> Tuple[CLIPTextEncoder, DALLE2Video]:
+    """Text tower + DALLE2Video, from the checkpoints scripts/serve.py
+    reads where they exist, else random weights from ``sample_seed``."""
     device = resolve_device(device)
-    if cfg["clip"].get("openai_ckpt"):
-        raise NotImplementedError("loading OpenAI CLIP weights is not ported yet")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(int(cfg.get("sample_seed", 0)))
         text_enc = CLIPTextEncoder(CLIPTextConfig(embed_dim=cfg["dim"]))
         prior = prior_from_config(cfg, device)
         decoder = build_decoder(cfg, device)
+    openai = cfg["clip"].get("openai_ckpt")
+    if openai:
+        text_enc.load_state_dict(load_openai_clip_text_params(openai), strict=True)
+    else:
+        log.warning("no OpenAI ckpt: random text tower (smoke mode)")
     text_enc = text_enc.to(device).eval()
+    run_dir = Path(cfg["run_dir"])
+    prior_ckpt = run_dir / f"prior_{cfg['train_name']}"
+    if has_checkpoint(str(prior_ckpt)):
+        prior.network.load_state_dict(
+            load_params_subtree(str(prior_ckpt), map_location=device), strict=True)
+        log.info("loaded prior %s", prior_ckpt)
+    else:
+        log.warning("no prior checkpoint at %s: random prior (smoke quality only)", prior_ckpt)
+    dec_ckpt = run_dir / f"decoder_{cfg['train_name']}"
+    if has_checkpoint(str(dec_ckpt)):
+        for unet, sd in zip(decoder.unets,
+                            load_decoder_sampling_params(str(dec_ckpt), map_location=device)):
+            unet.load_state_dict(sd, strict=True)
+        log.info("loaded decoder %s", dec_ckpt)
+    else:
+        log.warning("no decoder checkpoint at %s: random decoder (smoke quality only)",
+                    dec_ckpt)
     return text_enc, DALLE2Video(prior, decoder)
 
 
@@ -72,9 +113,8 @@ def build_generate_batch(cfg: Dict[str, Any], log: logging.Logger,
     keywords. ddim_steps=None runs each stage's configured schedule (full
     DDPM when sample_timesteps is null); a number runs that many steps of
     the configured few-step sampler (``sampler``: ddim or dpmpp)."""
-    text_enc, wrapper = build_stack(cfg, device)
+    text_enc, wrapper = build_stack(cfg, device, log=log)
     dev = wrapper.decoder.device
-    log.warning("random weights (no checkpoints in the repository): smoke quality only")
 
     def embed(texts):
         return text_enc(torch.as_tensor(tokenize(list(texts)), device=dev))

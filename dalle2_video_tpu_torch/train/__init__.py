@@ -1,13 +1,19 @@
-"""Decoder training (port of dalle2_video_tpu/train: trainer, EMA,
-checkpoints). ``python -m dalle2_video_tpu_torch.train`` is the counterpart
-of scripts/train_decoder.py (see ``__main__.py``)."""
+"""Training (port of dalle2_video_tpu/train: the decoder trainer, the CLIP
+trainer, EMA, checkpoints). ``python -m dalle2_video_tpu_torch.train`` is
+the counterpart of scripts/train_decoder.py (see ``__main__.py``);
+``python -m dalle2_video_tpu_torch.train.train_clip``, ``.eval_clip`` and
+``.train_prior`` those of scripts/train_clip.py, eval_clip.py and
+train_prior.py."""
 
 from dalle2_video_tpu_torch.train.checkpoint import (
     PreemptionGuard,
     RollingCheckpointManager,
     has_checkpoint,
+    load_best,
     load_checkpoint,
+    load_decoder_sampling_params,
     load_latest,
+    load_params_subtree,
     save_checkpoint,
 )
 from dalle2_video_tpu_torch.train.ema import EMAConfig, EMAState, ema_init, ema_update
@@ -23,7 +29,10 @@ __all__ = [
     "ema_init",
     "ema_update",
     "has_checkpoint",
+    "load_best",
     "load_checkpoint",
+    "load_decoder_sampling_params",
     "load_latest",
+    "load_params_subtree",
     "save_checkpoint",
 ]

@@ -44,8 +44,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from dalle2_video_tpu_torch.data.datasets import BatchLoader, CelebVTextDataset, split_indices
-from dalle2_video_tpu_torch.data.worker_loader import make_worker_loader
+from dalle2_video_tpu_torch.data.datasets import CelebVTextDataset, split_indices
 from dalle2_video_tpu_torch.engine.decoder import build_decoder
 from dalle2_video_tpu_torch.train.checkpoint import (
     PreemptionGuard,
@@ -53,6 +52,7 @@ from dalle2_video_tpu_torch.train.checkpoint import (
     has_checkpoint,
     load_latest,
 )
+from dalle2_video_tpu_torch.train.common import check_single_device, make_loaders
 from dalle2_video_tpu_torch.train.ema import EMAConfig
 from dalle2_video_tpu_torch.train.trainer import DecoderTrainer, DecoderTrainerConfig
 from dalle2_video_tpu_torch.utils.config import config_from_argv
@@ -104,29 +104,6 @@ def smoke_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return cfg
 
 
-def _check_single_device(cfg: Dict[str, Any]) -> None:
-    mesh = cfg.get("mesh") or {}
-    if mesh.get("data", -1) not in (-1, 1) or mesh.get("model", 1) != 1:
-        raise NotImplementedError(
-            f"mesh {mesh}: data-parallel / sharded training is not ported yet "
-            "(one device only)")
-
-
-def make_loaders(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray], dev):
-    """The train (shuffled, seed + epoch) and val loaders: worker processes
-    under ``loader: grain`` (pinned memory on CUDA), else the thread loader;
-    the smoke run's synthetic set always takes the thread loader."""
-    bs = cfg["decoder"]["batch_size"]
-    if str(cfg.get("loader", "thread")) == "grain" and not bool(cfg.get("smoke", False)):
-        kw = dict(worker_count=int(cfg.get("loader_workers", 4)),
-                  pin_memory=torch.device(dev).type == "cuda")
-        return (make_worker_loader(dataset, bs, splits["train"], shuffle=True,
-                                   seed=cfg["seed"], **kw),
-                make_worker_loader(dataset, bs, splits["val"], shuffle=False, **kw))
-    return (BatchLoader(dataset, bs, splits["train"], shuffle=True, seed=cfg["seed"]),
-            BatchLoader(dataset, bs, splits["val"], shuffle=False))
-
-
 def store_dataset(cfg: Dict[str, Any]):
     """The decoder-stage CelebVTextDataset of ``videos.preprocessed`` /
     ``videos.embed`` and its seeded train / val split."""
@@ -140,7 +117,7 @@ def train_decoder(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray],
                   ) -> Dict[str, Any]:
     """The training loop of scripts/train_decoder.py on one device. Returns
     the trainer and the last epoch's mean train / val losses per unet."""
-    _check_single_device(cfg)
+    check_single_device(cfg)
     dev = resolve_device(device)
     train_loader, val_loader = make_loaders(cfg, dataset, splits, dev)
     trainer = build_trainer(cfg, build_decoder(cfg, dev))

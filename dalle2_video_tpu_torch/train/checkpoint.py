@@ -7,9 +7,12 @@ EMA shadows, step counts) and a ``framework_version`` stamp. Saves are
 synchronous and atomic (written to a temporary name, then renamed), so a
 crash never leaves half a checkpoint under a step's name.
 
-``RollingCheckpointManager`` keeps the newest ``max_to_keep`` steps under
-``recent/``, the ``best_k`` steps by a metric (min mode) under ``best/``,
-and every ``keep_period``-th step permanently. ``PreemptionGuard`` turns
+``load_latest`` / ``load_best`` read the newest / best state of either
+layout; ``load_params_subtree`` takes the model's parameters out of a
+full training state (``{"params", "opt_state"[, "ema"]}``), the EMA shadow
+preferred. ``RollingCheckpointManager`` keeps the newest ``max_to_keep``
+steps under ``recent/``, the ``best_k`` steps by a metric (min mode) under
+``best/``, and every ``keep_period``-th step permanently. ``PreemptionGuard`` turns
 SIGTERM into a flag the training loop polls, then saves and exits 143.
 """
 
@@ -194,3 +197,41 @@ def load_latest(path: str, map_location: Any = "cpu") -> Any:
     if (p / "recent").exists():
         return RollingCheckpointManager(str(p)).restore_latest(map_location)
     return load_checkpoint(str(p), map_location)
+
+
+def load_best(path: str, map_location: Any = "cpu") -> Any:
+    """Best-metric state under ``path`` (the newest where no step carries
+    the metric), whichever layout."""
+    p = Path(path).absolute()
+    if (p / "recent").exists():
+        return RollingCheckpointManager(str(p)).restore_best(map_location)
+    return load_checkpoint(str(p), map_location)
+
+
+def load_params_subtree(path: str, which: str = "best", prefer_ema: bool = True,
+                        map_location: Any = "cpu") -> Any:
+    """The model's parameters from a stage's checkpoint directory: from a
+    full training state ``{"params", "opt_state"[, "ema"]}`` its EMA
+    shadow's params when present and ``prefer_ema``, else its params; any
+    other saved object (bare params) as it is. ``which``: "best" or
+    "latest"."""
+    if which not in ("best", "latest"):
+        raise ValueError(f"which must be 'best' or 'latest', not {which!r}")
+    raw = (load_best if which == "best" else load_latest)(path, map_location)
+    if isinstance(raw, dict) and "params" in raw and "opt_state" in raw:
+        ema = raw.get("ema")
+        if prefer_ema and isinstance(ema, dict) and "params" in ema:
+            return ema["params"]
+        return raw["params"]
+    return raw
+
+
+def load_decoder_sampling_params(path: str,
+                                 map_location: Any = "cpu") -> List[Dict[str, torch.Tensor]]:
+    """The decoder's sampling state from the best training state under
+    ``path`` (``DecoderTrainer.state_dict``): one state dict per unet, its
+    parameters the EMA shadow's where the trainer kept one, as
+    ``DecoderTrainer.sampling_params``."""
+    state = load_best(path, map_location)
+    return [sd if ema is None else dict(sd, **ema["params"])
+            for sd, ema in zip(state["params"], state["ema"])]

@@ -255,5 +255,5 @@ class DecoderTrainer:
                 self.ema[i].step = int(e["step"])
         self.steps = [int(s) for s in state["steps"]]
         if state.get("generator") is not None:
-            self.generator.set_state(state["generator"])
+            self.generator.set_state(state["generator"].cpu())
         self.decoder._sampling_unets.clear()

@@ -13,13 +13,34 @@ streams; tests that compare with the JAX package inject the JAX draws.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import contextlib
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 _MASK63 = (1 << 63) - 1
 _SPLIT, _FOLD = 0, 1
+
+
+def derive_generator(seed: int, *path: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from ``seed`` and a path of
+    integers: distinct paths give independent streams."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_derive(seed, *path))
+    return g
+
+
+@contextlib.contextmanager
+def init_from(generator: torch.Generator) -> Iterator[None]:
+    """Modules built inside the block draw their initial weights from the
+    CPU ``generator`` (torch's initialisers use the default CPU generator):
+    the default generator's state is saved, set to the generator's, and
+    restored after; the generator is advanced past what the block drew."""
+    with torch.random.fork_rng(devices=[]):
+        torch.random.set_rng_state(generator.get_state())
+        yield
+        generator.set_state(torch.random.get_rng_state())
 
 
 def _derive(seed: int, *path: int) -> int:

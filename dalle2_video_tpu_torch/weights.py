@@ -21,6 +21,10 @@ tree (tests); the card never needs JAX.
 ``TrainState`` into a ``DecoderTrainer`` the same strict way: params, EMA
 shadows and steps, and the optax Adam moments ``mu`` / ``nu`` with their
 ``count`` as AdamW's ``exp_avg`` / ``exp_avg_sq`` / ``step``.
+``load_clip_train_state_from_jax`` does the same for a ``ClipTrainState``
+into a ``ClipTrainer`` (the ViViT's params, the temperature, the moments of
+both, the step), ``load_prior_train_state_from_jax`` for the prior's
+training state (params, Adam moments, EMA shadow) into a ``PriorTrainer``.
 """
 
 from __future__ import annotations
@@ -94,6 +98,64 @@ def load_from_jax(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.
     return module
 
 
+def _set_adam(optimizer: torch.optim.Optimizer, own: Mapping[str, torch.Tensor],
+              mu: Mapping[str, torch.Tensor], nu: Mapping[str, torch.Tensor],
+              count) -> None:
+    """optax scale_by_adam's mu, nu and count as the torch Adam / AdamW
+    state of the parameters ``own`` (by name)."""
+    optimizer.state.clear()
+    step = float(np.asarray(count))
+    for k, p in own.items():
+        optimizer.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
+                              "exp_avg": mu[k].to(p), "exp_avg_sq": nu[k].to(p)}
+
+
+def _load_ema(ema, tree, what: str) -> None:
+    if (tree is None) != (ema is None):
+        raise ValueError(f"{what}: EMA present in one of state and trainer only")
+    if tree is not None:
+        for k, v in _strict(tree["params"], ema.params, what).items():
+            ema.params[k].copy_(v)
+        ema.step = int(np.asarray(tree["step"]))
+
+
+@torch.no_grad()
+def load_clip_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
+    """Strict load of a JAX ClipTrainState, given as numpy trees:
+    ``{"vivit_params": flax params, "temperature": scalar, "opt_state":
+    {"mu": {"vivit": tree, "temp": scalar}, "nu": ..., "count": int},
+    "step": int}``."""
+    load_from_jax(trainer.vivit, state["vivit_params"])
+    trainer.temperature.copy_(torch.as_tensor(np.asarray(state["temperature"])))
+    own = dict(trainer.vivit.named_parameters())
+    opt = state["opt_state"]
+    moments = []
+    for m in ("mu", "nu"):
+        if set(opt[m]) != {"vivit", "temp"}:
+            raise ValueError(f"opt_state {m} holds {sorted(opt[m])}, not vivit and temp")
+        sd = dict(_strict(opt[m]["vivit"], own, f"vivit {m}"))
+        sd["temperature"] = torch.as_tensor(np.asarray(opt[m]["temp"], dtype=np.float32))
+        moments.append(sd)
+    _set_adam(trainer.optimizer, {**own, "temperature": trainer.temperature}, *moments,
+              opt["count"])
+    trainer.step = int(np.asarray(state["step"]))
+
+
+@torch.no_grad()
+def load_prior_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
+    """Strict load of the JAX prior's training state, given as numpy trees:
+    ``{"params": flax params, "opt_state": {"mu", "nu": trees, "count":
+    int}, "ema": {"params": tree, "step": int} or None, "step": int}``."""
+    net = trainer.prior.network
+    load_from_jax(net, state["params"])
+    own = dict(net.named_parameters())
+    opt = state["opt_state"]
+    _set_adam(trainer.optimizer, own, _strict(opt["mu"], own, "prior mu"),
+              _strict(opt["nu"], own, "prior nu"), opt["count"])
+    _load_ema(trainer.ema, state["ema"], "prior ema")
+    trainer.step = int(np.asarray(state["step"]))
+
+
 @torch.no_grad()
 def load_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
     """Strict load of a JAX decoder TrainState, given as numpy trees:
@@ -110,21 +172,8 @@ def load_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
         load_from_jax(unet, state["params"][f"unet_{i}"])
         own = dict(unet.named_parameters())
         opt = state["opt_states"][i]
-        mu = _strict(opt["mu"], own, f"unet_{i} mu")
-        nu = _strict(opt["nu"], own, f"unet_{i} nu")
-        adam = trainer.optimizers[i]
-        adam.state.clear()
-        step = float(np.asarray(opt["count"]))
-        for k, p in own.items():
-            adam.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
-                             "exp_avg": mu[k].to(p), "exp_avg_sq": nu[k].to(p)}
-        ema = state["ema"][i]
-        if (ema is None) != (trainer.ema[i] is None):
-            raise ValueError(f"unet_{i}: EMA present in one of state and trainer only")
-        if ema is not None:
-            shadow = _strict(ema["params"], trainer.ema[i].params, f"unet_{i} ema")
-            for k, v in shadow.items():
-                trainer.ema[i].params[k].copy_(v)
-            trainer.ema[i].step = int(np.asarray(ema["step"]))
+        _set_adam(trainer.optimizers[i], own, _strict(opt["mu"], own, f"unet_{i} mu"),
+                  _strict(opt["nu"], own, f"unet_{i} nu"), opt["count"])
+        _load_ema(trainer.ema[i], state["ema"][i], f"unet_{i} ema")
     trainer.steps = [int(np.asarray(s)) for s in state["steps"]]
     trainer.decoder._sampling_unets.clear()

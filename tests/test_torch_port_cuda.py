@@ -894,3 +894,125 @@ def test_dpmpp_stage_kernels_match_plain(dev):
     torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
     assert float(((want > 0) & (want < 1)).float().mean()) > 0.5
     torch.testing.assert_close(got[:, :1], video[:, :1], atol=1e-6, rtol=0)
+
+
+# --------------------------------------------------------------- stages 1 and 2
+# No kernel lies on them: the ViViT, the CLIP step and the prior step run
+# plain PyTorch on the card (f32, TF32 off), held here to the same on the
+# CPU; the serving stack then loads what the stages' entry points wrote.
+_VIVIT = dict(frame_size=16, patch_size=8, num_frames=25, dim=24, depth=1, heads=2,
+              dim_head=8)
+_TEXT = dict(vocab_size=1000, width=32, heads=2, layers=1, embed_dim=24)
+
+
+def _step_params_close(card, cpu, lr):
+    """Params after one Adam step from one init: Adam's first update is
+    lr * g / (|g| + eps), so a gradient that cancels to noise may take
+    either sign on either device. At most 0.1% of the values may differ by
+    more than 1e-5, none by more than 2 lr + 1e-5."""
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten()
+                       for a, b in zip(card, cpu)])
+    assert float(diffs.max()) <= 2 * lr + 1e-5, float(diffs.max())
+    assert float((diffs > 1e-5).float().mean()) <= 1e-3
+
+
+def test_vivit_forward_and_clip_step_on_cuda_match_cpu(dev):
+    """The ViViT forward (f32, 1e-5 of the output's scale) and one
+    ClipTrainer step (loss, temperature, top1 / top10 at 1e-5 relative;
+    params as _step_params_close) on the card against the CPU, from the
+    towers clip_stage_generators(0) builds on both."""
+    from dalle2_video_tpu_torch.models.clip_text import CLIPTextConfig
+    from dalle2_video_tpu_torch.models.vivit import ViViTConfig
+    from dalle2_video_tpu_torch.train.clip_trainer import ClipTrainer
+
+    g = torch.Generator().manual_seed(0)
+    videos = torch.randn(4, 25, 16, 16, 3, generator=g)
+    tokens = torch.randint(1, 1000, (4, 77), generator=g)
+    card, cpu = (ClipTrainer(ViViTConfig(**_VIVIT), CLIPTextConfig(**_TEXT), device=d)
+                 for d in (dev, "cpu"))
+    got = card.embed_video(videos).cpu()
+    want = cpu.embed_video(videos)
+    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+    m_card = card.train_step(videos.to(dev), tokens.to(dev))
+    m_cpu = cpu.train_step(videos, tokens)
+    for k in ("loss", "temperature", "top1", "top10"):
+        torch.testing.assert_close(m_card[k].cpu(), m_cpu[k], rtol=1e-5, atol=1e-6)
+    _step_params_close([*card.vivit.parameters(), card.temperature],
+                       [*cpu.vivit.parameters(), cpu.temperature], card.cfg.lr)
+
+
+def test_prior_step_on_cuda_matches_cpu(dev):
+    """One PriorTrainer step with the same draws on the card and the CPU:
+    the loss (1e-5 relative) and the params (as _step_params_close); the
+    card trainer's state, saved and loaded back mapped to the card (its
+    generator's state then lies on the card too), resumes it exactly."""
+    import io
+
+    from dalle2_video_tpu_torch.train.train_prior import build_prior_trainer
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    cfg = load_config(None, ["dim=32", "prior.depth=2", "prior.heads=2", "prior.dim_head=8",
+                             "prior.timesteps=100"])
+    g = torch.Generator().manual_seed(1)
+    ve, te = torch.randn(8, 32, generator=g), torch.randn(8, 32, generator=g)
+    draws = {"times": torch.randint(0, 100, (8,), generator=g),
+             "noise": torch.randn(8, 32, generator=g),
+             "text_keep": torch.rand(8, generator=g) < 0.9}
+    card, cpu = build_prior_trainer(cfg, dev), build_prior_trainer(cfg, "cpu")
+    got = card.train_step(ve.to(dev), te.to(dev), draws={k: v.to(dev) for k, v in draws.items()})
+    want = cpu.train_step(ve, te, draws=draws)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    _step_params_close(list(card.prior.network.parameters()),
+                       list(cpu.prior.network.parameters()), float(cfg["prior"]["lr"]))
+    buf = io.BytesIO()
+    torch.save(card.state_dict(), buf)
+    buf.seek(0)
+    again = build_prior_trainer(cfg, dev)
+    again.load_state_dict(torch.load(buf, map_location=dev, weights_only=False))
+    assert torch.equal(again.generator.get_state(), card.generator.get_state())
+    assert all(torch.equal(a, b) for a, b in zip(again.prior.network.parameters(),
+                                                card.prior.network.parameters()))
+
+
+def test_serve_stack_loads_the_stages_checkpoints_onto_the_card(dev, tmp_path):
+    """train_prior (use_ema) and the decoder's entry point run on the CPU on
+    seeded embeddings and videos; build_stack on the card then serves the
+    prior checkpoint's EMA shadow and the best decoder state's EMA shadows
+    bit for bit, and answers a request."""
+    import logging
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.serve import stack
+    from dalle2_video_tpu_torch.train import load_best, load_params_subtree
+    from dalle2_video_tpu_torch.train import train_prior
+    from dalle2_video_tpu_torch.train.__main__ import SyntheticVideos, train_decoder
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    rng = np.random.default_rng(0)
+    for name in ("videos", "texts"):
+        np.save(tmp_path / f"{name}.npy", rng.standard_normal((6, 24)).astype(np.float32))
+    args = [f"run_dir={tmp_path}/runs", f"videos.embed={tmp_path}/videos.npy",
+            f"texts.embed={tmp_path}/texts.npy", "dim=24", "prior.depth=1", "prior.heads=2",
+            "prior.dim_head=8", "prior.batch_size=2", "prior.epochs=2", "prior.use_ema=true",
+            "prior.ema_update_after_step=1", "prior.ema_update_every=1",
+            "prior.sample_timesteps=2", "frame_sizes=[8,16]", "frame_numbers=[2,2]",
+            "decoder.batch_size=2", "decoder.bf16_compute=false", "loader=thread",
+            "unet1.dim=16", "unet2.dim=8", *(f"unet{u}.{k}" for u in (1, 2) for k in (
+                "dim_mults=[1,2]", "num_resnet_blocks=1", "attn_heads=2", "attn_dim_head=8"))]
+    train_prior.main(args + ["device=cpu"])
+    cfg = load_config(None, args)
+    data = SyntheticVideos(4, 2, 16, 24)
+    train_decoder(dict(cfg, decoder=dict(cfg["decoder"], epochs=1)), data,
+                  {"train": np.arange(2), "val": np.arange(2, 4)}, "cpu")
+    text_enc, wrapper = stack.build_stack(cfg, dev)
+    served = dict(wrapper.prior.network.named_parameters())
+    for k, v in load_params_subtree(f"{tmp_path}/runs/prior_default").items():
+        assert served[k].is_cuda and torch.equal(served[k].cpu(), v), k
+    state = load_best(f"{tmp_path}/runs/decoder_default")
+    for i, unet in enumerate(wrapper.decoder.unets):
+        ema = state["ema"][i]["params"]
+        assert all(torch.equal(p.cpu(), ema[k]) for k, p in unet.named_parameters())
+    generate = stack.build_generate_batch(cfg, logging.getLogger("test"), dev)
+    video = generate(["a person smiling"], [3], cond_scale=3.0, ddim_steps=2)
+    assert video.shape == (1, 2, 16, 16, 3) and np.isfinite(video).all()

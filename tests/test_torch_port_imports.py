@@ -43,6 +43,10 @@ def test_source_scan_finds_no_banned_import():
         "datasets", "shards", "worker_loader", "preprocess")} <= set(_modules())
     assert {"dalle2_video_tpu_torch.engine.longvideo",
             "dalle2_video_tpu_torch.utils.chunked"} <= set(_modules())
+    # and stages 1-2: the CLIP stage, the embeddings handoff, the prior's trainer
+    assert {"dalle2_video_tpu_torch.models.vivit", "dalle2_video_tpu_torch.utils.contrastive",
+            *(f"dalle2_video_tpu_torch.train.{m}" for m in (
+                "clip_trainer", "common", "train_clip", "eval_clip", "train_prior"))} <= set(_modules())
 
 
 def test_every_module_imports_with_jax_blocked():

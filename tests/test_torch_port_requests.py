@@ -518,7 +518,7 @@ def test_guided_inpainting_refused_with_flash_cross_attention_on_both_sides():
 
 
 # ------------------------------------------------------------ the serving
-def test_serving_stack_answers_every_request_option():
+def test_serving_stack_answers_every_request_option(tmp_path):
     """build_generate_batch (the smoke stack, sampler from a config
     override) behind GenerationEngine answers a negative prompt,
     inpainting by replacement and by guidance, long video and the DPM++
@@ -541,7 +541,7 @@ def test_serving_stack_answers_every_request_option():
         "long": dict(n_frames=3, overlap=1),
     }
     for sampler in ("ddim", "dpmpp"):
-        cfg = apply_smoke(config_from_argv([f"sampler={sampler}"]))
+        cfg = apply_smoke(config_from_argv([f"sampler={sampler}", f"run_dir={tmp_path}"]))
         gb = build_generate_batch(cfg, logging.getLogger("test"), device="cpu")
         if sampler == "ddim":
             want = set(inspect.signature(gb).parameters)

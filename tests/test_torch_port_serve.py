@@ -27,8 +27,9 @@ torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
-def generate_batch():
-    cfg = apply_smoke(load_config(None))
+def generate_batch(tmp_path_factory):
+    # an empty run_dir: random weights from sample_seed, whatever lies under ./runs
+    cfg = dict(apply_smoke(load_config(None)), run_dir=str(tmp_path_factory.mktemp("runs")))
     return build_generate_batch(cfg, logging.getLogger("test"), device="cpu")
 
 
@@ -59,14 +60,15 @@ def test_seed_video_independent_of_bucket(generate_batch):
     assert not np.allclose(pair[0], pair[1])
 
 
-def test_max_batch_size_chunking_keeps_each_rows_video():
+def test_max_batch_size_chunking_keeps_each_rows_video(tmp_path):
     """decoder.sample(max_batch_size=1) splits the batch; each row keeps its
     key, so the videos match the unchunked run (f32, 1e-5)."""
     from dalle2_video_tpu_torch.data.tokenizer import tokenize
     from dalle2_video_tpu_torch.serve.stack import build_stack
     from dalle2_video_tpu_torch.utils.keys import RowKeys
 
-    text_enc, wrapper = build_stack(apply_smoke(load_config(None)), "cpu")
+    text_enc, wrapper = build_stack(dict(apply_smoke(load_config(None)), run_dir=str(tmp_path)),
+                                    "cpu")
     with torch.no_grad():
         embed = text_enc(torch.from_numpy(tokenize(["a", "b", "c"])))
     keys = RowKeys.from_request_seeds([1, 2, 3])
