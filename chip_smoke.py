@@ -16,7 +16,11 @@ Phases (any failure exits non-zero and prints no result line):
      (FLASH_BWD_CASES); the cross-attention (row 5) at every shape the
      serving paths give it (SERVE_SITES of probes/xattn_rows.py, at the CFG
      batch of a group of one and of two requests), each timed, and summed
-     over one DDIM step beside that step's bound; the GroupNorm kernels
+     over one DDIM step beside that step's bound; past 16 keys (the long
+     route: per-frame and text tokens) at every m of LONG_MS (bf16 and f32)
+     and at every shape serve_text gives it (TEXT_SITES), each timed beside
+     its bound and SDPA, each serve_text request's DDIM step summed
+     (check_xattn_text); the GroupNorm kernels
      (rows 3, 4 and 9) at every (batch, shape) the paths give them
      (probes/gn_rows.py: the map), each held and timed, row 3 summed over
      one serve DDIM step at each CFG batch;
@@ -59,6 +63,14 @@ Phases (any failure exits non-zero and prints no result line):
      time and frames/s printed with the card. Then the three
      cross-attention routes (broadcast, xla, row 5) timed at the 7 serving
      shapes;
+  4c. serve_text: the serve recipe with every unet and the prior
+     conditioned on the 12 x 512 text tower's encodings (max_text_len 256,
+     built with dataclasses.replace: TEXT_UNET), TEXT_STEPS DDIM steps a
+     stage, one request at a time through DALLE2Video.generate: (a) a
+     global video embed, then the same with negative text encodings, (b)
+     temporal_emb on a decoder whose unet 1 takes per-frame embeds (90
+     prior rows, best-of-2); launches of rows 1, 3 and 5 and row 5's
+     shapes (TEXT_REQUESTS) as the structure predicts;
   5. train: the decoder training path at the same widths and recipe
      (attention_impl auto -> flash at the 5760-token bottlenecks,
      cross_attention_impl xla, bf16 compute, batch 2) on synthetic
@@ -69,6 +81,11 @@ Phases (any failure exits non-zero and prints no result line):
      as the unet structure predicts, and no weight-gradient shape that
      phase 2 did not check. Prints ms per step, samples/s and peak
      memory;
+ 5a. train_text: the "train" recipe with text encodings from the frozen
+     text tower on both unets and per-frame embeds on unet 1
+     (text_cond_drop_prob 0.5), TEXT_TRAIN_STEPS steps a unet and
+     eval_loss: finite losses, every parameter moved, EMA counts, rows 1-4
+     and the GroupNorm calls as the structure predicts;
  5b. stages 1 and 2 (the README's train_clip -> eval_clip -> train_prior),
      which launch no kernel: "train_clip" times CLIP_STEPS steps of the
      recipe's ViViT (224^2, patch 56, 150 frames, dim 512, depth 2, 3 x 64
@@ -185,11 +202,17 @@ try:
     from dalle2_video_tpu_torch.probes import gn_rows
     from dalle2_video_tpu_torch.probes.xattn_rows import BATCHES as XA_BATCHES
     from dalle2_video_tpu_torch.probes.xattn_rows import (
+        LONG_MS,
         SERVE_SITES,
+        TEXT_LEN,
+        TEXT_REQUESTS,
+        TEXT_SITES,
         hold_bf16,
         serve_shapes,
         sites_per_step,
+        text_shapes,
     )
+    from dalle2_video_tpu_torch.probes.xattn_rows import bound as xa_bound
 except ImportError as exc:
     print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
     sys.exit(2)
@@ -510,7 +533,7 @@ def check_kernels(dev, torch):
     check("cross_attention_fwd", "f32 check b=2 n=1000 m=7",
           xa.cross_attention(q, k, v, sm_scale=sc), xa.fused_cross_attention_reference(q, k, v, sc),
           atol=1e-5, rtol=0.0)
-    steps = {}
+    steps, ms_at = {}, {}
     for b in XA_BATCHES:
         step = steps[str(b)] = dict(ms=0.0, bound_ms=0.0)
         for unet, n, m, sites in SERVE_SITES:
@@ -529,8 +552,8 @@ def check_kernels(dev, torch):
             log(f"cross_attention_fwd {label}: {held['text']}")
             if not torch.equal(out, run()):
                 raise AssertionError(f"cross_attention_fwd {label}: two calls differ")
-            bnd, by = bound(2 * (2 * q.numel() + 2 * k.numel()), flops=4.0 * b * h * n * m * d)
-            kms = time_ms(run)
+            bnd, by = xa_bound(b, n, h, d, m)
+            kms = ms_at[(b, n, m)] = time_ms(run)
             step["ms"] += sites * kms
             step["bound_ms"] += sites * bnd
             log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}); {sites} calls a DDIM step")
@@ -549,8 +572,80 @@ def check_kernels(dev, torch):
         log(f"cross_attention_fwd: one DDIM step's {sites_per_step()} calls at batch {b} "
             f"{step['ms']:.4f} ms, bound {step['bound_ms']:.4f} ms")
     rows["cross_attention_fwd"]["serve_step"] = steps
+    rows["cross_attention_fwd"]["text"] = check_xattn_text(dev, torch, g, ms_at)
     torch.cuda.empty_cache()
     return rows
+
+
+def check_xattn_text(dev, torch, g, ms_at):
+    """Row 5 past the short route's 16 keys: held at every m of LONG_MS
+    (bf16 by hold_bf16, f32 within 1e-5) on q (2, 4000, 8, 64), a ragged
+    tail of tokens; then, bf16, at every shape serve_text gives it with
+    m > 16 (probes/xattn_rows.py: TEXT_SITES, at each CFG batch), each held,
+    two calls bit-equal, timed beside its bound and SDPA, and each
+    serve_text request's DDIM step summed (its m <= 16 shapes are the
+    serving ones, timed before: ``ms_at``). Returns the JSON row's part."""
+    import torch.nn.functional as F
+
+    from dalle2_video_tpu_torch.ops import cross_attention as xa
+
+    sc = 64**-0.5
+    for m in LONG_MS:
+        q = torch.randn(2, 4000, 8, 64, generator=g, device=dev)
+        k, v = (torch.randn(2, m, 8, 64, generator=g, device=dev) for _ in range(2))
+        check("cross_attention_fwd", f"f32 b=2 n=4000 m={m}",
+              xa.cross_attention(q, k, v, sm_scale=sc),
+              xa.fused_cross_attention_reference(q, k, v, sc), atol=1e-5, rtol=0.0)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        out = xa.cross_attention(q, k, v, sm_scale=sc)
+        try:
+            held = hold_bf16(out, xa.fused_cross_attention_reference(q, k, v, sc), q, k, v, sc)
+        except AssertionError as exc:
+            raise AssertionError(f"cross_attention_fwd bf16 m={m}: {exc}") from None
+        log(f"cross_attention_fwd bf16 b=2 n=4000 m={m}: {held['text']}")
+    shapes = {}
+    for b in XA_BATCHES:
+        for unet, n, m, sites in TEXT_SITES:
+            if m <= 16:
+                continue
+            h, d = 8, 64
+            q = torch.randn(b, n, h, d, generator=g, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn(b, m, h, d, generator=g, device=dev).to(q.dtype)
+                    for _ in range(2))
+            run = lambda: xa.cross_attention(q, k, v, sm_scale=sc)  # noqa: E731
+            out = run()
+            label = f"unet{unet} b={b} n={n} h={h} d={d} m={m}"
+            try:
+                held = hold_bf16(out, xa.fused_cross_attention_reference(q, k, v, sc), q, k, v, sc)
+            except AssertionError as exc:
+                raise AssertionError(f"cross_attention_fwd {label}: {exc}") from None
+            if not torch.equal(out, run()):
+                raise AssertionError(f"cross_attention_fwd {label}: two calls differ")
+            bnd, by = xa_bound(b, n, h, d, m)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            rec = ms_at[(b, n, m)] = dict(
+                ms=time_ms(run), bound_ms=bnd, bound_by=by,
+                sdpa_ms=library_time("cross_attention_fwd",
+                                     lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                max_abs_err=held["max_abs_err"])
+            shapes[label] = rec
+            log(f"cross_attention_fwd {label}: {held['text']}; ms={rec['ms']:.4f} "
+                f"bound_ms={bnd:.4f} ({by}) sdpa_ms={rec['sdpa_ms']}; {sites} calls a DDIM step")
+            del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    steps = {}
+    for b in XA_BATCHES:
+        for r, sites in TEXT_REQUESTS.items():
+            key = f"request {r} batch {b}"
+            at = lambda n, m: ms_at[(b, n, m)]  # noqa: E731
+            steps[key] = dict(
+                calls=sum(s[3] for s in sites),
+                ms=sum(s[3] * (at(s[1], s[2])["ms"] if s[2] > 16 else at(s[1], s[2]))
+                       for s in sites),
+                bound_ms=sum(s[3] * xa_bound(b, s[1], 8, 64, s[2])[0] for s in sites))
+            log(f"cross_attention_fwd: serve_text {key}: one DDIM step's {steps[key]['calls']} "
+                f"calls {steps[key]['ms']:.4f} ms, bound {steps[key]['bound_ms']:.4f} ms")
+    return dict(shapes=shapes, serve_text_step=steps)
 
 
 def check_backward_kernels(dev, torch, rows):
@@ -1569,6 +1664,271 @@ def serve_options(dev, torch, run_dir: str):
     log(f"serve_options: flash backward routes {BWD_KERNEL.routes}")
     time_xattn_routes(dev, torch)
     return launches
+
+# --------------------------------------------------------------- phase 4c
+# serve_text / train_text: the celebv_text unets (and, serving, the prior)
+# conditioned on the 12 x 512 text tower's (b, 77, 512) encodings, built
+# through dataclasses.replace as the JAX tests build them (no config key);
+# the decoders' max_text_len is TEXT_LEN (256)
+TEXT_UNET = dict(cond_on_text_encodings=True, text_embed_dim=512, max_text_len=TEXT_LEN)
+TEXT_STEPS = 10  # DDIM steps a stage of each serve_text request
+TEXT_TRAIN_STEPS = 3
+
+
+def text_decoder(cfg, dev, per_frame: bool):
+    """build_decoder's cascade for ``cfg`` with every unet conditioned on
+    text encodings (TEXT_UNET); ``per_frame`` builds unet 1 for per-frame
+    (b, k, d) video embeds. Weights from torch's default generator."""
+    import dataclasses
+    from unittest import mock
+
+    from dalle2_video_tpu_torch.engine import decoder as dmod
+
+    with mock.patch.object(dmod, "VideoDecoder", lambda config, device: config):
+        dcfg = dmod.build_decoder(cfg, dev)
+    dcfg = dataclasses.replace(dcfg, unets=tuple(dataclasses.replace(u, **TEXT_UNET)
+                                                 for u in dcfg.unets))
+    return dmod.VideoDecoder(dcfg, dev, per_frame_embeds=per_frame)
+
+
+def serve_text(dev, torch, profile: bool = False):
+    """serve_text: the serve recipe with text encodings, TEXT_STEPS DDIM
+    steps a stage, cond_scale 3.0, one request at a time through
+    DALLE2Video.generate: (a) a global video embed with the encodings of "a
+    person smiling" (the prior's network takes them too), then the same
+    with the encodings of "a person frowning" as negative_text_encodings;
+    (b) temporal_emb on a decoder whose unet 1 takes per-frame embeds: a
+    seeded (1, 512, 90) text embed, the same encodings, so 90 prior rows
+    (best-of-2) and 93 / 349 context keys at unet 1's sites. Every video
+    finite, of its shape, in [0, 1]; the negative and (b) change the video;
+    every request's launches (rows 1, 3, 5) as the structure predicts, and
+    row 5's shapes exactly TEXT_REQUESTS' at CFG batch 2. With ``profile``,
+    (a) and (b) again under torch.profiler."""
+    import dataclasses
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.data.tokenizer import tokenize
+    from dalle2_video_tpu_torch.engine.dalle2video import DALLE2Video
+    from dalle2_video_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from dalle2_video_tpu_torch.models.prior import DiffusionPrior, prior_from_config
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.utils.keys import RowKeys
+
+    card = card_line()
+    cfg, knobs = path_config(SERVE_PATHS["serve"])
+    t0 = time.time()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        text_enc = CLIPTextEncoder(CLIPTextConfig(embed_dim=cfg["dim"])).to(dev).eval()
+        pc = prior_from_config(cfg, dev).config
+        prior = DiffusionPrior(dataclasses.replace(pc, network=dataclasses.replace(
+            pc.network, cond_on_text_encodings=True, text_encoding_dim=text_enc.cfg.width)), dev)
+        decoders = {pf: text_decoder(cfg, dev, pf) for pf in (False, True)}
+    # the output convs start at zero (the JAX init), which would make the
+    # unets ignore their conditioning: redraw them, seeded
+    gen = torch.Generator().manual_seed(1)
+    for dec in decoders.values():
+        for unet in dec.unets:
+            w = unet.to_out.Conv_0.weight
+            bnd = 1.0 / w[0].numel() ** 0.5
+            with torch.no_grad():
+                w.copy_(torch.empty(w.shape).uniform_(-bnd, bnd, generator=gen))
+    n_params = [sum(p.numel() for p in u.parameters()) for u in decoders[True].unets]
+    log(f"serve_text: stack built in {time.time() - t0:.1f} s: text tower 12 x 512, prior with "
+        f"encoding tokens ({sum(p.numel() for p in prior.network.parameters()) / 1e6:.2f}M), "
+        f"unets with text (per-frame unet 1) {n_params[0] / 1e6:.2f}M / {n_params[1] / 1e6:.2f}M; "
+        f"{' '.join(knobs)}")
+    tokens = torch.as_tensor(tokenize(["a person smiling", "a person frowning"]), device=dev)
+    with torch.no_grad():
+        embeds, encs = text_enc(tokens, return_encodings=True)
+    enc, neg = encs[:1], encs[1:]
+    g = torch.Generator(device=dev).manual_seed(0)
+    frame_embed = torch.randn(1, cfg["dim"], cfg["frame_numbers"][0], generator=g, device=dev)
+    plain, temporal = DALLE2Video(prior, decoders[False]), DALLE2Video(
+        prior, decoders[True], temporal_emb=True)
+    requests = [("(a) text encodings", plain, embeds[:1], {}, "a"),
+                ("(a) with negative text encodings", plain, embeds[:1],
+                 dict(negative_text_encodings=neg), "a"),
+                ("(b) temporal_emb, per-frame embeds", temporal, frame_embed, {}, "b")]
+    t_win, size = cfg["frame_numbers"][-1], cfg["frame_sizes"][-1]
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset()
+    per_step = {"flash_mqa_fwd": 2, "groupnorm_film_silu_fwd": 54 + 66}
+    want, want_x, videos = Counter(), Counter(), {}
+
+    def request(wrapper, text_embed, kw):
+        return wrapper.generate(RowKeys.from_request_seeds([7]), text_embed, enc,
+                                cond_scale=3.0, sample_timesteps=TEXT_STEPS, **kw)
+
+    with ShapeRecord() as shapes:
+        for label, wrapper, text_embed, kw, req in requests:
+            before = {k.name: k.launches for k in kernels}
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            video = request(wrapper, text_embed, kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            got = {k.name: k.launches - before[k.name] for k in kernels}
+            xshapes = text_shapes(2, req)
+            expect = {k: TEXT_STEPS * n for k, n in per_step.items()}
+            expect["cross_attention_fwd"] = TEXT_STEPS * sum(xshapes.values())
+            if {k: v for k, v in got.items() if v} != expect:
+                raise AssertionError(f"serve_text {label}: launches {got}, the unet structure "
+                                     f"gives {expect}")
+            want.update(expect)
+            want_x.update({key: TEXT_STEPS * n for key, n in xshapes.items()})
+            vid = video[0].float().cpu().numpy()
+            if vid.shape != (t_win, size, size, 3):
+                raise AssertionError(f"serve_text {label}: shape {vid.shape}")
+            if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+                raise AssertionError(f"serve_text {label}: values not finite in [0, 1]")
+            videos[label] = vid
+            log(f"serve_text {label}: wall {wall:.3f} s, {t_win / wall:.2f} frames/s, peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {expect}; "
+                f"row 5 keys m {sorted({key[-1] for key in xshapes})}; mean {vid.mean():.3f} "
+                f"std {vid.std():.3f}; {card}")
+        launches = {k.name: k.launches for k in kernels}
+    shapes.check("serve_text", conv_path_shapes("serve_text"), want_x,
+                 gn_path_calls("serve", {2: len(requests)}, TEXT_STEPS))
+    log(f"serve_text: launches {launches} expected {dict(want)}")
+    if {k: v for k, v in launches.items() if v} != dict(want):
+        raise AssertionError("serve_text: kernel launch counts differ from the unet structure's")
+    (a, neg_label, b) = (r[0] for r in requests)
+    for other in (neg_label, b):
+        moved = float(np.mean(videos[a] != videos[other]))
+        log(f"serve_text: {other} changed {100 * moved:.2f}% of (a)'s values")
+        if moved == 0.0:
+            raise AssertionError(f"serve_text: {other} did not change the video")
+    if profile:
+        for label, wrapper, text_embed, kw, _ in requests[::2]:
+            profile_device(f"serve_text {label}", torch,
+                           lambda: request(wrapper, text_embed, kw))
+    del decoders, prior, text_enc, plain, temporal
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_text(dev, torch, profile: bool = False):
+    """train_text: the "train" recipe (batch 2, bf16 compute,
+    cross_attention_impl xla) with both unets conditioned on the frozen text
+    tower's encodings of seeded captions and unet 1 on per-frame embeds (a
+    seeded (2, 90, 512) on the card), text_cond_drop_prob 0.5:
+    TEXT_TRAIN_STEPS steps of each unet, then eval_loss each. Every loss
+    finite, every parameter (the text and per-frame ones named) moved, the
+    step and EMA counts right, every step's launches (rows 1-4) and the
+    GroupNorm calls as the structure predicts. With ``profile``, one step of
+    each unet under torch.profiler."""
+    import numpy as np
+
+    from dalle2_video_tpu_torch.data.tokenizer import tokenize
+    from dalle2_video_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+    from dalle2_video_tpu_torch.models.layers import kernel_init_
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.train.__main__ import SyntheticVideos, build_trainer
+
+    n_steps = TEXT_TRAIN_STEPS
+    cfg, knobs = path_config(TRAIN_PATHS["train"])
+    b = cfg["decoder"]["batch_size"]
+    frames, size = cfg["frame_numbers"][-1], cfg["frame_sizes"][-1]
+    t0 = time.time()
+    data = SyntheticVideos(b * (n_steps + 1), frames, size, cfg["dim"], cfg["channels"], seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        text_enc = CLIPTextEncoder(CLIPTextConfig(embed_dim=cfg["dim"])).to(dev).eval()
+        trainer = build_trainer(cfg, text_decoder(cfg, dev, per_frame=True))
+    for unet in trainer.decoder.unets:
+        w = unet.to_out.Conv_0.weight
+        kernel_init_(w, w[0].numel())
+    captions = [f"a person {w}" for w in ("smiling", "frowning", "talking", "laughing",
+                                          "nodding", "blinking", "singing", "crying")]
+    with torch.no_grad():
+        _, encs = text_enc(torch.as_tensor(tokenize(captions[:b * (n_steps + 1)]), device=dev),
+                           return_encodings=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    frame_embeds = torch.randn(b * (n_steps + 1), frames, cfg["dim"], generator=g, device=dev)
+    new = {1: ["text_to_cond.weight", "text_to_cond.bias", "null_text_embed",
+               "video_frame_to_token.weight", "video_frame_to_token.bias",
+               "null_video_frame_token"],
+           2: ["text_to_cond.weight", "text_to_cond.bias", "null_text_embed"]}
+    for u, names in new.items():
+        missing = set(names) - set(trainer.params(u - 1))
+        if missing:
+            raise AssertionError(f"train_text: unet {u} has no {sorted(missing)}")
+    log(f"train_text: trainer built in {time.time() - t0:.1f} s; batch {b}, encodings "
+        f"{tuple(encs.shape[1:])}, per-frame embeds {tuple(frame_embeds.shape[1:])}, "
+        f"text_cond_drop_prob {trainer.decoder.config.text_cond_drop_prob}; {' '.join(knobs)}")
+    start = [{k: p.detach().clone() for k, p in trainer.params(i).items()} for i in range(2)]
+    kernels = all_kernels()
+    as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+
+    def run(u, fn, backward):
+        for k in kernels:
+            k.reset()
+        want = {k.name: 0 for k in kernels}
+        recompute = backward and cfg[f"unet{u}"].get("checkpoint_during_training", False)
+        want.update(train_expected("train", u, backward, recompute))
+        torch.cuda.synchronize()
+        t = time.time()
+        out = float(fn())
+        torch.cuda.synchronize()
+        ms = (time.time() - t) * 1e3
+        got = {k.name: k.launches for k in kernels}
+        if got != want:
+            raise AssertionError(f"train_text: launches {got}, the unet structure predicts {want}")
+        check_bwd_routes("train_text", got)
+        if not np.isfinite(out):
+            raise AssertionError(f"train_text: unet {u} loss {out}")
+        for k, v in got.items():
+            totals[k] += v
+        return out, ms
+
+    totals = Counter()
+    ms = {1: [], 2: []}
+    sl = lambda i: slice(i * b, (i + 1) * b)  # noqa: E731
+    with ShapeRecord() as shapes:
+        for step in range(n_steps):
+            vid = as_dev(data.batch_items(np.arange(step * b, (step + 1) * b))["videos"])
+            for u in (1, 2):
+                loss, t_ms = run(u, lambda: trainer.train_step(
+                    vid, video_embed=frame_embeds[sl(step)], text_encodings=encs[sl(step)],
+                    unet_number=u), backward=True)
+                ms[u].append(t_ms)
+                log(f"train_text: step {step} unet {u}: loss {loss:.4f}, {t_ms:.1f} ms")
+    shapes.check("train_text", conv_path_shapes("train_text"),
+                 want_gn=gn_path_calls("train", steps=n_steps))
+    vid = as_dev(data.batch_items(np.arange(n_steps * b, (n_steps + 1) * b))["videos"])
+    for u in (1, 2):
+        val, t_ms = run(u, lambda: trainer.eval_loss(
+            vid, video_embed=frame_embeds[sl(n_steps)], text_encodings=encs[sl(n_steps)],
+            unet_number=u), backward=False)
+        log(f"train_text: eval_loss unet {u}: {val:.4f}, {t_ms:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if trainer.steps != [n_steps] * 2 or [e.step for e in trainer.ema] != [n_steps] * 2:
+        raise AssertionError(f"train_text: steps {trainer.steps}, EMA steps "
+                             f"{[e.step for e in trainer.ema]}")
+    for i in range(2):
+        still = [k for k, p in trainer.params(i).items() if torch.equal(p.detach(), start[i][k])]
+        if still:
+            raise AssertionError(f"train_text: unet {i + 1} params that never moved: {still[:5]}")
+    steady = {u: sum(ms[u][1:]) / max(len(ms[u]) - 1, 1) for u in (1, 2)}
+    log(f"train_text: ms per step (first, then mean of the rest): unet 1 {ms[1][0]:.1f} / "
+        f"{steady[1]:.1f}, unet 2 {ms[2][0]:.1f} / {steady[2]:.1f}; samples/s both "
+        f"{b / (steady[1] + steady[2]) * 1e3:.2f}; peak memory {peak:.2f} GiB; every parameter "
+        f"moved, the new ones {new}; launches {dict(totals)}; {card_line()}")
+    if profile:
+        vid = as_dev(data.batch_items(np.arange(b))["videos"])
+        for u in (1, 2):
+            profile_device(f"train_text step unet {u}", torch, lambda: trainer.train_step(
+                vid, video_embed=frame_embeds[sl(0)], text_encodings=encs[sl(0)],
+                unet_number=u))
+    del trainer, text_enc
+    torch.cuda.empty_cache()
+    return {k.name: totals[k.name] for k in kernels}
+
 
 # --------------------------------------------------------------- phase 5
 TRAIN_BATCH = TRAIN_BT // 90
@@ -2673,8 +3033,10 @@ def main() -> int:
         for path in SERVE_PATHS:
             runs[path] = phase(path, serve, dev, torch, path, empty, args.profile)
         runs["serve_options"] = phase("serve_options", serve_options, dev, torch, empty)
+        runs["serve_text"] = phase("serve_text", serve_text, dev, torch, args.profile)
         for path in TRAIN_PATHS:
             runs[path] = phase(path, train, dev, torch, path, args.profile)
+        runs["train_text"] = phase("train_text", train_text, dev, torch, args.profile)
         stages = Stages(root)
         runs["train_clip"] = phase("train_clip", train_clip_phase, dev, torch, stages,
                                    args.profile)
@@ -2699,7 +3061,7 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]}
         for extra in ("conv_alone_ms", "variants", "library_fwd_bwd_ms", "probe_geometry",
-                      "serve_step", "block_k_2048"):
+                      "serve_step", "block_k_2048", "text"):
             if extra in r:
                 row[extra] = r[extra]
         out.append(row)

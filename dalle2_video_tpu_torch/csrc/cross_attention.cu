@@ -1,26 +1,31 @@
-// Tiny-context cross-attention forward for Hopper (sm_90a).
+// Cross-attention forward over a short context, for Hopper (sm_90a).
 //
 // Replaces: dalle2_video_tpu/ops/pallas/cross_attention.py::
 // fused_cross_attention (body _kernel), reached through cross_attention.
 //
-// Computes, per (batch, head), out = softmax(q k^T * scale) v where the
-// context holds only m keys (2 time tokens + 4 video tokens + the learned
-// null kv = 7 in the base unet, 3 in the SR unet). q and out are
-// (b, n, h, d), k and v (b, m, h, d) -- the layout CrossAttention produces,
-// so no transpose is needed around the call. bf16 or f32; d = 64 (the
-// CrossAttention default) or 32; m <= kMaxM.
+// Computes, per (batch, head), out = softmax(q k^T * scale) v over a
+// context of m keys: the learned null kv, 2 time tokens and 4 video tokens
+// (m = 7 in the base unet, 3 in the SR unet), plus one token per frame
+// embed (per-frame video embeds: 90 frames, m = 93) and, at the unets' two
+// middle blocks, max_text_len text tokens (m = 263 / 259 at 256, 349 with
+// per-frame embeds). q and out are (b, n, h, d), k and v (b, m, h, d) --
+// the layout CrossAttention produces, so no transpose is needed around the
+// call. bf16 or f32; d = 64 (the CrossAttention default) or 32; any m >= 1,
+// as the TPU kernel, which holds the whole context in VMEM.
 //
 // The function is _kernel's, step by step: the logits in f32 from the
 // product, times scale in f32 (after the product, not folded into q),
-// jax.nn.softmax in f32 (exp(s - max), then divided by the sum), p rounded
-// to v's dtype, p v accumulated in f32, the output rounded once. In f32 the
-// rounding of p changes nothing.
+// jax.nn.softmax in f32 over all m keys (exp(s - max), then divided by the
+// sum), p rounded to v's dtype, p v accumulated in f32, the output rounded
+// once. In f32 the rounding of p changes nothing.
 //
-// What bounds it on the H100: memory. Each (token, head) row reads a
-// d-vector of q and writes a d-vector of out against ~4*m*d flops, so the
-// kernel should run at the rate the card moves q and out; k and v are tiny.
+// What bounds it on the H100: memory for a short context (each (token,
+// head) row reads a d-vector of q and writes a d-vector of out against
+// ~4*m*d flops; k and v are tiny); at m in the hundreds the products and
+// the m exponentials a row come level with the bytes.
 //
-// bf16 design (mma.sync m16n8k16, bf16 in, f32 accumulate):
+// bf16, m <= kMaxM (the serving shapes without text or per-frame tokens;
+// mma.sync m16n8k16, bf16 in, f32 accumulate):
 //   * work items are (batch, 32-token tile, head); each warp walks its own
 //     items (persistent blocks, one per SM, 8 warps each) and owns a ring
 //     of kStages q boxes in shared memory. Its lane 0 keeps TMA loads of
@@ -38,14 +43,29 @@
 //   * the output goes into one of two swizzled out boxes in shared memory,
 //     which a TMA store writes back (rows past n are clipped), so no global
 //     store is issued by the math lanes.
-// f32 inputs take a CUDA-core kernel (kLanes = d / 8 threads per (token,
-// head) row, the context staged in shared memory as f32), the same order.
+// bf16, m > kMaxM (the keys no longer fit in a warp's registers): a block
+// owns one (batch, head) and a run of its 32-token items. It stages K
+// (key-major) and V^T (channel-major, so a B fragment of P V is one 32-bit
+// load) of up to kChunkKeys keys in shared memory, rows padded by 8 so the
+// fragment loads are free of bank conflicts, and each warp takes one item
+// at a time: q's A fragments straight from global memory, then three
+// sweeps over the 16-key tiles -- the row max, the sum of exp(s - max),
+// and p = exp(s - max) * (1 / sum) (within an f32 rounding of the
+// quotient) rounded to bf16 into P V. S is recomputed in each sweep
+// because an online softmax would round p against a running max and sum,
+// not the final ones, and so round a different p than the JAX kernel. A
+// longer context is walked in chunks, staged again in each sweep, the
+// block's warps in step. Two blocks an SM (16 warps, 128 registers a
+// thread), the tile loop unrolled by two, for latency the warps can hide.
+// f32 takes the CUDA cores: kLanes = d / 8 threads per (token, head) row,
+// one (batch, head) per block, k and v read through the L1 cache, three
+// sweeps as above (the logits recomputed) with p = exp(s - max) / sum.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxM = 16;
+constexpr int kMaxM = 16;  // keys the bf16 short route holds in a warp's registers
 
 // ------------------------------------------------------- f32 / CUDA cores
 constexpr int kThreads = 256;
@@ -62,106 +82,88 @@ __device__ __forceinline__ void store8(float* p, const float* f) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-// A block stages its batch row's whole context (m x h x d keys and values)
-// in shared memory, then walks many row tiles (grid-stride). Each lane
-// forms its 8-channel partial dot product with every key; a butterfly of
-// warp shuffles completes the m logits in every lane.
+// One (batch, head) per block (a 1-D grid: per_bh blocks for each), its
+// tokens in runs of kRowsPerBlock rows. Each lane forms its 8-channel
+// partial dot product with a key; a butterfly of shuffles completes the
+// logit in every lane of the row. k and v are read straight from memory:
+// one head's context is a few hundred KB at most, so it stays in L1 / L2.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 cross_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o, int n,
-                           int h, int m, float scale) {
+                           int h, int m, float scale, int per_bh, int tokens_per_block) {
   constexpr int kLanes = D / kVec;  // threads per row (8 at d = 64)
   constexpr int kRowsPerBlock = kThreads / kLanes;
-  extern __shared__ float smem[];
-  float* ks = smem;  // (m, h, D)
-  float* vs = smem + m * h * D;
-
-  const int b = blockIdx.y;
-  const size_t ctx = static_cast<size_t>(b) * m * h * D;
-  for (int i = threadIdx.x; i < m * h * D; i += kThreads) {
-    ks[i] = k[ctx + i];
-    vs[i] = v[ctx + i];
-  }
-  __syncthreads();
-
+  const int bh = blockIdx.x / per_bh;
+  const int batch = bh / h, head = bh % h;
+  const int t0 = (blockIdx.x % per_bh) * tokens_per_block;
+  const int t1 = min(n, t0 + tokens_per_block);
   const int lane = threadIdx.x % kLanes;
   const int c0 = lane * kVec;
-  const long rows = static_cast<long>(n) * h;
-  const size_t batch_off = static_cast<size_t>(b) * rows * D;
+  const size_t key_stride = static_cast<size_t>(h) * D;
+  const float* kb = k + (static_cast<size_t>(batch) * m * h + head) * D + c0;
+  const float* vb = v + (static_cast<size_t>(batch) * m * h + head) * D + c0;
   // the loop bound is uniform across the block, so every lane of a warp
   // takes part in every shuffle; rows past the end compute on zeros and
   // store nothing
-  for (long tile = static_cast<long>(blockIdx.x) * kRowsPerBlock; tile < rows;
-       tile += static_cast<long>(gridDim.x) * kRowsPerBlock) {
-    const long row = tile + threadIdx.x / kLanes;
-    const bool valid = row < rows;
-    const int head = static_cast<int>(row % h);
-    const size_t base = batch_off + static_cast<size_t>(row) * D + c0;
+  for (int base = t0; base < t1; base += kRowsPerBlock) {
+    const int tok = base + threadIdx.x / kLanes;
+    const bool valid = tok < t1;
+    const size_t at = ((static_cast<size_t>(batch) * n + tok) * h + head) * D + c0;
     float qr[kVec] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (valid) load8(q + base, qr);
-
-    float s[kMaxM];
+    if (valid) load8(q + at, qr);
+    auto logit = [&](int j) {
+      float kr[kVec];
+      load8(kb + j * key_stride, kr);
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) dot = fmaf(qr[c], kr[c], dot);
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off, kLanes);
+      return dot * scale;
+    };
+    // jax.nn.softmax's order: the max, the sum of exp(s - max), each
+    // p = exp(s - max) / sum; then p v
     float smax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kMaxM; ++j) {
-      if (j < m) {
-        const float* kr = ks + (j * h + head) * D + c0;
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < kVec; ++c) dot = fmaf(qr[c], kr[c], dot);
-#pragma unroll
-        for (int off = kLanes / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off, kLanes);
-        s[j] = dot * scale;
-        smax = fmaxf(smax, s[j]);
-      }
-    }
-    // jax.nn.softmax's order: exp(s - max), the sum, each p = e / sum;
-    // then p v
+    for (int j = 0; j < m; ++j) smax = fmaxf(smax, logit(j));
     float l = 0.f;
+    for (int j = 0; j < m; ++j) l += expf(logit(j) - smax);
+    float acc[kVec] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < m; ++j) {
+      const float p = expf(logit(j) - smax) / l;
+      float vr[kVec];
+      load8(vb + j * key_stride, vr);
 #pragma unroll
-    for (int j = 0; j < kMaxM; ++j) {
-      if (j < m) {
-        s[j] = expf(s[j] - smax);
-        l += s[j];
-      }
+      for (int c = 0; c < kVec; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
     }
-    float acc[kVec];
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) acc[c] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxM; ++j) {
-      if (j < m) {
-        const float p = s[j] / l;
-        const float* vr = vs + (j * h + head) * D + c0;
-#pragma unroll
-        for (int c = 0; c < kVec; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
-      }
-    }
-    if (valid) store8(o + base, acc);
+    if (valid) store8(o + at, acc);
   }
+}
+
+// blocks per (batch, head) for about `want` blocks in all, each a run of
+// `unit`-token multiples; returns the tokens per block
+inline int split_tokens(int n, int bh, int unit, long want, int* per_bh) {
+  const long units = (n + unit - 1) / unit;
+  long per = (want + bh - 1) / bh;
+  if (per > units) per = units;
+  if (per < 1) per = 1;
+  const long units_per_block = (units + per - 1) / per;
+  *per_bh = static_cast<int>((units + units_per_block - 1) / units_per_block);
+  return static_cast<int>(units_per_block * unit);
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b, int n,
                        int h, int m, float scale, cudaStream_t stream) {
-  const size_t smem = 2ull * m * h * D * sizeof(float);
-  auto kernel = cross_attention_f32_kernel<D>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
   constexpr int kRowsPerBlock = kThreads / (D / kVec);
-  const long rows = static_cast<long>(n) * h;
-  long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const long cap = (8L * 132 + b - 1) / b;  // ~8 resident blocks per SM in all
-  if (blocks > cap) blocks = cap;
-  dim3 grid(static_cast<unsigned>(blocks), b);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  int per_bh = 1;
+  const int tokens = split_tokens(n, b * h, kRowsPerBlock, 8L * 132, &per_bh);
+  const long blocks = static_cast<long>(b) * h * per_bh;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  cross_attention_f32_kernel<D><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), n, h, m, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), n, h, m, scale, per_bh, tokens);
   return cudaGetLastError();
 }
 
@@ -456,11 +458,273 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16 / mma, m > kMaxM
+constexpr int kChunkKeys = 512;  // keys staged at once (a multiple of 16)
+constexpr int kItemRows = 32;    // tokens per warp item: two 16-row mma tiles
+
+struct WideParams {
+  const uint16_t* q;
+  const uint16_t* k;
+  const uint16_t* v;
+  uint16_t* o;
+  int n, h, m;
+  int chunk;       // keys staged at once: min(m rounded up to 16, kChunkKeys)
+  int items;       // 32-token items of one (batch, head)
+  int per_bh;      // blocks per (batch, head)
+  int per_block;   // items per block
+  float scale;
+};
+
+// shared memory: K (chunk, D + 8) and V^T (D, chunk + 8), bf16
+template <int D>
+constexpr size_t wide_smem(int chunk) {
+  return 2ull * (static_cast<size_t>(chunk) * (D + 8) + static_cast<size_t>(D) * (chunk + 8));
+}
+
+// two blocks an SM: 16 warps to hide the latency of each warp's chains
+// (the registers held to 128 a thread)
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+cross_attention_wide_kernel(const WideParams p) {
+  constexpr int kKs = D + 8;  // K row stride (elements): 4g + t distinct banks
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint16_t* ks = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* vt = ks + static_cast<size_t>(p.chunk) * kKs;
+  const int vs = p.chunk + 8;  // V^T row stride: chunk / 2 + 4 words, also distinct banks
+  const int bh = blockIdx.x / p.per_bh;
+  const int batch = bh / p.h, head = bh % p.h;
+  const int first = (blockIdx.x % p.per_bh) * p.per_block;
+  const int last = min(first + p.per_block, p.items);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int nchunks = (p.m + p.chunk - 1) / p.chunk;
+  const size_t key_stride = static_cast<size_t>(p.h) * D;
+  const size_t ctx = (static_cast<size_t>(batch) * p.m * p.h + head) * D;
+
+  // keys [c * chunk, (c + 1) * chunk) of this (batch, head) into shared
+  // memory, zeros past m; a thread moves 8 channels of one key, the warp
+  // 32 consecutive keys (so the transposed V stores are conflict-free)
+  auto stage = [&](int c) {
+    const int key0 = c * p.chunk;
+    for (int i = threadIdx.x; i < p.chunk * (D / 8); i += blockDim.x) {
+      const int j = i % p.chunk, cg = i / p.chunk;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (key0 + j < p.m) {
+        const size_t off = ctx + (key0 + j) * key_stride + cg * 8;
+        kv = __ldg(reinterpret_cast<const uint4*>(p.k + off));
+        vv = __ldg(reinterpret_cast<const uint4*>(p.v + off));
+      }
+      *reinterpret_cast<uint4*>(ks + j * kKs + cg * 8) = kv;
+      const uint16_t* ve = reinterpret_cast<const uint16_t*>(&vv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vt[(cg * 8 + e) * vs + j] = ve[e];
+    }
+  };
+  // S = Q K^T * scale for the 16 keys at kt of the staged chunk c, keys
+  // past m at -inf: s[r][nt][e] is row 16 r + g (e < 2) or + 8, key
+  // kt + 8 nt + 2 t + (e & 1)
+  auto logits = [&](const uint32_t (&qa)[2][D / 16][4], int c, int kt, float (&s)[2][2][4]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) s[r][nt][0] = s[r][nt][1] = s[r][nt][2] = s[r][nt][3] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const uint16_t* krow = ks + (kt + 8 * nt + g) * kKs + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) mma_bf16(s[r][nt], qa[r][kk], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = c * p.chunk + kt + 8 * nt + 2 * t + (e & 1) < p.m;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) s[r][nt][e] = in ? s[r][nt][e] * p.scale : -INFINITY;
+      }
+  };
+  // sweep over every 16-key tile of the context, chunk by chunk (staged
+  // again only when there is more than one), calling f(c, kt)
+  auto sweep = [&](auto&& f) {
+    for (int c = 0; c < nchunks; ++c) {
+      if (nchunks > 1) {
+        __syncthreads();  // every warp is done with the previous chunk
+        stage(c);
+        __syncthreads();
+      }
+      const int keys = min(p.chunk, p.m - c * p.chunk);
+#pragma unroll 2
+      for (int kt = 0; kt < keys; kt += 16) f(c, kt);
+    }
+  };
+
+  if (nchunks == 1) {
+    stage(0);
+    __syncthreads();
+  }
+  // the item loop's bound is uniform across the block, so every warp
+  // reaches every __syncthreads of a chunked sweep; items past the end
+  // compute on zeros and store nothing
+  for (int base = first; base < last; base += kWarps) {
+    const int item = base + warp;
+    const bool valid = item < last;
+    const int tok0 = item * kItemRows;
+    // q's A fragments: row (16 r + g) or + 8, channels kk*16 + 2t (+ 8)
+    uint32_t qa[2][D / 16][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int tok = tok0 + 16 * r + g + 8 * hf;
+        const bool in = valid && tok < p.n;
+        const uint16_t* qrow =
+            p.q + ((static_cast<size_t>(batch) * p.n + tok) * p.h + head) * D + 2 * t;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          qa[r][kk][hf] = in ? __ldg(reinterpret_cast<const unsigned int*>(qrow + kk * 16)) : 0u;
+          qa[r][kk][2 + hf] =
+              in ? __ldg(reinterpret_cast<const unsigned int*>(qrow + kk * 16 + 8)) : 0u;
+        }
+      }
+
+    // the row max (rows g, g + 8 of each 16-row tile), over the quad
+    float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+    sweep([&](int c, int kt) {
+      float s[2][2][4];
+      logits(qa, c, kt, s);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[r][e >> 1] = fmaxf(mx[r][e >> 1], s[r][nt][e]);
+    });
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          mx[r][hf] = fmaxf(mx[r][hf], __shfl_xor_sync(0xffffffffu, mx[r][hf], off));
+
+    // the sum of exp(s - max)
+    float l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    sweep([&](int c, int kt) {
+      float s[2][2][4];
+      logits(qa, c, kt, s);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) l[r][e >> 1] += expf(s[r][nt][e] - mx[r][e >> 1]);
+    });
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) l[r][hf] += __shfl_xor_sync(0xffffffffu, l[r][hf], off);
+    // p = e * (1 / sum): within an f32 rounding of e / sum, far inside
+    // the window the bf16 hold gives a probability's rounding
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) l[r][hf] = 1.f / l[r][hf];
+
+    // p = exp(s - max) / sum rounded to bf16 (the A fragment of P V), and
+    // O = P V in f32 (l holds 1 / sum now)
+    float acc[2][D / 8][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][jn][e] = 0.f;
+    sweep([&](int c, int kt) {
+      float s[2][2][4];
+      logits(qa, c, kt, s);
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        auto prob = [&](int nt, int e) { return expf(s[r][nt][e] - mx[r][e >> 1]) * l[r][e >> 1]; };
+        pa[r][0] = pack_bf16(prob(0, 0), prob(0, 1));
+        pa[r][1] = pack_bf16(prob(0, 2), prob(0, 3));
+        pa[r][2] = pack_bf16(prob(1, 0), prob(1, 1));
+        pa[r][3] = pack_bf16(prob(1, 2), prob(1, 3));
+      }
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn) {
+        const uint16_t* vrow = vt + (jn * 8 + g) * vs + kt + 2 * t;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vrow);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vrow + 8);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) mma_bf16(acc[r][jn], pa[r], b0, b1);
+      }
+    });
+
+    // the output, rounded once
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int tok = tok0 + 16 * r + g + 8 * hf;
+        if (!valid || tok >= p.n) continue;
+        uint16_t* orow = p.o + ((static_cast<size_t>(batch) * p.n + tok) * p.h + head) * D + 2 * t;
+#pragma unroll
+        for (int jn = 0; jn < D / 8; ++jn)
+          *reinterpret_cast<uint32_t*>(orow + jn * 8) =
+              pack_bf16(acc[r][jn][2 * hf], acc[r][jn][2 * hf + 1]);
+      }
+  }
+}
+
+template <int D>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, int b, int n,
+                        int h, int m, float scale, cudaStream_t stream) {
+  WideParams p;
+  p.q = static_cast<const uint16_t*>(q);
+  p.k = static_cast<const uint16_t*>(k);
+  p.v = static_cast<const uint16_t*>(v);
+  p.o = static_cast<uint16_t*>(o);
+  p.n = n;
+  p.h = h;
+  p.m = m;
+  p.chunk = min((m + 15) / 16 * 16, kChunkKeys);
+  p.items = (n + kItemRows - 1) / kItemRows;
+  p.scale = scale;
+  // about two blocks per SM in all (each stages its head's context once
+  // when it fits one chunk), every block a run of whole items
+  p.per_block = split_tokens(p.items, b * h, 1, 2L * sm_count(), &p.per_bh);
+  const long blocks = static_cast<long>(b) * h * p.per_bh;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  auto* kern = cross_attention_wide_kernel<D>;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(wide_smem<D>(kChunkKeys)));
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  kern<<<static_cast<unsigned>(blocks), kWarps * 32, wide_smem<D>(p.chunk), stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, int b, int n,
                           int h, int m, float scale, cudaStream_t stream) {
   if (m <= 8) return launch_bf16<D, 1>(q, k, v, o, b, n, h, m, scale, stream);
-  return launch_bf16<D, 2>(q, k, v, o, b, n, h, m, scale, stream);
+  if (m <= kMaxM) return launch_bf16<D, 2>(q, k, v, o, b, n, h, m, scale, stream);
+  return launch_wide<D>(q, k, v, o, b, n, h, m, scale, stream);
 }
 
 }  // namespace
@@ -472,7 +736,7 @@ extern "C" int d2v_cross_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, int b, int n,
                                        int h, int m, int d, int dtype,
                                        float sm_scale, void* stream) {
-  if (b <= 0 || n <= 0 || h <= 0 || m <= 0 || m > kMaxM || (d != 32 && d != 64))
+  if (b <= 0 || n <= 0 || h <= 0 || m <= 0 || (d != 32 && d != 64))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == d2v::kBFloat16)

@@ -8,11 +8,14 @@ float32. The loops are Python loops over the static DDIM/DDPM time grid.
 
 Three samplers, as in the JAX package: DDPM (ancestral, every timestep),
 DDIM and DPM-Solver++(2M) over the static DDIM time grid (``sampler``).
-Each takes the request options of the JAX loops: a negative video embed as
-the CFG baseline (``_unet_apply``), and inpainting (``inpaint_video`` /
-``inpaint_mask``, 1 = known) by replacement -- the known region re-noised
-to q(x_t | x0) after every step, so the last step returns it exactly -- or
-by reconstruction guidance (VDM eq. 7: the gradient of the known region's
+Each takes the conditioning of the JAX loops -- the video embed (per-frame
+(b, k, d) embeds on a decoder built with ``per_frame_embeds=True``) and, on
+a unet with ``cond_on_text_encodings``, the text encodings -- and their
+request options: a negative video embed and negative text encodings as the
+CFG baseline of their stream (``_unet_apply``), and inpainting
+(``inpaint_video`` / ``inpaint_mask``, 1 = known) by replacement -- the
+known region re-noised to q(x_t | x0) after every step, so the last step
+returns it exactly -- or by reconstruction guidance (VDM eq. 7: the gradient of the known region's
 x0 error through the unet, taken with ``torch.autograd.grad`` w.r.t. x
 only). ``sample`` re-applies the constraint at every cascade stage at its
 geometry and chunks the batch (``max_batch_size``) keeping each row's key.
@@ -23,12 +26,11 @@ utils/keys.py). Every loop also takes injected draws -- the initial noise
 ``step_noises``, and for inpainting the known region's noises
 ``known_noises`` -- so tests can feed the port and the JAX package the same
 numbers. The training loss draws from a ``torch.Generator`` and takes every
-draw injected the same way (``draws``: times, noise, video keep mask,
-self-cond coin, blur coin, lowres noise levels and noise, the random crop's
-offsets).
+draw injected the same way (``draws``: times, noise, video and text keep
+masks, self-cond coin, blur coin, lowres noise levels and noise, the random
+crop's offsets).
 
-Not ported yet: latent (VAE) stages and text-encoding conditioning (so no
-text keep mask and no negative text encodings).
+Not ported yet: latent (VAE) stages.
 """
 
 from __future__ import annotations
@@ -124,11 +126,14 @@ class Inpaint:
         return self.mask * known + (1.0 - self.mask) * x_next
 
 
-def build_unet(cfg: UNet3DConfig) -> nn.Module:
-    """The denoiser a cascade slot's ``arch`` names (JAX decoder.py:248-253)."""
+def build_unet(cfg: UNet3DConfig, per_frame_embeds: bool = False) -> nn.Module:
+    """The denoiser a cascade slot's ``arch`` names (JAX decoder.py:248-253);
+    ``per_frame_embeds`` as UNet3D's."""
     if cfg.arch == "temporal_conv":
-        return UnetTemporalConv(cfg)
-    return UNet3D(cfg)
+        return UnetTemporalConv(cfg, per_frame_embeds)
+    # the flag only where it is set: a stand-in for UNet3D that takes the
+    # config alone (the meta-tensor site counts) builds a global decoder
+    return UNet3D(cfg, per_frame_embeds=True) if per_frame_embeds else UNet3D(cfg)
 
 
 def _cast_tuple(v, length: int):
@@ -203,9 +208,13 @@ class VideoDecoderConfig:
 
 class VideoDecoder(nn.Module):
     """Holds the cascade's unets (float32 master weights), schedules and
-    resolved per-stage knobs; samples on ``device`` (CUDA by default)."""
+    resolved per-stage knobs; samples on ``device`` (CUDA by default).
+    ``per_frame_embeds`` builds the unets that take the video embed for
+    per-frame (b, k, d) embeds, as the JAX ``init_params(per_frame_embeds=
+    True)`` initialises them (DALLE2Video's temporal_emb mode)."""
 
-    def __init__(self, config: VideoDecoderConfig, device: DeviceLike = None):
+    def __init__(self, config: VideoDecoderConfig, device: DeviceLike = None,
+                 per_frame_embeds: bool = False):
         super().__init__()
         cfg = config
         n = cfg.num_unets
@@ -258,7 +267,8 @@ class VideoDecoder(nn.Module):
             )
             for i, ucfg in enumerate(cfg.unets)
         )
-        self.unets = nn.ModuleList(build_unet(c) for c in self.unet_configs)
+        self.per_frame_embeds = per_frame_embeds
+        self.unets = nn.ModuleList(build_unet(c, per_frame_embeds) for c in self.unet_configs)
         self.unets.to(self.device).eval()
         self._sampling_unets: Dict[int, nn.Module] = {}
 
@@ -277,6 +287,8 @@ class VideoDecoder(nn.Module):
         self.lowres_noise_schedule = make_noise_schedule(self.device)
         self.can_classifier_guidance = (
             cfg.video_cond_drop_prob > 0.0 or cfg.text_cond_drop_prob > 0.0)
+        self.condition_on_text_encodings = any(
+            c.cond_on_text_encodings for c in self.unet_configs)
 
     # ------------------------------------------------------------------ #
     def sampling_unet(self, i: int) -> nn.Module:
@@ -313,13 +325,14 @@ class VideoDecoder(nn.Module):
         return torch.maximum(torch.minimum(x, s), -s) / s
 
     def _unet_apply(self, i: int, x, t, *, cond_scale: float = 1.0,
-                    video_embed=None, lowres_cond_video=None,
+                    video_embed=None, text_encodings=None, lowres_cond_video=None,
                     lowres_noise_level=None, self_cond=None,
-                    negative_video_embed=None) -> torch.Tensor:
+                    negative_video_embed=None, negative_text_encodings=None) -> torch.Tensor:
         """forward_with_cond_scale as ONE 2x-batched forward; returns f32.
-        Under CFG the baseline half is the learned null embedding, or the
-        ``negative_video_embed`` (broadcast from e.g. (1, d), kept) when one
-        is given with a video embed: guided = neg + (cond - neg) * scale."""
+        Under CFG the baseline half of each stream is its learned null
+        embedding, or the ``negative_video_embed`` / ``negative_text_encodings``
+        (broadcast from e.g. a leading dim of 1, kept) when one is given with
+        its stream's conditioning: guided = neg + (cond - neg) * scale."""
         unet = self.sampling_unet(i)
         cdt = self.compute_dtype
         castf = lambda a: None if a is None else a.to(cdt)
@@ -327,7 +340,10 @@ class VideoDecoder(nn.Module):
             x, video_embed = castf(x), castf(video_embed)
             lowres_cond_video, self_cond = castf(lowres_cond_video), castf(self_cond)
             negative_video_embed = castf(negative_video_embed)
-        kw = dict(video_embed=video_embed, lowres_cond_video=lowres_cond_video,
+            text_encodings = castf(text_encodings)
+            negative_text_encodings = castf(negative_text_encodings)
+        kw = dict(video_embed=video_embed, text_encodings=text_encodings,
+                  lowres_cond_video=lowres_cond_video,
                   lowres_noise_level=lowres_noise_level, self_cond=self_cond)
         if cond_scale == 1.0:
             return unet(x, t, **kw).float()
@@ -338,11 +354,17 @@ class VideoDecoder(nn.Module):
         kw2 = {k: dup(v) for k, v in kw.items()}
         keep = torch.cat([torch.ones(b, dtype=torch.bool, device=x.device),
                           torch.zeros(b, dtype=torch.bool, device=x.device)])
-        if negative_video_embed is not None and video_embed is not None:
-            neg = negative_video_embed.to(video_embed.dtype).expand_as(video_embed)
-            kw2["video_embed"] = torch.cat([video_embed, neg], dim=0)
-            keep = torch.ones(2 * b, dtype=torch.bool, device=x.device)
-        out2 = unet(dup(x), dup(t), video_keep_mask=keep, **kw2).float()
+        keep_all = torch.ones(2 * b, dtype=torch.bool, device=x.device)
+        keeps = {}
+        for name, negative in (("video_embed", negative_video_embed),
+                               ("text_encodings", negative_text_encodings)):
+            keeps[name] = keep
+            if negative is not None and kw[name] is not None:
+                pos = kw[name]
+                kw2[name] = torch.cat([pos, negative.to(pos.dtype).expand_as(pos)], dim=0)
+                keeps[name] = keep_all
+        out2 = unet(dup(x), dup(t), video_keep_mask=keeps["video_embed"],
+                    text_keep_mask=keeps["text_encodings"], **kw2).float()
         logits, null_logits = out2[:b], out2[b:]
         guided = null_logits + (logits - null_logits) * cond_scale
         phi = self.config.cfg_rescale
@@ -355,6 +377,14 @@ class VideoDecoder(nn.Module):
             pred_out = phi * pred_g * (std_c / std_g.clamp_min(1e-8)) + (1.0 - phi) * pred_g
             guided = torch.cat([pred_out, rest], dim=-1) if rest.shape[-1] else pred_out
         return guided
+
+    def _check_text(self, text_encodings) -> None:
+        """Text encodings are required by a decoder with a unet that takes
+        them, and refused by one without (JAX decoder.py:526-531)."""
+        if self.condition_on_text_encodings and text_encodings is None:
+            raise ValueError("text encodings must be passed in for text-conditioned decoder")
+        if not self.condition_on_text_encodings and text_encodings is not None:
+            raise ValueError("decoder not conditioned on text, but encodings were given")
 
     def _predict_x_start(self, i: int, x, t, pred):
         sched = self.schedules[i]
@@ -397,6 +427,7 @@ class VideoDecoder(nn.Module):
     # training loss (JAX decoder.py loss / _p_losses)
     # ------------------------------------------------------------------ #
     def loss(self, video: torch.Tensor, *, video_embed: Optional[torch.Tensor] = None,
+             text_encodings: Optional[torch.Tensor] = None,
              unet_number: int = 1, compute_dtype: Optional[torch.dtype] = None,
              unet: Optional[Callable] = None,
              generator: Optional[torch.Generator] = None,
@@ -406,13 +437,16 @@ class VideoDecoder(nn.Module):
         [0, 1] at least the stage's frame size. ``compute_dtype`` (bf16)
         runs the network in that dtype; the diffusion math stays f32.
         ``unet`` replaces the stage's module as the network to call (the
-        trainer passes its bf16 functional call). ``draws`` injects any of
-        "times", "noise", "video_keep", "self_cond", "blur",
+        trainer passes its bf16 functional call). ``text_encodings`` (b, n,
+        d) are required where a unet conditions on them, refused where none
+        does, and reach only a unet that does. ``draws`` injects any of
+        "times", "noise", "video_keep", "text_keep", "self_cond", "blur",
         "lowres_noise_levels", "lowres_noise", "crop_offsets" (oh, ow); the
         rest come from ``generator``."""
         cfg = self.config
         i = unet_number - 1
         draws = draws or {}
+        self._check_text(text_encodings)
         if video.shape[-1] != cfg.channels:
             raise ValueError(f"video has {video.shape[-1]} channels, not {cfg.channels}")
         size, frames = cfg.frame_sizes[i], cfg.frame_numbers[i]
@@ -446,13 +480,16 @@ class VideoDecoder(nn.Module):
                 offsets=draws.get("crop_offsets"))
         return self._p_losses(
             i, self.unets[i] if unet is None else unet, video, times,
-            video_embed=video_embed, lowres_cond_video=lowres_video,
+            video_embed=video_embed,
+            text_encodings=(text_encodings if self.unet_configs[i].cond_on_text_encodings
+                            else None),
+            lowres_cond_video=lowres_video,
             lowres_noise_level=lowres_level, compute_dtype=compute_dtype,
             generator=generator, draws=draws)
 
     def _p_losses(self, i: int, unet: Callable, x_start, times, *, video_embed=None,
-                  lowres_cond_video=None, lowres_noise_level=None, compute_dtype=None,
-                  generator=None, draws=None) -> torch.Tensor:
+                  text_encodings=None, lowres_cond_video=None, lowres_noise_level=None,
+                  compute_dtype=None, generator=None, draws=None) -> torch.Tensor:
         cfg = self.config
         sched = self.schedules[i]
         b = x_start.shape[0]
@@ -471,12 +508,17 @@ class VideoDecoder(nn.Module):
         x_noisy = sched.q_sample(x_start, times, noise)
         video_keep = draw("video_keep", lambda: torch.rand(
             b, generator=generator, device=dev) < 1.0 - cfg.video_cond_drop_prob)
+        # drawn only for a unet that takes text: a text-free unet's stream of
+        # draws is the same with or without text elsewhere in the cascade
+        text_keep = None if text_encodings is None else draw("text_keep", lambda: torch.rand(
+            b, generator=generator, device=dev) < 1.0 - cfg.text_cond_drop_prob)
 
         # the network runs in compute_dtype; the diffusion math stays f32
         cast = (lambda a: a) if compute_dtype is None else (
             lambda a: None if a is None else a.to(compute_dtype))
         x_in = cast(x_noisy)
         kw = dict(video_embed=None if video_embed is None else cast(video_embed.to(dev)),
+                  text_encodings=None if text_encodings is None else cast(text_encodings.to(dev)),
                   lowres_cond_video=cast(lowres_cond_video),
                   lowres_noise_level=lowres_noise_level)
 
@@ -488,14 +530,16 @@ class VideoDecoder(nn.Module):
                 (), generator=generator, device=dev) < 0.5)
             if bool(coin):
                 with torch.no_grad():
-                    out = unet(x_in, times, video_keep_mask=torch.ones(
-                        b, dtype=torch.bool, device=dev), **kw)
+                    ones = torch.ones(b, dtype=torch.bool, device=dev)
+                    out = unet(x_in, times, video_keep_mask=ones, text_keep_mask=ones, **kw)
                 self_cond = self._split_output(i, out.float())[0].detach()
             else:
                 self_cond = torch.zeros_like(x_noisy)
             self_cond = cast(self_cond)
 
-        out = unet(x_in, times, video_keep_mask=video_keep.bool(), self_cond=self_cond,
+        out = unet(x_in, times, video_keep_mask=video_keep.bool(),
+                   text_keep_mask=None if text_keep is None else text_keep.bool(),
+                   self_cond=self_cond,
                    enable_checkpoint=True, **kw).float()
         pred, _ = self._split_output(i, out)
         if self.predict_v[i]:
@@ -694,6 +738,7 @@ class VideoDecoder(nn.Module):
     def sample_stage(self, i: int, keys: RowKeys, *, batch_size: int,
                      prev_video: Optional[torch.Tensor] = None,
                      video_embed: Optional[torch.Tensor] = None,
+                     text_encodings: Optional[torch.Tensor] = None,
                      cond_scale: float = 1.0,
                      sample_timesteps: Optional[int] = None,
                      inpaint_video: Optional[torch.Tensor] = None,
@@ -701,6 +746,7 @@ class VideoDecoder(nn.Module):
                      inpaint_method: str = "replace",
                      inpaint_guidance_weight: float = 10.0,
                      negative_video_embed: Optional[torch.Tensor] = None,
+                     negative_text_encodings: Optional[torch.Tensor] = None,
                      init_noise: Optional[torch.Tensor] = None,
                      step_noises: Optional[Sequence[torch.Tensor]] = None,
                      known_noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
@@ -710,7 +756,9 @@ class VideoDecoder(nn.Module):
         DPM++), else DDPM. ``inpaint_video`` ([0, 1], any (b, T, H, W, C))
         and ``inpaint_mask`` (1 = known, broadcastable over (b, T, H, W, 1))
         are resized nearest to this stage's geometry; ``negative_video_embed``
-        replaces the CFG baseline of a stage conditioned on the embed."""
+        replaces the CFG baseline of a stage conditioned on the embed, and
+        ``negative_text_encodings`` that of a stage conditioned on the text
+        encodings (``text_encodings`` reach only such a stage)."""
         cfg = self.config
         ucfg = self.unet_configs[i]
         size, frames = cfg.frame_sizes[i], cfg.frame_numbers[i]
@@ -720,6 +768,10 @@ class VideoDecoder(nn.Module):
             cond["video_embed"] = video_embed
             if negative_video_embed is not None:
                 cond["negative_video_embed"] = negative_video_embed
+        if ucfg.cond_on_text_encodings:
+            cond["text_encodings"] = text_encodings
+            if negative_text_encodings is not None:
+                cond["negative_text_encodings"] = negative_text_encodings
         if ucfg.lowres_cond:
             if prev_video is None:
                 raise ValueError("an SR stage needs the previous stage's video")
@@ -759,6 +811,7 @@ class VideoDecoder(nn.Module):
 
     @torch.no_grad()
     def sample(self, keys: RowKeys, *, video_embed: Optional[torch.Tensor] = None,
+               text_encodings: Optional[torch.Tensor] = None,
                batch_size: int = 1,
                cond_scale: Union[float, Tuple[float, ...]] = 1.0,
                start_at_unet_number: int = 1,
@@ -778,14 +831,12 @@ class VideoDecoder(nn.Module):
         """Full cascade. ``keys`` holds one key per row, so each row's video
         depends on its own key only, whatever the batch or chunking.
         The inpainting constraint is re-applied at every stage at its
-        geometry; a mask or a negative embed of leading dim 1 is shared by
-        every row and every chunk. ``init_noises[i]`` / ``known_noises[i]``
-        (optional) are stage i's x_T and known-region noises."""
+        geometry; a mask, a negative embed or negative text encodings of
+        leading dim 1 are shared by every row and every chunk.
+        ``init_noises[i]`` / ``known_noises[i]`` (optional) are stage i's x_T
+        and known-region noises."""
         cfg = self.config
         n = cfg.num_unets
-        if negative_text_encodings is not None:
-            raise NotImplementedError(
-                "negative_text_encodings need cond_on_text_encodings, not ported yet")
         if not cfg.unconditional:
             if video_embed is None:
                 raise ValueError("a conditional decoder needs video_embed")
@@ -802,7 +853,8 @@ class VideoDecoder(nn.Module):
                 take_shared = lambda a: (a if a is None or a.ndim == 0 or a.shape[0] == 1
                                          else a[s:s + sz])
                 outs.append(self.sample(
-                    keys.take(s, sz), video_embed=take(video_embed), batch_size=sz,
+                    keys.take(s, sz), video_embed=take(video_embed),
+                    text_encodings=take(text_encodings), batch_size=sz,
                     cond_scale=cond_scale, start_at_unet_number=start_at_unet_number,
                     stop_at_unet_number=stop_at_unet_number, video=take(video),
                     sample_timesteps=sample_timesteps,
@@ -810,6 +862,7 @@ class VideoDecoder(nn.Module):
                     inpaint_mask=take_shared(inpaint_mask), inpaint_method=inpaint_method,
                     inpaint_guidance_weight=inpaint_guidance_weight,
                     negative_video_embed=take_shared(negative_video_embed),
+                    negative_text_encodings=take_shared(negative_text_encodings),
                     init_noises=None if init_noises is None
                     else [take(z) for z in init_noises],
                     known_noises=None if known_noises is None
@@ -818,12 +871,13 @@ class VideoDecoder(nn.Module):
                 ))
             return torch.cat(outs, dim=0)
 
+        self._check_text(text_encodings)
         cond_scales = _cast_tuple(cond_scale, n)
         steps = _cast_tuple(sample_timesteps, n)
-        if video_embed is not None:
-            video_embed = video_embed.to(self.device, torch.float32)
-        if negative_video_embed is not None:
-            negative_video_embed = negative_video_embed.to(self.device, torch.float32)
+        on_device = lambda a: None if a is None else a.to(self.device, torch.float32)
+        video_embed, negative_video_embed = on_device(video_embed), on_device(negative_video_embed)
+        text_encodings = on_device(text_encodings)
+        negative_text_encodings = on_device(negative_text_encodings)
         vid = None
         if start_at_unet_number > 1:
             if video is None:
@@ -835,12 +889,13 @@ class VideoDecoder(nn.Module):
                 continue
             vid = self.sample_stage(
                 i, stage_keys[i], batch_size=batch_size, prev_video=vid,
-                video_embed=video_embed, cond_scale=cond_scales[i],
-                sample_timesteps=steps[i],
+                video_embed=video_embed, text_encodings=text_encodings,
+                cond_scale=cond_scales[i], sample_timesteps=steps[i],
                 inpaint_video=inpaint_video, inpaint_mask=inpaint_mask,
                 inpaint_method=inpaint_method,
                 inpaint_guidance_weight=inpaint_guidance_weight,
                 negative_video_embed=negative_video_embed,
+                negative_text_encodings=negative_text_encodings,
                 init_noise=None if init_noises is None else init_noises[i],
                 known_noises=None if known_noises is None else known_noises[i],
             )

@@ -50,12 +50,14 @@ def generate_long_video(
     n_frames: int,
     overlap: Optional[int] = None,
     video_embed: Optional[torch.Tensor] = None,
+    text_encodings: Optional[torch.Tensor] = None,
     batch_size: int = 1,
     cond_scale: float = 1.0,
     inpaint_method: str = "replace",
     inpaint_guidance_weight: float = 10.0,
     max_batch_size: Optional[int] = None,
     negative_video_embed: Optional[torch.Tensor] = None,
+    negative_text_encodings: Optional[torch.Tensor] = None,
     stop_at_unet_number: Optional[int] = None,
     sample_timesteps: Union[None, int, Sequence[Optional[int]]] = None,
     draws: Optional[Sequence[Dict[str, Any]]] = None,
@@ -64,16 +66,20 @@ def generate_long_video(
     the last sampled stage's frame number), T <= n_frames. ``overlap``
     defaults to T // 4. ``keys`` holds one key per row; window j samples from
     the j-th of an independent split of them, so the whole video is a
-    function of each row's own key. ``draws[j]`` (optional) holds injected
-    draws for window j's ``decoder.sample`` (init_noises, known_noises)."""
+    function of each row's own key. Every window takes the same
+    conditioning (the video embed, the text encodings and their negatives).
+    ``draws[j]`` (optional) holds injected draws for window j's
+    ``decoder.sample`` (init_noises, known_noises)."""
     t_win, overlap, n_windows = plan_windows(decoder, n_frames, overlap, inpaint_method,
                                              stop_at_unet_number)
     stride = t_win - overlap
     if video_embed is not None:
         batch_size = video_embed.shape[0]
     window_keys = keys.split(n_windows)
-    common = dict(video_embed=video_embed, batch_size=batch_size, cond_scale=cond_scale,
-                  max_batch_size=max_batch_size, negative_video_embed=negative_video_embed,
+    common = dict(video_embed=video_embed, text_encodings=text_encodings, batch_size=batch_size,
+                  cond_scale=cond_scale, max_batch_size=max_batch_size,
+                  negative_video_embed=negative_video_embed,
+                  negative_text_encodings=negative_text_encodings,
                   stop_at_unet_number=stop_at_unet_number, sample_timesteps=sample_timesteps)
     window_draws = lambda j: {} if draws is None else dict(draws[j])
 

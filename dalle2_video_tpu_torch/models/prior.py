@@ -4,13 +4,17 @@ dalle2_video_tpu/models/prior.py).
 ``DiffusionPriorNetwork`` is the causal transformer over
 [text_embed, time_embed, noised_video_embed, learned_query] (rotary, T5
 relative-position bias, SwiGLU feed-forward); the prediction is read at the
-learned-query position. ``DiffusionPrior.loss`` is the training loss (x0
+learned-query position. With ``cond_on_text_encodings`` the text
+encodings lead the sequence: projected by ``enc_proj``, cut to
+``max_text_len`` (not padded: min(n, 77) + 4 tokens), each token whose
+encoding is all zero, or whose row the keep mask drops, swapped for its
+``null_text_encodings`` row. ``DiffusionPrior.loss`` is the training loss (x0
 scaled by ``embed_scale``, q_sample at uniform times on the schedule, the
 text dropped to the null embed at ``text_cond_drop_prob``, l2 against x0),
 every draw injectable; ``DiffusionPrior.sample`` is best-of-N DDIM (eta 0)
-with cosine reranking against the text embed. Not ported yet (they raise):
-mixture-of-experts, the scanned / pipelined layer stack, text-encoding
-conditioning and self-conditioning.
+with cosine reranking against the text embed, the encodings repeated per
+candidate. Not ported yet (they raise): mixture-of-experts, the scanned /
+pipelined layer stack and self-conditioning.
 """
 
 from __future__ import annotations
@@ -114,7 +118,6 @@ class DiffusionPriorNetwork(nn.Module):
     def __init__(self, cfg: PriorNetworkConfig):
         super().__init__()
         unported = [k for k, v in {
-            "cond_on_text_encodings": cfg.cond_on_text_encodings,
             "self_cond": cfg.self_cond,
             "swiglu_ff=False": not cfg.swiglu_ff,
             "scan_layers": cfg.scan_layers or cfg.pipeline_microbatches > 0,
@@ -127,11 +130,15 @@ class DiffusionPriorNetwork(nn.Module):
         self.time_proj = Dense(d, d)
         self.null_text_embed = nn.Parameter(torch.randn(1, d))
         self.learned_query = nn.Parameter(torch.randn(1, d))
+        if cfg.cond_on_text_encodings:
+            self.enc_proj = Dense(cfg.text_encoding_dim or d, d)
+            self.null_text_encodings = nn.Parameter(torch.randn(1, cfg.max_text_len, d))
         self.transformer = CausalTransformer(
             d, cfg.depth, cfg.heads, cfg.dim_head,
             rotary=cfg.rotary_emb, rel_pos_bias=cfg.rel_pos_bias)
 
-    def forward(self, video_embed_noisy, time, *, text_embed, text_keep_mask=None):
+    def forward(self, video_embed_noisy, time, *, text_embed, text_encodings=None,
+                text_keep_mask=None):
         b, d = video_embed_noisy.shape
         if text_keep_mask is None:
             text_keep_mask = torch.ones(b, dtype=torch.bool, device=time.device)
@@ -139,6 +146,14 @@ class DiffusionPriorNetwork(nn.Module):
         te = torch.where(text_keep_mask[:, None], text_embed, self.null_text_embed)
         seq = torch.stack(
             [te, t_emb, video_embed_noisy, self.learned_query.expand(b, d)], dim=1)
+        if self.cfg.cond_on_text_encodings:
+            if text_encodings is None:
+                raise ValueError("cond_on_text_encodings=True but no text_encodings passed")
+            n_max = self.cfg.max_text_len
+            enc = self.enc_proj(text_encodings)[:, :n_max]
+            keep = (text_encodings != 0).any(-1)[:, :n_max] & text_keep_mask[:, None]
+            enc = torch.where(keep[:, :, None], enc, self.null_text_encodings[:, :enc.shape[1]])
+            seq = torch.cat([enc, seq], dim=1)
         return self.transformer(seq)[:, -1]
 
 
@@ -190,11 +205,13 @@ class DiffusionPrior:
                             if config.video_embed_scale is not None
                             else config.network.dim**0.5)
 
-    def loss(self, video_embed: torch.Tensor, text_embed: torch.Tensor, *,
+    def loss(self, video_embed: torch.Tensor, text_embed: torch.Tensor,
+             text_encodings: Optional[torch.Tensor] = None, *,
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
         """The denoising loss of a (b, d) batch, a 0-dim f32 tensor, through
-        the network in its current mode (the trainer sets train mode).
+        the network in its current mode (the trainer sets train mode);
+        ``text_encodings`` (b, n, d_enc) where the network takes them.
         ``draws`` injects any of "times" (b,), "noise" (b, d) and
         "text_keep" (b,) bool; the rest come from ``generator``."""
         cfg = self.config
@@ -214,22 +231,26 @@ class DiffusionPrior:
             b, generator=generator, device=dev) < 1.0 - cfg.text_cond_drop_prob)
         pred = self.network(sched.q_sample(x0, times, noise), times,
                             text_embed=text_embed.to(dev, torch.float32),
+                            text_encodings=self._on_device(text_encodings),
                             text_keep_mask=keep.bool())
         if cfg.training_clamp_l2norm:
             pred = l2_normalize(pred) * self.embed_scale
         target = x0 if cfg.predict_x_start else noise
         return sched.loss_fn(pred, target).mean()
 
-    def _pred_x0(self, x, t, cond_scale, text_embed):
+    def _on_device(self, a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        return None if a is None else a.to(self.device, torch.float32)
+
+    def _pred_x0(self, x, t, cond_scale, text_embed, text_encodings=None):
         b = x.shape[0]
         if cond_scale == 1.0:
-            pred = self.network(x, t, text_embed=text_embed)
+            pred = self.network(x, t, text_embed=text_embed, text_encodings=text_encodings)
         else:
             keep = torch.cat([torch.ones(b, dtype=torch.bool, device=x.device),
                               torch.zeros(b, dtype=torch.bool, device=x.device)])
-            out2 = self.network(torch.cat([x, x]), torch.cat([t, t]),
-                                text_embed=torch.cat([text_embed, text_embed]),
-                                text_keep_mask=keep)
+            dup = lambda a: None if a is None else torch.cat([a, a])  # noqa: E731
+            out2 = self.network(dup(x), dup(t), text_embed=dup(text_embed),
+                                text_encodings=dup(text_encodings), text_keep_mask=keep)
             pred = out2[b:] + (out2[:b] - out2[b:]) * cond_scale
         cfg = self.config
         x0 = pred if cfg.predict_x_start else self.schedule.predict_start_from_noise(x, t, pred)
@@ -240,10 +261,12 @@ class DiffusionPrior:
     @torch.no_grad()
     def sample_loop(self, keys: RowKeys, text_embed: torch.Tensor,
                     cond_scale: float = 1.0,
-                    init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    init_noise: Optional[torch.Tensor] = None, *,
+                    text_encodings: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Deterministic DDIM (eta 0) in embed space. ``init_noise`` (b, d)
         replaces the draw from ``keys`` (tests inject the JAX draws)."""
         sched = self.schedule
+        text_encodings = self._on_device(text_encodings)
         b, d = text_embed.shape
         k_init, _ = keys.split()
         x = (k_init.normal((b, d), self.device) if init_noise is None
@@ -253,7 +276,7 @@ class DiffusionPrior:
         acp = torch.cat([torch.ones(1, device=self.device), sched.alphas_cumprod])
         for tn, tnx in zip(times[:-1], times[1:]):
             tvec = torch.full((b,), int(tn), dtype=torch.long, device=self.device)
-            x0 = self._pred_x0(x, tvec, cond_scale, text_embed)
+            x0 = self._pred_x0(x, tvec, cond_scale, text_embed, text_encodings)
             eps = sched.predict_noise_from_start(x, tvec, x0)
             a_next = acp[int(tnx) + 1]
             x = x0 * torch.sqrt(a_next) + torch.sqrt(1.0 - a_next) * eps
@@ -262,15 +285,18 @@ class DiffusionPrior:
     @torch.no_grad()
     def sample(self, keys: RowKeys, text_embed: torch.Tensor,
                num_samples_per_batch: int = 2, cond_scale: float = 1.0,
-               init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+               init_noise: Optional[torch.Tensor] = None, *,
+               text_encodings: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Best-of-N: candidate j of row i draws from fold_in(key_i, j); the
-        candidate most cosine-similar to the text embed wins.
-        ``init_noise`` is (b * n, d), rows in (row, candidate) order."""
+        candidate most cosine-similar to the text embed wins. The text
+        encodings (b, n_tokens, d_enc) are repeated per candidate, as the
+        embed. ``init_noise`` is (b * n, d), rows in (row, candidate) order."""
         n = num_samples_per_batch
         b, d = text_embed.shape
         rep = text_embed.repeat_interleave(n, dim=0)
-        embeds = self.sample_loop(keys.repeat_interleave(n), rep, cond_scale,
-                                  init_noise).reshape(b, n, d)
+        rep_enc = None if text_encodings is None else text_encodings.repeat_interleave(n, dim=0)
+        embeds = self.sample_loop(keys.repeat_interleave(n), rep, cond_scale, init_noise,
+                                  text_encodings=rep_enc).reshape(b, n, d)
         sims = torch.einsum("bd,bnd->bn", l2_normalize(text_embed),
                             l2_normalize(embeds))
         best = sims.argmax(dim=-1)

@@ -18,8 +18,19 @@ between the convs; and so on. The output conv starts at zero.
 ``temporal_attention`` (TemporalAttention after each attention site) and
 ``pixel_shuffle_upsample=False`` (NearestUpsample3D) are the JAX options;
 ``engine/decoder.build_unet`` also builds the ``temporal_conv``
-architecture (``models/unet_temporal.py``). Not ported yet: text-encoding
-conditioning (raises here) and per-frame video embeds (raise at the call).
+architecture (``models/unet_temporal.py``).
+
+Conditioning (JAX unet3d.py:296-374): the time tokens; the video embed,
+added to the time embedding and as ``num_video_tokens`` tokens, or, for a
+unet built with ``per_frame_embeds=True`` (the JAX
+``init_params(per_frame_embeds=True)``: flax creates the parameters of the
+input it is initialised on, the port at construction), a (b, k, d) embed,
+one token a frame plus a sinusoidal position over the frame index, its
+mean added to the time embedding; and the text encodings
+(``cond_on_text_encodings``): ``text_to_cond``, cut or zero-padded to
+``max_text_len``, tokens whose encoding is all zero (or whose row the text
+keep mask drops) swapped for ``null_text_embed``, attended to only at the
+middle blocks (``mid_c``). Each unet refuses the other kind of video embed.
 
 The opt-in conv paths are the JAX knobs: ``groupnorm_impl: fused`` (the
 fused Block3D kernels at qualifying sites, the plain conv and GroupNorm
@@ -35,6 +46,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from dalle2_video_tpu_torch.models.layers import (
     CrossEmbedLayer3D,
@@ -158,22 +170,24 @@ class UNet3DConfig:
 
 
 def _check_ported(cfg: UNet3DConfig) -> None:
-    if cfg.cond_on_text_encodings:
-        raise NotImplementedError("UNet3D options not ported yet: ['cond_on_text_encodings']")
     if cfg.arch not in ("unet3d", "temporal_conv"):
         raise ValueError(f"unknown arch {cfg.arch!r}")
     saved_ops(cfg.remat_policy)  # unknown policy names raise, as in JAX
     if cfg.cond_on_video_embeds and cfg.video_embed_dim is None:
         raise ValueError("cond_on_video_embeds needs video_embed_dim")
+    if cfg.cond_on_text_encodings and cfg.text_embed_dim is None:
+        raise ValueError("cond_on_text_encodings needs text_embed_dim")
 
 
 class UNet3D(nn.Module):
-    """See module docstring."""
+    """See module docstring. ``per_frame_embeds`` builds the per-frame
+    video-embed parameters in place of the global ones."""
 
-    def __init__(self, cfg: UNet3DConfig):
+    def __init__(self, cfg: UNet3DConfig, per_frame_embeds: bool = False):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        self.per_frame_embeds = per_frame_embeds
         cond_dim = cfg.resolved_cond_dim
         tcd = cfg.time_cond_dim
         init_dim = cfg.resolved_init_dim
@@ -233,10 +247,17 @@ class UNet3D(nn.Module):
             if cfg.add_video_embeds_to_time:
                 self.to_video_hiddens = Dense(ve, tcd)
                 self.null_video_hiddens = nn.Parameter(torch.randn(1, tcd))
-            if ve != cond_dim:
-                self.video_to_tokens = Dense(ve, cond_dim * cfg.num_video_tokens)
-            self.null_video_embed = nn.Parameter(
-                torch.randn(1, cfg.num_video_tokens, cond_dim))
+            if per_frame_embeds:
+                self.video_frame_to_token = Dense(ve, cond_dim)
+                self.null_video_frame_token = nn.Parameter(torch.randn(1, 1, cond_dim))
+            else:
+                if ve != cond_dim:
+                    self.video_to_tokens = Dense(ve, cond_dim * cfg.num_video_tokens)
+                self.null_video_embed = nn.Parameter(
+                    torch.randn(1, cfg.num_video_tokens, cond_dim))
+        if cfg.cond_on_text_encodings:
+            self.text_to_cond = Dense(cfg.text_embed_dim, cond_dim)
+            self.null_text_embed = nn.Parameter(torch.randn(1, cfg.max_text_len, cond_dim))
         self.norm_cond = LayerNorm(cond_dim)
         self.norm_mid_cond = LayerNorm(cond_dim)
 
@@ -309,7 +330,9 @@ class UNet3D(nn.Module):
         video_embed: Optional[torch.Tensor] = None,
         lowres_cond_video: Optional[torch.Tensor] = None,
         lowres_noise_level: Optional[torch.Tensor] = None,
+        text_encodings: Optional[torch.Tensor] = None,
         video_keep_mask: Optional[torch.Tensor] = None,
+        text_keep_mask: Optional[torch.Tensor] = None,
         self_cond: Optional[torch.Tensor] = None,
         enable_checkpoint: bool = False,
     ) -> torch.Tensor:
@@ -340,6 +363,8 @@ class UNet3D(nn.Module):
 
         if video_keep_mask is None:
             video_keep_mask = torch.ones(b, dtype=torch.bool, device=x.device)
+        if text_keep_mask is None:
+            text_keep_mask = torch.ones(b, dtype=torch.bool, device=x.device)
 
         if cfg.self_cond:
             x = torch.cat([x, self_cond if self_cond is not None else torch.zeros_like(x)], -1)
@@ -362,21 +387,52 @@ class UNet3D(nn.Module):
         if cfg.cond_on_video_embeds:
             if video_embed is None:
                 raise ValueError("video_embed required")
-            if video_embed.ndim != 2:
-                raise NotImplementedError("per-frame (b, k, d) video embeds are not ported yet")
+            per_frame = video_embed.ndim == 3
+            if per_frame != self.per_frame_embeds:
+                raise ValueError(
+                    f"a {'(b, k, d)' if per_frame else '(b, d)'} video embed needs a unet built "
+                    f"with per_frame_embeds={per_frame} (JAX init_params(per_frame_embeds=...))")
             keep = video_keep_mask[:, None]
             if cfg.add_video_embeds_to_time:
-                vh = gelu_as_jax(self.to_video_hiddens(video_embed))
+                ve = video_embed.float().mean(1).to(video_embed.dtype) if per_frame else video_embed
+                vh = gelu_as_jax(self.to_video_hiddens(ve))
                 t = t + torch.where(keep, vh, self.null_video_hiddens.to(vh.dtype))
-            if hasattr(self, "video_to_tokens"):
-                vt = self.video_to_tokens(video_embed).reshape(
-                    b, cfg.num_video_tokens, cfg.resolved_cond_dim)
+            if per_frame:
+                # one token a frame embed, plus a sinusoidal position over the
+                # frame index: the frames' order is part of the conditioning
+                vt = self.video_frame_to_token(video_embed)
+                pos = sinusoidal_pos_emb(
+                    torch.arange(video_embed.shape[1], device=x.device), cfg.resolved_cond_dim)
+                vt = torch.where(keep[:, :, None], vt + pos[None].to(vt.dtype),
+                                 self.null_video_frame_token)
             else:
-                vt = video_embed[:, None, :].expand(
-                    b, cfg.num_video_tokens, cfg.resolved_cond_dim)
-            vt = torch.where(keep[:, :, None], vt, self.null_video_embed.to(vt.dtype))
+                if hasattr(self, "video_to_tokens"):
+                    vt = self.video_to_tokens(video_embed).reshape(
+                        b, cfg.num_video_tokens, cfg.resolved_cond_dim)
+                else:
+                    vt = video_embed[:, None, :].expand(
+                        b, cfg.num_video_tokens, cfg.resolved_cond_dim)
+                vt = torch.where(keep[:, :, None], vt, self.null_video_embed.to(vt.dtype))
             c = torch.cat([c, vt.to(c.dtype)], dim=1)
-        mid_c = self.norm_mid_cond(c)
+        mid_c = c
+        if cfg.cond_on_text_encodings:
+            if text_encodings is None:
+                raise ValueError("cond_on_text_encodings=True but no text_encodings passed")
+            if text_encodings.shape[-1] != cfg.text_embed_dim:
+                raise ValueError(f"text encodings of width {text_encodings.shape[-1]}, "
+                                 f"not text_embed_dim {cfg.text_embed_dim}")
+            n_max = cfg.max_text_len
+            # a token whose encoding is all zero is padding
+            text_mask = (text_encodings != 0).any(-1)[:, :n_max]
+            tt = self.text_to_cond(text_encodings)[:, :n_max]
+            pad = n_max - tt.shape[1]
+            if pad > 0:
+                tt = F.pad(tt, (0, 0, 0, pad))
+                text_mask = F.pad(text_mask, (0, pad))
+            keep_t = text_mask & text_keep_mask[:, None]
+            tt = torch.where(keep_t[:, :, None], tt, self.null_text_embed)
+            mid_c = torch.cat([c, tt], dim=1)
+        mid_c = self.norm_mid_cond(mid_c)
         c = self.norm_cond(c)
 
         # conditioning streams in the activation dtype (bf16 sampling)

@@ -39,10 +39,11 @@ class TemporalConv(nn.Module):
 class UnetTemporalConv(nn.Module):
     """Per-frame spatial unet + residual temporal conv mixer."""
 
-    def __init__(self, cfg: UNet3DConfig):
+    def __init__(self, cfg: UNet3DConfig, per_frame_embeds: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.unet2d = UNet3D(dataclasses.replace(cfg, joint_time_attention=False))
+        self.unet2d = UNet3D(dataclasses.replace(cfg, joint_time_attention=False),
+                             per_frame_embeds)
         self.temporal_conv = TemporalConv(cfg.resolved_channels_out)
 
     def forward(self, x, time, **kwargs):

@@ -1,9 +1,12 @@
-"""Tiny-context cross-attention forward (port of
+"""Short-context cross-attention forward (port of
 dalle2_video_tpu/ops/pallas/cross_attention.py).
 
-softmax(q k^T * sm_scale) v per (batch, head) with the whole context (m <= 16
-keys) held on chip. For a CUDA tensor the wrapper launches the kernel in
-``csrc/cross_attention.cu``; for a CPU tensor it uses
+softmax(q k^T * sm_scale) v per (batch, head) over a context of any m keys
+(7 or 3 conditioning tokens; 93 with per-frame video embeds; a few hundred
+with text tokens at the unets' middle blocks). For a CUDA tensor the wrapper
+launches the kernel in ``csrc/cross_attention.cu`` (bf16: one route for
+m <= 16, keys in registers, and one for longer contexts, keys in shared
+memory; f32: the CUDA cores); for a CPU tensor it uses
 ``fused_cross_attention_reference``, the JAX kernel's function step by step.
 
 Row 5 has two plain versions, one for each of the JAX routes of
@@ -51,7 +54,6 @@ KERNEL = CudaKernel(
     + [ctypes.c_float, ctypes.c_void_p],
     replaces="dalle2_video_tpu/ops/pallas/cross_attention.py:43",
 )
-MAX_M = 16  # kMaxM in csrc/cross_attention.cu
 SUPPORTED_D = (32, 64)
 
 
@@ -127,8 +129,6 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     require_cuda("cross_attention", [q, k, v], (torch.float32, torch.bfloat16))
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("cross_attention: q, k, v must share a dtype")
-    if m > MAX_M:
-        raise ValueError(f"cross_attention: context of {m} keys exceeds {MAX_M}")
     if d not in SUPPORTED_D:
         raise ValueError(f"cross_attention: head dim {d} not in {SUPPORTED_D}")
     out = torch.empty_like(q)

@@ -134,20 +134,22 @@ class DecoderTrainer:
                 for k, p in unet.named_parameters()}
         return lambda *a, **kw: torch.func.functional_call(unet, cast, a, kw)
 
-    def _loss(self, i: int, video, video_embed, draws: Draws) -> torch.Tensor:
+    def _loss(self, i: int, video, video_embed, text_encodings, draws: Draws) -> torch.Tensor:
         return self.decoder.loss(
-            video, video_embed=video_embed, unet_number=i + 1,
+            video, video_embed=video_embed, text_encodings=text_encodings, unet_number=i + 1,
             compute_dtype=torch.bfloat16 if self.cfg.bf16_compute else None,
             unet=self._network(i), generator=self.generator, draws=draws)
 
     # ------------------------------------------------------------------ #
     def train_step(self, video: torch.Tensor, *, video_embed: Optional[torch.Tensor] = None,
+                   text_encodings: Optional[torch.Tensor] = None,
                    unet_number: int = 1,
                    draws: Union[Draws, Sequence[Draws]] = None) -> torch.Tensor:
         """One forward + backward + update of one unet; returns the loss
-        (0-dim f32, on the device). With grad_accum = a the batch is cut
-        into a microbatches (``draws`` then a list of a dicts or None),
-        gradients and loss averaged over them."""
+        (0-dim f32, on the device). With grad_accum = a the batch (the
+        video, its embeds and text encodings) is cut into a microbatches
+        (``draws`` then a list of a dicts or None), gradients and loss
+        averaged over them."""
         i = unet_number - 1
         cfg = self.cfg
         a = cfg.grad_accum
@@ -163,8 +165,8 @@ class DecoderTrainer:
         total = None
         for j in range(a):
             sl = slice(j * mb, (j + 1) * mb)
-            loss = self._loss(i, video[sl], None if video_embed is None else video_embed[sl],
-                              micro[j])
+            take = lambda a: None if a is None else a[sl]  # noqa: E731
+            loss = self._loss(i, video[sl], take(video_embed), take(text_encodings), micro[j])
             (loss / a).backward()
             total = loss.detach() if total is None else total + loss.detach()
         loss = total / a
@@ -192,9 +194,10 @@ class DecoderTrainer:
 
     @torch.no_grad()
     def eval_loss(self, video: torch.Tensor, *, video_embed: Optional[torch.Tensor] = None,
+                  text_encodings: Optional[torch.Tensor] = None,
                   unet_number: int = 1, draws: Draws = None) -> torch.Tensor:
         """Validation loss under the same precision policy as training."""
-        return self._loss(unet_number - 1, video, video_embed, draws)
+        return self._loss(unet_number - 1, video, video_embed, text_encodings, draws)
 
     # ------------------------------------------------------------------ #
     def sampling_params(self, use_ema: bool = True) -> List[Dict[str, torch.Tensor]]:

@@ -14,8 +14,13 @@ PyTorch state dict: names are the ``.``-joined flax path, and
 
 ``load_from_jax(module, tree)`` then loads it strictly: every JAX leaf must
 land on exactly one parameter of the module and every parameter must be
-filled, with matching shapes, or it raises. The JAX side supplies the numpy
-tree (tests); the card never needs JAX.
+filled, with matching shapes, or it raises. So a unet built for per-frame
+video embeds (``video_frame_to_token``, ``null_video_frame_token``) refuses
+a tree initialised for global ones (``video_to_tokens``,
+``null_video_embed``) and the other way round, and the text parameters
+(``text_to_cond``, ``null_text_embed``; the prior's ``enc_proj``,
+``null_text_encodings``) come across by name like the rest. The JAX side
+supplies the numpy tree (tests); the card never needs JAX.
 
 ``load_train_state_from_jax(trainer, state)`` carries a whole JAX decoder
 ``TrainState`` into a ``DecoderTrainer`` the same strict way: params, EMA

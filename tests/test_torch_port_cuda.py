@@ -61,7 +61,9 @@ from dalle2_video_tpu_torch.probes.xattn_rows import (
     BATCHES,
     DIM_HEAD,
     HEADS,
+    LONG_MS,
     SERVE_SITES,
+    TEXT_SITES,
     hold_bf16,
 )
 from dalle2_video_tpu_torch.utils.device import resolve_device
@@ -321,14 +323,39 @@ def test_cross_attention_kernel_at_the_serve_shapes(dev, unet, n, m, sites, batc
     _cross_attention_case(dev, torch.bfloat16, batch, n, HEADS, DIM_HEAD, m, seed=n + m + batch)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", LONG_MS)
+def test_cross_attention_kernel_over_long_contexts(dev, dtype, m):
+    """Row 5 past the short route's 16 keys: per-frame video tokens (93),
+    text tokens at the middle blocks (259, 263, 349), the tile edges (16,
+    17, 32, 33) and two staged chunks (1000), bf16 and f32, at d 64 and 32,
+    with a ragged tail of tokens."""
+    for d, h, n in ((64, 8, 1000), (32, 2, 333)):
+        _cross_attention_case(dev, dtype, 2, n, h, d, m, seed=m + n)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("unet,n,m,sites", [s for s in TEXT_SITES if s[2] > 16])
+def test_cross_attention_kernel_at_the_serve_text_shapes(dev, unet, n, m, sites, batch):
+    """Every (batch, shape) past 16 keys that serving with text encodings
+    and per-frame embeds gives row 5 (probes/xattn_rows.py::TEXT_SITES; the
+    rest are the serving shapes above), bf16."""
+    _cross_attention_case(dev, torch.bfloat16, batch, n, HEADS, DIM_HEAD, m, seed=n + m + batch)
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     x = torch.zeros(2, 8, 32, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         fm.flash_mqa_fwd(x, x, x)  # fp16: not a kernel dtype
-    q = torch.zeros(1, 4, 8, 64, device=dev)
-    k = torch.zeros(1, 17, 8, 64, device=dev)
-    with pytest.raises(ValueError, match="exceeds"):
-        xa.cross_attention(q, k, k, sm_scale=1.0)
+    # 17 keys, one past the short route, take the long-context route (no
+    # refusal and no plain version for a CUDA tensor)
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = (torch.randn(1, n, 8, 64, generator=g, device=dev) for n in (4, 17, 17))
+    before = xa.KERNEL.launches
+    out = xa.cross_attention(q, k, v, sm_scale=0.125)
+    assert xa.KERNEL.launches == before + 1
+    _assert_attention_close(out, xa.fused_cross_attention_reference(q, k, v, 0.125),
+                            torch.float32, bf16_atol=None)
     q16 = torch.zeros(1, 4, 8, 16, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         xa.cross_attention(q16, q16[:, :3], q16[:, :3], sm_scale=1.0)
