@@ -31,6 +31,8 @@ Phases (any failure exits non-zero and prints no result line):
      convs at every shape the conv paths give them (CONV_SHAPES,
      the sites of probes/conv_rows.py), with their plans logged. Every kernel that sums gives
      two bit-equal calls (the GroupNorm kernels, rows 3, 4 and 9, too);
+     rows 1, 3 and 5 also at batch 1, the distilled student's unguided
+     serving batch (check_student_kernels), each summed over one DDIM step;
   3. module check: small UNet3Ds with the kernel impls against the same
      weights on the plain impls, f32 and bf16; then one loss's gradients
      through both, bf16 compute over f32 masters. Two cases: the serving /
@@ -122,6 +124,24 @@ Phases (any failure exits non-zero and prints no result line):
      best state's EMA shadows, each checked equal bit for bit) answers one
      request at OPTION_STEPS DDIM steps a stage: a finite (90, 128, 128, 3)
      video in [0, 1] and serve_options' plain request's launches;
+ 5e. distill: progressive distillation (train/distill.py) of the "train"
+     recipe's decoder at full width (teacher from seed 0, bf16 sampling
+     unets, xla cross-attention, batch 2 of synthetic videos): unet 1
+     DISTILL_STEPS steps at 32 student steps under guidance 2.0, then at 16
+     and w 1 with the first phase's EMA student as teacher, unet 2 (the SR
+     stage) at 32; finite losses, every student parameter moved, the
+     teacher bit for bit unchanged, the EMA exact, rows 1-4 per step as the
+     structure predicts (three forwards, one backward); then python -m
+     ...train.distill on the stages' store (the teacher: train_data's
+     checkpoint) through its four phases at DISTILL_ENTRY_STEPS a phase;
+ 5f. serve_student: the serve recipe with serve_distill on the entry
+     point's 4-step student (slot 1 its EMA, the grid pinned to (4,
+     OPTION_STEPS)), two requests at cond_scale 1 (the second warm): rows 1,
+     3 and 5 at batch 1 as the structure predicts (held at batch 1 in phase
+     2: check_student_kernels); wall, frames/s and peak memory;
+ 5g. train_prior_moe: the recipe's prior with 8 experts a layer and
+     self-conditioning, PRIOR_STEPS steps at batch 256 (finite loss and
+     aux, every parameter moved), one best-of-2 64-step sample; no kernel;
   6. probes: the flash probes' variants (rows 10 and 11: the r2 forward, at
      block_k 1024 and 2048, and the inner-kv forward, inner 2 / 4 x chain /
      par) against their plain versions at the probes' geometry (bf16, q
@@ -451,6 +471,75 @@ def check_gn_map(torch, dev, name):
                 f"{row['serve_step'][str(b)]['ms']:.4f} ms, bound "
                 f"{row['serve_step'][str(b)]['bound_ms']:.4f} ms")
     return row
+
+
+STUDENT_BATCH = 1  # serve_student's: cond_scale 1, one request
+
+
+def check_student_kernels(dev, torch, rows):
+    """Rows 1, 3 and 5 at batch 1, the distilled student's unguided
+    serving batch (serve_student), a batch no other path gives them: row 1
+    at the joint bottleneck (hold_flash), row 3 at every (1, L, C, G) of one
+    DDIM step of each unet (gn_rows' hold), row 5 at every serving site
+    (hold_bf16); each timed, and summed over one student DDIM step of
+    each unet (the "student_step" entries of the JSON rows)."""
+    from dalle2_video_tpu_torch.ops import cross_attention as xa
+    from dalle2_video_tpu_torch.ops import flash_mqa as fm
+    from dalle2_video_tpu_torch.ops import groupnorm_film as gn
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    step = {u: {} for u in (1, 2)}
+    h, d = 16, 32
+    q, k, v, bk = row1_case(torch, fm, g, dev, STUDENT_BATCH, 90 * 8 * 8, h, d)
+    check_row1(torch, fm, "serve_student", q, k, v, d**-0.5, bk)
+    fms = time_ms(lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=d**-0.5))
+    log(f"  serve_student: ms={fms:.4f}")
+    del q, k, v
+    for u in (1, 2):
+        step[u]["flash_mqa_fwd"] = fms
+    run = lambda *a: gn.groupnorm_film_silu(*a, gn_rows.EPS, return_stats=True)  # noqa: E731
+    for u in (1, 2):
+        total = 0.0
+        for (b, l, c, groups), n in gn_rows.calls(gn_rows.FWD, STUDENT_BATCH, u).items():
+            args = gn_rows.inputs(dev, b, l, c, "normal")
+            label = f"{gn_rows.FWD} B={b} L={l} C={c} G={groups}"
+            try:
+                text = gn_rows.hold_fwd(gn_rows.measure_fwd(run, gn, *args, groups))
+            except AssertionError as exc:
+                raise AssertionError(f"{label}: {exc}") from None
+            kms = time_ms(lambda: run(*args, groups))
+            total += n * kms
+            bnd = gn_rows.bound_ms(gn_rows.FWD, b, l, c)
+            log(f"{label}: {text}; ms={kms:.4f} bound_ms={bnd:.4f}")
+            del args
+        step[u][gn_rows.FWD] = total
+    sc = 64**-0.5
+    for u in (1, 2):
+        step[u]["cross_attention_fwd"] = 0.0
+    for unet, n, m, sites in SERVE_SITES:
+        q = torch.randn(STUDENT_BATCH, n, 8, 64, generator=g, device=dev).to(bf)
+        k, v = (torch.randn(STUDENT_BATCH, m, 8, 64, generator=g, device=dev).to(bf)
+                for _ in range(2))
+        out = xa.cross_attention(q, k, v, sm_scale=sc)
+        label = f"unet{unet} b={STUDENT_BATCH} n={n} m={m}"
+        try:
+            held = hold_bf16(out, xa.fused_cross_attention_reference(q, k, v, sc), q, k, v, sc)
+        except AssertionError as exc:
+            raise AssertionError(f"cross_attention_fwd {label}: {exc}") from None
+        if not torch.equal(out, xa.cross_attention(q, k, v, sm_scale=sc)):
+            raise AssertionError(f"cross_attention_fwd {label}: two calls differ")
+        kms = time_ms(lambda: xa.cross_attention(q, k, v, sm_scale=sc))
+        step[unet]["cross_attention_fwd"] += sites * kms
+        log(f"cross_attention_fwd {label}: {held['text']}; ms={kms:.4f} bound_ms="
+            f"{xa_bound(STUDENT_BATCH, n, 8, 64, m)[0]:.4f}")
+        del q, k, v, out
+    for name in ("flash_mqa_fwd", gn_rows.FWD, "cross_attention_fwd"):
+        rows[name]["student_step"] = {f"unet{u}": step[u][name] for u in (1, 2)}
+    log(f"serve_student kernels at batch {STUDENT_BATCH}, one DDIM step (ms): "
+        + ", ".join(f"unet {u} {step[u]}" for u in (1, 2)))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def check_kernels(dev, torch):
@@ -2851,6 +2940,367 @@ def serve_trained(dev, torch, stages):
     return launches
 
 
+# --------------------------------------------------------------- phase 5e
+# Progressive distillation (train/distill.py) on the "train" recipe's
+# decoder (TRAIN_90, groupnorm_impl pallas, cross_attention_impl xla: row
+# 5 has no backward and a trainer refuses it), the teacher from seed 0
+# with its output convs redrawn (as train's), bf16 sampling unets, batch 2
+# of synthetic 90 x 128^2 videos: unet 1 DISTILL_STEPS steps at 32 student
+# steps under guidance 2.0, then DISTILL_STEPS at 16 and w 1 with the EMA
+# student as teacher; unet 2 (the SR stage: _lowres_cond_kwargs)
+# DISTILL_STEPS at 32; then python -m ...train.distill on the stages' store
+# and handoff (the teacher: train_data's checkpoint) at --steps
+# DISTILL_ENTRY_STEPS a phase. A step is two teacher forwards (2x batched
+# under guidance), one student forward and its backward, so rows 1 and 3
+# launch three times a forward's and rows 2 and 4 once a backward's.
+DISTILL_STEPS = 3
+DISTILL_ENTRY_STEPS = 2
+DISTILL_PATH = dict(overrides=TRAIN_PATHS["train"]["overrides"])
+
+
+def distill_expected(u):
+    """One distill step of unet u: three forwards and one backward of
+    train_expected("train", ...)."""
+    fwd = train_expected("train", u, backward=False, recompute=False)
+    bwd = train_expected("train", u, backward=True, recompute=False)
+    return {k: 3 * fwd.get(k, 0) + (bwd[k] - fwd.get(k, 0)) for k in bwd}
+
+
+def distill_phase(dev, torch, stages, profile: bool = False):
+    """Distill unets 1 and 2 at full width (see above): every loss finite,
+    every student parameter moved (the null embeddings, unread at
+    cond_scale 1, excepted), the teacher's bit for bit unchanged, the EMA
+    d * e + (1 - d) * p exactly after every step, every step's
+    launches as distill_expected (the flash backward on the tensor
+    cores); then the entry point's four phases with their checkpoints.
+    Prints ms per step, samples/s and peak memory per unet."""
+    import numpy as np
+
+    from dalle2_video_tpu_torch.engine.decoder import build_decoder
+    from dalle2_video_tpu_torch.models.layers import kernel_init_
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.train import distill
+    from dalle2_video_tpu_torch.train.__main__ import SyntheticVideos
+
+    card = card_line()
+    cfg, knobs = path_config(DISTILL_PATH)
+    b = cfg["decoder"]["batch_size"]
+    data = SyntheticVideos(b * DISTILL_STEPS, cfg["frame_numbers"][-1], cfg["frame_sizes"][-1],
+                           cfg["dim"], cfg["channels"], seed=0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        decoder = build_decoder(cfg, dev)
+        for unet in decoder.unets:
+            w = unet.to_out.Conv_0.weight
+            kernel_init_(w, w[0].numel())
+    kernels = all_kernels()
+    totals = Counter()
+    as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+
+    def run(label, u, dcfg, teacher=None):
+        tr = distill.DistillTrainer(decoder, dcfg, seed=0)
+        tr.init_state(teacher)
+        start = {k: v.detach().clone() for k, v in tr.student.items()}
+        teacher0 = {k: v.clone() for k, v in tr.teacher.items()}
+        want = {k.name: 0 for k in kernels}
+        want.update(distill_expected(u))
+        d = dcfg.ema_decay
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for step in range(DISTILL_STEPS):
+            batch = data.batch_items(np.arange(step * b, (step + 1) * b))
+            vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
+            ema0 = [v.clone() for v in tr.ema.values()]
+            for k in kernels:
+                k.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(tr.distill_step(vid, video_embed=emb))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k.name: k.launches for k in kernels}
+            if got != want:
+                raise AssertionError(f"distill {label}: launches {got}, the structure predicts "
+                                     f"{want} (two teacher forwards, a student forward and "
+                                     f"its backward)")
+            check_bwd_routes(f"distill {label}", got, need=True)
+            totals.update(got)
+            if not math.isfinite(loss):
+                raise AssertionError(f"distill {label}: step {step} loss {loss}")
+            blend = torch._foreach_mul(ema0, d)
+            torch._foreach_add_(blend, torch._foreach_mul(
+                [v.detach() for v in tr.student.values()], 1.0 - d))
+            if not all(torch.equal(a, e) for a, e in zip(blend, tr.ema.values())):
+                raise AssertionError(f"distill {label}: the EMA is not d * e + (1 - d) * p")
+            log(f"distill {label}: step {step}: loss {loss:.5f}, {ms[-1]:.1f} ms")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the unguided student never reads the CFG null embeddings: those
+        # stay as they were, every other parameter moves
+        still = {k for k, v in tr.student.items() if torch.equal(v.detach(), start[k])}
+        nulls = {k for k in start if k.startswith("null_")}
+        if still != nulls:
+            raise AssertionError(f"distill {label}: parameters that never moved "
+                                 f"{sorted(still)[:6]}, the null embeddings {sorted(nulls)}")
+        if not all(torch.equal(tr.teacher[k], v) for k, v in teacher0.items()):
+            raise AssertionError(f"distill {label}: the teacher's parameters changed")
+        steady = sum(ms[1:]) / len(ms[1:])
+        log(f"distill {label}: ms per step {[round(x, 1) for x in ms]} (first apart), mean "
+            f"after the first {steady:.1f} ms, {b / steady * 1e3:.2f} samples/s, peak memory "
+            f"{peak:.2f} GiB; launches a step {dict((k, v) for k, v in want.items() if v)}; "
+            f"the teacher bit for bit unchanged, every student parameter moved but the null "
+            f"embeddings {sorted(nulls)} (unread at cond_scale 1), the EMA exact [{card}]")
+        if profile:
+            batch = data.batch_items(np.arange(b))
+            vid, emb = as_dev(batch["videos"]), as_dev(batch["video_embeds"])
+            profile_device(f"distill {label} step", torch,
+                           lambda: tr.distill_step(vid, video_embed=emb))
+        return tr
+
+    log(f"distill: {' '.join(knobs)}; batch {b} of {tuple(data.videos.shape[1:])} videos, "
+        f"sample_compute_dtype {cfg['sample_compute_dtype']}")
+    tr = run("unet 1 at 32 steps, w 2", 1,
+             distill.DistillConfig(student_steps=32, teacher_cond_scale=2.0))
+    ema = {k: v.clone() for k, v in tr.ema.items()}
+    del tr
+    tr = run("unet 1 at 16 steps, w 1, the EMA student as teacher", 1,
+             distill.DistillConfig(student_steps=16, teacher_cond_scale=1.0), ema)
+    if not all(torch.equal(tr.teacher[k], v) for k, v in ema.items()):
+        raise AssertionError("distill: the second phase's teacher is not the first's EMA")
+    del tr, ema
+    run("unet 2 (SR) at 32 steps, w 1", 2, distill.DistillConfig(student_steps=32, unet_number=2))
+    del decoder
+    torch.cuda.empty_cache()
+
+    run_dir = f"{stages.root}/distill"
+    for k in kernels:
+        k.reset()
+    t0 = time.time()
+    out = distill.main(stages.args(*DISTILL_PATH["overrides"], "loader=grain",
+                                   f"loader_workers={DATA_WORKERS}")
+                       + ["--run", run_dir, "--steps", str(DISTILL_ENTRY_STEPS)])
+    wall = time.time() - t0
+    got = {k.name: k.launches for k in kernels}
+    n = len(distill.PHASES) * DISTILL_ENTRY_STEPS
+    want = {k.name: 0 for k in kernels}
+    want.update({k: n * v for k, v in distill_expected(1).items()})
+    if got != want:
+        raise AssertionError(f"distill entry point: launches {got}, the structure predicts "
+                             f"{want}")
+    check_bwd_routes("distill entry point", got, need=True)
+    totals.update(got)
+    import os
+
+    missing = [s for s in distill.PHASES
+               if not os.path.exists(f"{run_dir}/student_{s}/done")]
+    if missing or out["trainer"].step != DISTILL_ENTRY_STEPS:
+        raise AssertionError(f"distill entry point: phases {missing} unfinished, last step "
+                             f"{out['trainer'].step}")
+    losses = {s: out[f"phase{s}_losses"] for s in distill.PHASES}
+    if not all(math.isfinite(x) for v in losses.values() for x in v):
+        raise AssertionError(f"distill entry point: losses {losses}")
+    log(f"distill: python -m dalle2_video_tpu_torch.train.distill on {stages.store} (teacher "
+        f"{stages.run_dir}/decoder_default, {DATA_WORKERS} loader workers) at --steps "
+        f"{DISTILL_ENTRY_STEPS}: phases {distill.PHASES} in {wall:.1f} s, ms per step "
+        f"{ {s: round(out[f'phase{s}_ms_per_step'], 1) for s in distill.PHASES} }, last losses "
+        f"{ {s: float(f'{v[-1]:.4g}') for s, v in losses.items()} }; student_<n>/state and done "
+        f"written [{card}]")
+    del out
+    torch.cuda.empty_cache()
+    return {k.name: totals[k.name] for k in kernels}
+
+
+# "serve_student": the serve recipe (flash cross-attention) with
+# serve_distill pointing at the entry point's 4-step student: stage 1 the
+# EMA student at 4 DDIM steps, stage 2 (the decoder checkpoint's) at
+# OPTION_STEPS; one request at cond_scale 1, so every forward is one
+# unguided batch-1 forward: rows 1, 3 and 5 at batch 1 (held there in
+# phase 2: check_student_kernels).
+STUDENT_STEPS = 4
+
+
+def student_launches():
+    """One serve_student request's launches: per forward row 1 once, row 3
+    at every GroupNorm site (54 / 66), row 5 at every cross-attention site;
+    STUDENT_STEPS forwards of unet 1, OPTION_STEPS of unet 2."""
+    steps = {1: STUDENT_STEPS, 2: OPTION_STEPS}
+    xattn = sum(steps[u] * sites for u, _, _, sites in SERVE_SITES)
+    gn = sum(n * sum(gn_rows.calls(gn_rows.FWD, STUDENT_BATCH, u).values())
+             for u, n in steps.items())
+    return {"flash_mqa_fwd": sum(steps.values()), "groupnorm_film_silu_fwd": gn,
+            "cross_attention_fwd": xattn}
+
+
+def serve_student(dev, torch, stages):
+    """build_generate_batch with serve_distill {ckpt: the entry point's
+    student_4/state, steps 4, unet 1}: slot 1 the checkpoint's EMA student
+    bit for bit, slot 2 the decoder checkpoint's EMA shadow, the grid
+    pinned to (4, OPTION_STEPS); one request at cond_scale 1 through the
+    engine: a finite (90, 128, 128, 3) video in [0, 1], launches and
+    kernel shapes as the structure predicts. Prints wall, frames/s and
+    peak memory."""
+    import logging
+    from unittest import mock
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.serve import stack
+    from dalle2_video_tpu_torch.serve.engine import GenerationEngine, GenRequest
+    from dalle2_video_tpu_torch.train import load_best, load_checkpoint
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    card = card_line()
+    ckpt = f"{stages.root}/distill/student_{STUDENT_STEPS}/state"
+    cfg = load_config(None, [*SERVE_PATHS["serve"]["overrides"], f"run_dir={stages.run_dir}",
+                             f"sample_timesteps=[{OPTION_STEPS},{OPTION_STEPS}]"])
+    cfg.update(sample_seed=0, serve_distill={"ckpt": ckpt, "steps": STUDENT_STEPS, "unet": 1})
+    made = {}
+    build = stack.build_stack
+
+    def keep(cfg_, device, **kw):
+        made["stack"] = build(cfg_, device, **kw)
+        return made["stack"]
+
+    t0 = time.time()
+    with mock.patch.object(stack, "build_stack", keep):
+        gb = stack.build_generate_batch(cfg, logging.getLogger("chip_smoke"), dev)
+    t_build = time.time() - t0
+    dec = made["stack"][1].decoder
+    if dec.sample_timesteps != (STUDENT_STEPS, OPTION_STEPS):
+        raise AssertionError(f"serve_student: sample_timesteps {dec.sample_timesteps}")
+    student = load_checkpoint(ckpt, map_location=dev)["ema"]
+    if not all(torch.equal(p, student[k]) for k, p in dec.unets[0].named_parameters()):
+        raise AssertionError("serve_student: slot 1 is not the student's EMA")
+    ema2 = load_best(f"{stages.run_dir}/decoder_default", map_location=dev)["ema"][1]["params"]
+    if not all(torch.equal(p, ema2[k]) for k, p in dec.unets[1].named_parameters()):
+        raise AssertionError("serve_student: slot 2 is not the decoder checkpoint's EMA shadow")
+    log(f"serve_student: stack built in {t_build:.1f} s: slot 1 {ckpt}'s EMA student, slot 2 "
+        f"the decoder checkpoint's EMA shadow, bit for bit; sample_timesteps "
+        f"{dec.sample_timesteps}")
+    del student, ema2
+    engine = GenerationEngine(gb, buckets=(1,), max_wait_ms=5.0, default_cond_scale=1.0,
+                              default_ddim_steps=None)
+    kernels = all_kernels()
+    totals = Counter()
+    try:
+        walls = []
+        for seed in (7, 8):  # the second warm: the first pays the stack's first calls
+            for k in kernels:
+                k.reset()
+            torch.cuda.reset_peak_memory_stats()
+            with ShapeRecord() as shapes:
+                t0 = time.time()
+                res = engine.generate(GenRequest("a person smiling", seed=seed, cond_scale=1.0,
+                                                 ddim_steps=None), timeout=600)
+                walls.append(time.time() - t0)
+            launches = {k.name: k.launches for k in kernels}
+            totals.update(launches)
+            want = student_launches()
+            if {k: v for k, v in launches.items() if v} != want:
+                raise AssertionError(f"serve_student: launches {launches}, the structure "
+                                     f"predicts {want}")
+            steps = {1: STUDENT_STEPS, 2: OPTION_STEPS}
+            xattn = Counter()
+            for u, n, m, sites in SERVE_SITES:
+                xattn[(STUDENT_BATCH, n, 8, 64, m)] += sites * steps[u]
+            gn = Counter()
+            for u, n in steps.items():
+                gn.update({(gn_rows.FWD, *key): c * n
+                           for key, c in gn_rows.calls(gn_rows.FWD, STUDENT_BATCH, u).items()})
+            shapes.check("serve_student", conv_path_shapes("serve_student"), xattn, gn)
+            vid = res["video"]
+            frames, size = cfg["frame_numbers"][-1], cfg["frame_sizes"][-1]
+            if vid.shape != (frames, size, size, 3) or not (
+                    np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+                raise AssertionError(f"serve_student: video {vid.shape} not finite in [0, 1]")
+            log(f"serve_student: request (seed {seed}) at cond_scale 1, DDIM {STUDENT_STEPS} + "
+                f"{OPTION_STEPS}: wall {walls[-1]:.3f} s, {frames / walls[-1]:.2f} frames/s, "
+                f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean "
+                f"{float(vid.mean()):.3f} std {float(vid.std()):.3f}; launches rows 1 / 3 / 5 "
+                f"{launches['flash_mqa_fwd']} / {launches['groupnorm_film_silu_fwd']} / "
+                f"{launches['cross_attention_fwd']} [{card}]")
+    finally:
+        engine.close()
+    del gb, made, engine, dec
+    torch.cuda.empty_cache()
+    return {k.name: totals[k.name] for k in kernels}
+
+
+# "train_prior_moe": the recipe's prior (depth 6, dim 512, 8 x 64 heads)
+# with a top-2 mixture of 8 experts in every layer (prior.ff_experts 8)
+# and self-conditioning (neither has a config key the JAX prior_from_config
+# reads with it: the network config is built here), at prior.batch_size;
+# then one best-of-2 64-step sample.
+# No kernel lies on it.
+MOE_EXPERTS = 8
+
+
+def train_prior_moe(dev, torch):
+    """PRIOR_STEPS Adam steps of the MoE + self-conditioned prior on seeded
+    device embeddings: finite losses and load-balance aux, every parameter
+    moved; one best-of-2 DDIM sample at the recipe's 64 steps: finite
+    (b, dim) embeds. No kernel launches. Prints ms per step, samples/s,
+    peak memory."""
+    from dalle2_video_tpu_torch.models.prior import (
+        DiffusionPrior,
+        DiffusionPriorConfig,
+        PriorNetworkConfig,
+    )
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.train.train_prior import PriorTrainer
+    from dalle2_video_tpu_torch.utils.config import load_config
+    from dalle2_video_tpu_torch.utils.keys import RowKeys, derive_generator, init_from
+
+    card = card_line()
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset()
+    cfg = load_config(None)
+    pc = cfg["prior"]
+    pcfg = DiffusionPriorConfig(
+        network=PriorNetworkConfig(dim=cfg["dim"], depth=pc["depth"], heads=pc["heads"],
+                                   dim_head=pc["dim_head"], ff_experts=MOE_EXPERTS,
+                                   self_cond=True),
+        timesteps=pc["timesteps"], sample_timesteps=pc["sample_timesteps"])
+    with init_from(derive_generator(cfg["seed"], 4, 0)):
+        prior = DiffusionPrior(pcfg, dev)
+    trainer = PriorTrainer(prior, float(pc["lr"]),
+                           generator=derive_generator(cfg["seed"], 4, 1, device=dev))
+    b, d = pc["batch_size"], cfg["dim"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    ve, te = (torch.randn(b, d, generator=g, device=dev) for _ in range(2))
+    before = {k: p.detach().clone() for k, p in prior.network.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = timed_steps(torch, lambda: float(trainer.train_step(ve, te)), PRIOR_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        t = torch.randint(0, pc["timesteps"], (b,), generator=g, device=dev)
+        _, aux = prior.network(ve * prior.embed_scale, t, text_embed=te, return_aux=True)
+    if not (all(math.isfinite(x) for x in losses) and math.isfinite(float(aux))):
+        raise AssertionError(f"train_prior_moe: losses {losses}, aux {float(aux)}")
+    moved(torch, before, prior.network, "train_prior_moe")
+    steady = sum(ms[1:]) / len(ms[1:])
+    n_params = sum(p.numel() for p in prior.network.parameters())
+    log(f"train_prior_moe: prior depth {pc['depth']}, dim {d}, {MOE_EXPERTS} experts top-2 "
+        f"(capacity factor {pcfg.network.moe_capacity_factor}), self_cond, {n_params / 1e6:.1f}M "
+        f"params, batch {b}: ms per step {[round(x, 2) for x in ms]} (first apart), mean after "
+        f"the first {steady:.2f} ms, {b / steady * 1e3:.0f} samples/s; peak memory {peak:.3f} "
+        f"GiB; losses {[round(x, 4) for x in losses]}, load-balance aux {float(aux):.4f} "
+        f"[{card}]")
+    prior.network.eval()
+    t0 = time.time()
+    embeds = prior.sample(RowKeys([1, 2]), te[:2], num_samples_per_batch=2, cond_scale=1.0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if embeds.shape != (2, d) or not bool(torch.isfinite(embeds).all()):
+        raise AssertionError(f"train_prior_moe: sample {tuple(embeds.shape)} not finite")
+    log(f"train_prior_moe: best-of-2 sample of 2 rows at {pcfg.sample_timesteps} DDIM steps: "
+        f"{wall:.2f} s [{card}]")
+    del trainer, prior, before
+    torch.cuda.empty_cache()
+    return no_launches(kernels, "train_prior_moe")
+
+
 # --------------------------------------------------------------- phase 6
 def probes(dev, torch):
     """The flash probes' rows (dalle2_video_tpu_torch/probes), counts set to
@@ -3014,7 +3464,8 @@ def main() -> int:
         return out
 
     rows = phase("kernels", lambda: check_probe_kernels(dev, torch, check_conv_kernels(
-        dev, torch, check_backward_kernels(dev, torch, check_kernels(dev, torch)))))
+        dev, torch, check_backward_kernels(dev, torch, check_student_kernels(
+            dev, torch, check_kernels(dev, torch))))))
 
     def module_checks():
         for case in MODULE_CASES:
@@ -3044,6 +3495,9 @@ def main() -> int:
                                     args.profile)
         runs["train_data"] = phase("train_data", train_data, dev, torch, stages)
         runs["serve_trained"] = phase("serve_trained", serve_trained, dev, torch, stages)
+        runs["distill"] = phase("distill", distill_phase, dev, torch, stages, args.profile)
+        runs["serve_student"] = phase("serve_student", serve_student, dev, torch, stages)
+    runs["train_prior_moe"] = phase("train_prior_moe", train_prior_moe, dev, torch)
     runs["probes"] = phase("probes", probes, dev, torch)
     log("phase times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total since start {time.time() - t_start:.1f}")
@@ -3061,7 +3515,7 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]}
         for extra in ("conv_alone_ms", "variants", "library_fwd_bwd_ms", "probe_geometry",
-                      "serve_step", "block_k_2048", "text"):
+                      "serve_step", "block_k_2048", "text", "student_step"):
             if extra in r:
                 row[extra] = r[extra]
         out.append(row)

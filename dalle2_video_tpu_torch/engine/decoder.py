@@ -327,15 +327,24 @@ class VideoDecoder(nn.Module):
     def _unet_apply(self, i: int, x, t, *, cond_scale: float = 1.0,
                     video_embed=None, text_encodings=None, lowres_cond_video=None,
                     lowres_noise_level=None, self_cond=None,
-                    negative_video_embed=None, negative_text_encodings=None) -> torch.Tensor:
+                    negative_video_embed=None, negative_text_encodings=None,
+                    params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """forward_with_cond_scale as ONE 2x-batched forward; returns f32.
         Under CFG the baseline half of each stream is its learned null
         embedding, or the ``negative_video_embed`` / ``negative_text_encodings``
         (broadcast from e.g. a leading dim of 1, kept) when one is given with
-        its stream's conditioning: guided = neg + (cond - neg) * scale."""
+        its stream's conditioning: guided = neg + (cond - neg) * scale.
+        ``params`` (the unet's parameters by name, as the JAX ``unet_params``)
+        run through the sampling unet in place of its own, cast to the
+        compute dtype (``torch.func.functional_call``: gradients reach them)."""
         unet = self.sampling_unet(i)
         cdt = self.compute_dtype
         castf = lambda a: None if a is None else a.to(cdt)
+        if params is not None:
+            own = unet
+            cast = {k: castf(p) if cdt is not None and p.is_floating_point() else p
+                    for k, p in params.items()}
+            unet = lambda *a, **kw: torch.func.functional_call(own, cast, a, kw)  # noqa: E731
         if cdt is not None:
             x, video_embed = castf(x), castf(video_embed)
             lowres_cond_video, self_cond = castf(lowres_cond_video), castf(self_cond)

@@ -15,8 +15,14 @@ best state's sampling params: the EMA shadows when the trainer keeps
 them). Whatever has no checkpoint keeps random weights made from
 ``sample_seed``, with a warning -- the text tower too: with no OpenAI
 checkpoint it comes from ``sample_seed``, not from the CLIP stage's
-stream, as in the JAX server. Distilled students and data-parallel serving
-are not ported yet.
+stream, as in the JAX server.
+
+``serve_distill: {ckpt, steps, unet}`` serves a distilled student
+(``python -m dalle2_video_tpu_torch.train.distill``): the EMA student of
+the checkpoint at ``ckpt`` takes cascade slot ``unet`` (default 1) and that
+slot alone samples ``steps`` DDIM steps (``train/distill.py::
+serve_student``). Students fold CFG in, so serve them at cond_scale 1: one
+unguided forward a step. Data-parallel serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from dalle2_video_tpu_torch.train.checkpoint import (
     load_decoder_sampling_params,
     load_params_subtree,
 )
+from dalle2_video_tpu_torch.train.distill import serve_student
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
 from dalle2_video_tpu_torch.utils.keys import RowKeys
 
@@ -102,6 +109,12 @@ def build_stack(cfg: Dict[str, Any], device: DeviceLike = None,
     else:
         log.warning("no decoder checkpoint at %s: random decoder (smoke quality only)",
                     dec_ckpt)
+    dist = cfg.get("serve_distill")
+    if dist:
+        unet_no = int(dist.get("unet", 1))
+        serve_student(decoder, str(dist["ckpt"]), int(dist["steps"]), unet_no)
+        log.info("distilled student in slot %d: %s (DDIM-%d, CFG folded in)", unet_no,
+                 dist["ckpt"], int(dist["steps"]))
     return text_enc, DALLE2Video(prior, decoder)
 
 

@@ -1,9 +1,9 @@
 """Training (port of dalle2_video_tpu/train: the decoder trainer, the CLIP
 trainer, EMA, checkpoints). ``python -m dalle2_video_tpu_torch.train`` is
 the counterpart of scripts/train_decoder.py (see ``__main__.py``);
-``python -m dalle2_video_tpu_torch.train.train_clip``, ``.eval_clip`` and
-``.train_prior`` those of scripts/train_clip.py, eval_clip.py and
-train_prior.py."""
+``python -m dalle2_video_tpu_torch.train.train_clip``, ``.eval_clip``,
+``.train_prior`` and ``.distill`` those of scripts/train_clip.py,
+eval_clip.py, train_prior.py and distill_decoder.py's phase loop."""
 
 from dalle2_video_tpu_torch.train.checkpoint import (
     PreemptionGuard,

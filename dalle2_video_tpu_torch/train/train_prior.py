@@ -17,9 +17,11 @@ state ``{params, opt_state[, ema]}`` under ``<run_dir>/prior_<train_name>``
 (newest ``ckpt_keep``, best 1 by ``val_loss``); ``resume=true`` restarts
 from the newest. Serving reads the params out of it (EMA preferred,
 ``train/checkpoint.py::load_params_subtree``). Runs on CUDA unless
-``device=cpu``. The prior options still to port (self-conditioning, text
-encodings, mixture-of-experts, the scanned / pipelined stack) and a
-multi-device ``mesh`` raise.
+``device=cpu``. The network's options come from ``models/prior.py::
+prior_from_config`` (the stacked layout ``scan_layers``, the experts
+``ff_experts`` / ``moe_capacity_factor`` / ``moe_aux_weight``). What needs
+more than one device raises: a multi-device ``mesh``, expert parallelism
+(``prior.expert_parallel`` > 1) and the pipeline (``pipeline_microbatches``).
 """
 
 from __future__ import annotations
@@ -130,6 +132,10 @@ def train_prior(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray],
     check_single_device(cfg)
     dev = resolve_device(device)
     pc = cfg["prior"]
+    if int(pc.get("expert_parallel", 1)) > 1:
+        raise NotImplementedError(
+            f"prior.expert_parallel {pc['expert_parallel']}: expert parallelism needs a mesh "
+            "(not ported yet; the experts run on one device)")
     bs = int(pc["batch_size"])
     train_loader = BatchLoader(dataset, bs, splits["train"], shuffle=True, seed=cfg["seed"])
     val_loader = BatchLoader(dataset, bs, splits["val"], shuffle=False)

@@ -29,7 +29,15 @@ shadows and steps, and the optax Adam moments ``mu`` / ``nu`` with their
 ``load_clip_train_state_from_jax`` does the same for a ``ClipTrainState``
 into a ``ClipTrainer`` (the ViViT's params, the temperature, the moments of
 both, the step), ``load_prior_train_state_from_jax`` for the prior's
-training state (params, Adam moments, EMA shadow) into a ``PriorTrainer``.
+training state (params, Adam moments, EMA shadow) into a ``PriorTrainer``,
+``load_distill_state_from_jax`` a ``DistillState`` (student, EMA, Adam
+moments, step) into a ``DistillTrainer``.
+
+The prior's stacked layout (``scan_layers``: flax nn.scan's ``layers``
+subtree, every leaf with a leading depth axis) converts slice by slice and
+stays stacked; the mixture-of-experts leaves ``experts_w1`` / ``experts_w2``
+((e, d, h) and (e, h, d), stacked or not) keep their layout, the router is
+a Dense kernel like any other.
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+# the subtree name of flax nn.scan's stacked layers (the prior's
+# ``scan_layers``): its leaves carry a leading depth axis
+STACKED = "layers"
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -52,25 +64,35 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+def _leaf_from_jax(name: str, arr: np.ndarray):
+    head, _, leaf = name.rpartition(".")
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            arr = arr.T
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)
+        else:
+            raise ValueError(f"{name}: kernel of rank {arr.ndim}")
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    return (f"{head}.{leaf}" if head else leaf), arr
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for name, arr in _flatten(tree).items():
-        head, _, leaf = name.rpartition(".")
-        if leaf == "kernel":
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 3:
-                arr = arr.transpose(2, 1, 0)
-            else:
-                raise ValueError(f"{name}: kernel of rank {arr.ndim}")
-            leaf = "weight"
-        elif leaf == "scale":
-            leaf = "weight"
-        key = f"{head}.{leaf}" if head else leaf
+        if STACKED in name.split("."):
+            # the nn.scan layout: each slice of the leading depth axis is
+            # one layer's leaf
+            slices = [_leaf_from_jax(name, a) for a in arr]
+            key, arr = slices[0][0], np.stack([a for _, a in slices])
+        else:
+            key, arr = _leaf_from_jax(name, arr)
         if key in sd:
             raise ValueError(f"two JAX leaves map onto {key}")
         sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
@@ -182,3 +204,22 @@ def load_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
         _load_ema(trainer.ema[i], state["ema"][i], f"unet_{i} ema")
     trainer.steps = [int(np.asarray(s)) for s in state["steps"]]
     trainer.decoder._sampling_unets.clear()
+
+
+@torch.no_grad()
+def load_distill_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
+    """Strict load of a JAX DistillState into a ``DistillTrainer`` after its
+    ``init_state`` (the template), given as numpy trees: ``{"student": flax
+    params, "ema": flax params, "opt_state": {"mu", "nu": trees, "count":
+    int}, "step": int}``."""
+    if trainer.student is None:
+        raise ValueError("init_state first: the state loads into its template")
+    for key in ("student", "ema"):
+        own = getattr(trainer, key)
+        for k, v in _strict(state[key], own, f"distill {key}").items():
+            own[k].copy_(v)
+    opt = state["opt_state"]
+    own = trainer.student
+    _set_adam(trainer.optimizer, own, _strict(opt["mu"], own, "distill mu"),
+              _strict(opt["nu"], own, "distill nu"), opt["count"])
+    trainer.step = int(np.asarray(state["step"]))

@@ -923,6 +923,99 @@ def test_dpmpp_stage_kernels_match_plain(dev):
     torch.testing.assert_close(got[:, :1], video[:, :1], atol=1e-6, rtol=0)
 
 
+def _student_away_from_teacher(tr, seed=1):
+    """The student (and its EMA) moved off the teacher by the same seeded
+    perturbation on any device."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, p in tr.student.items():
+            p.add_((0.02 * torch.randn(p.shape, generator=g)).to(p))
+            tr.ema[k].copy_(p)
+
+
+def test_distill_loss_and_gradients_kernels_match_plain(dev):
+    """One distillation loss (train/distill.py, f32, guidance 2.0: two
+    teacher forwards at CFG batch 4, the student's forward and backward at
+    batch 2) of a one-stage decoder on the card through rows 1-4 against
+    the same on the CPU through their plain versions, the draws injected:
+    the loss within 1e-4 relative, the student's gradients within 1e-3
+    relative L2; then one distill_step on the card: finite, the EMA
+    d * e + (1 - d) * p exactly."""
+    from dalle2_video_tpu_torch.train.distill import DistillConfig, DistillTrainer
+
+    card, cpu = _option_decoders(dev)
+    g = torch.Generator().manual_seed(6)
+    video = torch.rand(2, 4, 32, 32, 3, generator=g)
+    embed = torch.randn(2, 32, generator=g)
+    draws = {"segments": torch.tensor([0, 2]),
+             "noise": torch.randn(2, 4, 32, 32, 3, generator=g)}
+    kernels = (fm.KERNEL, fm.BWD_KERNEL, gn.KERNEL, gn.BWD_KERNEL)
+    outs = []
+    for dec, d in ((card, dev), (cpu, torch.device("cpu"))):
+        tr = DistillTrainer(dec, DistillConfig(student_steps=4, teacher_cond_scale=2.0))
+        tr.init_state()
+        _student_away_from_teacher(tr)
+        before = [k.launches for k in kernels]
+        loss = tr.loss(video.to(d), video_embed=embed.to(d),
+                       draws={k: v.to(d) for k, v in draws.items()})
+        loss.backward()
+        launched = [k.launches - n for k, n in zip(kernels, before)]
+        assert all(launched) if d.type == "cuda" else not any(launched), launched
+        outs.append((float(loss.detach()), {k: p.grad.cpu() for k, p in tr.student.items()
+                                   if p.grad is not None}))
+        if d.type == "cuda":
+            ema0 = [v.clone() for v in tr.ema.values()]
+            step_loss = tr.distill_step(video.to(d), video_embed=embed.to(d))
+            assert math.isfinite(float(step_loss)) and tr.step == 1
+            want = torch._foreach_mul(ema0, 0.999)
+            torch._foreach_add_(want, torch._foreach_mul(
+                [v.detach() for v in tr.student.values()], 1.0 - 0.999))
+            assert all(torch.equal(a, b) for a, b in zip(want, tr.ema.values()))
+    (l_k, g_k), (l_p, g_p) = outs
+    assert abs(l_k - l_p) <= 1e-4 * abs(l_p) and l_p > 0
+    assert set(g_k) == set(g_p)
+    for k in g_p:
+        if float(g_p[k].norm()) > 0:
+            assert _rel_l2(g_k[k], g_p[k]) <= 1e-3, (k, _rel_l2(g_k[k], g_p[k]))
+
+
+def test_served_student_sample_kernels_match_plain(dev, tmp_path):
+    """serve_distill's swap (train/distill.py::serve_student) of one saved
+    student into both decoders, the grid pinned to 2 steps; an unguided
+    (cond_scale 1) batch-1 sample on the card through rows 1 and 3 at
+    batch 1 against the CPU's plain versions from the same x_T: 2e-3 on
+    the video in [0, 1] (the requests' bound)."""
+    from dalle2_video_tpu_torch.train import save_checkpoint
+    from dalle2_video_tpu_torch.train.distill import (
+        DistillConfig,
+        DistillTrainer,
+        serve_student,
+    )
+    from dalle2_video_tpu_torch.utils.keys import RowKeys
+
+    card, cpu = _option_decoders(dev)
+    tr = DistillTrainer(cpu, DistillConfig(student_steps=2))
+    tr.init_state()
+    _student_away_from_teacher(tr)
+    save_checkpoint(str(tmp_path / "student"), tr.state_dict())
+    g = torch.Generator().manual_seed(7)
+    x_t = torch.randn(1, 4, 32, 32, 3, generator=g)
+    embed = torch.randn(1, 32, generator=g)
+    videos = []
+    for dec in (card, cpu):
+        serve_student(dec, str(tmp_path / "student"), 2)
+        assert dec.sample_timesteps == (2,)
+        before = fm.KERNEL.launches, gn.KERNEL.launches
+        videos.append(dec.sample(RowKeys([0]), video_embed=embed, cond_scale=1.0,
+                                 init_noises=[x_t]).cpu())
+        launched = fm.KERNEL.launches - before[0], gn.KERNEL.launches - before[1]
+        assert all(launched) if dec is card else not any(launched), launched
+    got, want = videos
+    assert torch.isfinite(got).all() and 0.0 <= float(got.min()) <= float(got.max()) <= 1.0
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+    assert float(((want > 0) & (want < 1)).float().mean()) > 0.5
+
+
 # --------------------------------------------------------------- stages 1 and 2
 # No kernel lies on them: the ViViT, the CLIP step and the prior step run
 # plain PyTorch on the card (f32, TF32 off), held here to the same on the

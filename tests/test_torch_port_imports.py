@@ -47,6 +47,9 @@ def test_source_scan_finds_no_banned_import():
     assert {"dalle2_video_tpu_torch.models.vivit", "dalle2_video_tpu_torch.utils.contrastive",
             *(f"dalle2_video_tpu_torch.train.{m}" for m in (
                 "clip_trainer", "common", "train_clip", "eval_clip", "train_prior"))} <= set(_modules())
+    # and distillation and the prior's experts
+    assert {"dalle2_video_tpu_torch.train.distill",
+            "dalle2_video_tpu_torch.models.moe"} <= set(_modules())
 
 
 def test_every_module_imports_with_jax_blocked():

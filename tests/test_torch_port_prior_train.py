@@ -236,15 +236,22 @@ def test_load_decoder_sampling_params_prefers_each_unets_ema_shadow(tmp_path):
     assert [float(sd["w"][0]) for sd in served] == [-1.0, 2.0]  # best: step 1
 
 
-@pytest.mark.parametrize("override", ["mesh.data=2", "prior.scan_layers=true",
-                                      "prior.ff_experts=4", "prior.pipeline_microbatches=2"])
+@pytest.mark.parametrize("override", [("mesh.data=2",), ("prior.expert_parallel=2",),
+                                      ("prior.ff_experts=4", "prior.expert_parallel=4"),
+                                      ("prior.pipeline_microbatches=2",)],
+                         ids=["mesh.data=2", "prior.expert_parallel=2",
+                              "prior.ff_experts=4-expert_parallel=4",
+                              "prior.pipeline_microbatches=2"])
 def test_train_prior_refuses_unported_options(tmp_path, override):
+    """What needs more than one device raises: a mesh, expert parallelism,
+    the pipeline (the stacked layout and the experts themselves train:
+    tests/test_torch_port_prior_moe.py)."""
     ve, te = _embeds(3, b=6)
     np.save(tmp_path / "v.npy", ve)
     np.save(tmp_path / "t.npy", te)
     with pytest.raises(NotImplementedError):
         train_prior.main([f"videos.embed={tmp_path}/v.npy", f"texts.embed={tmp_path}/t.npy",
-                          "device=cpu", f"run_dir={tmp_path}", "dim=32", override])
+                          "device=cpu", f"run_dir={tmp_path}", "dim=32", *override])
 
 
 _DECODER = ["frame_sizes=[8,16]", "frame_numbers=[2,2]", "decoder.batch_size=2",
