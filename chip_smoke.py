@@ -124,6 +124,17 @@ Phases (any failure exits non-zero and prints no result line):
      best state's EMA shadows, each checked equal bit for bit) answers one
      request at OPTION_STEPS DDIM steps a stage: a finite (90, 128, 128, 3)
      video in [0, 1] and serve_options' plain request's launches;
+ 5d'. import_reference: the reference's torch checkpoints drawn from the
+     importers' walks (models/torch_import.py) at full width: a ViViT at the
+     CLIP recipe through train_clip.main and eval_clip.main with
+     torch_vivit_ckpt (the imported tower the drawn tensors under the walk's
+     conversions, bit for bit), flops_of of one batch-64 CLIP step beside
+     clip_step_flops (more than FLOP_RATIO_FAIL apart fails); a decoder with
+     non-parameter buffers among its keys loaded into the serve recipe's
+     stack (bit for bit, exactly the buffers skipped) answering one request
+     at OPTION_STEPS (rows 1, 3, 5 as serve_trained's); the trainer bundle
+     (EMA shadows + 1, steps set) into the "train" recipe's trainer, then
+     one step per unet (rows 1-4 as train's); walls from StepTimer;
  5e. distill: progressive distillation (train/distill.py) of the "train"
      recipe's decoder at full width (teacher from seed 0, bf16 sampling
      unets, xla cross-attention, batch 2 of synthetic videos): unet 1
@@ -133,7 +144,12 @@ Phases (any failure exits non-zero and prints no result line):
      teacher bit for bit unchanged, the EMA exact, rows 1-4 per step as the
      structure predicts (three forwards, one backward); then python -m
      ...train.distill on the stages' store (the teacher: train_data's
-     checkpoint) through its four phases at DISTILL_ENTRY_STEPS a phase;
+     checkpoint) through its four phases at DISTILL_ENTRY_STEPS a phase,
+     then its scoring: DISTILL_N_EVAL held-out clips (the split at
+     DISTILL_TRAIN_RATIO) at DISTILL_EVAL_BATCH, each student sampled
+     unguided at its own step count through rows 1, 3 and 5
+     (score_expected), the anchor and each FVD finite and not below
+     -1e-6 x the anchor's scale;
  5f. serve_student: the serve recipe with serve_distill on the entry
      point's 4-step student (slot 1 its EMA, the grid pinned to (4,
      OPTION_STEPS)), two requests at cond_scale 1 (the second warm): rows 1,
@@ -161,7 +177,9 @@ Phases (any failure exits non-zero and prints no result line):
      NearestUpsample3D, the temporal_conv unet) on the card to the same
      modules on the CPU, and the remat policies' gradients (bit for bit on
      both conv-path routes, REMAT_CASES) and recompute launches on the
-     conv paths' kernels. Every path's run records the shapes that reach
+     conv paths' kernels, every resize method on the card against the CPU
+     and the CLIP adapters over the CLIP stage's towers
+     (check_resize_and_adapters). Every path's run records the shapes that reach
      the three conv kernels, the cross-attention and the GroupNorm kernels
      (ShapeRecord) and fails unless they are the path's own
      (conv_path_shapes; serve_shapes: the 7 cross-attention shapes at their
@@ -1086,6 +1104,67 @@ def check_probe_kernels(dev, torch, rows):
 
 
 # --------------------------------------------------------------- phase 3
+RESIZE_TOL = 1e-5
+
+
+def check_resize_and_adapters(dev, torch):
+    """ops/video.py's resizes by every jax.image.resize method on the card
+    against the same function on the CPU (within RESIZE_TOL), down and up
+    in space and in time; then VideoClipAdapter over copies of the CLIP
+    stage's towers (the recipe's ViViT and text tower, seed 0): its embeds
+    equal the trainer's embed_text / embed_video bit for bit, no parameter
+    requires a gradient; a GenericClipAdapter over the trainer's methods
+    returns those embeds l2-normalised."""
+    from dalle2_video_tpu_torch.models.clip_adapter import GenericClipAdapter, VideoClipAdapter
+    from dalle2_video_tpu_torch.ops.video import METHODS, resize_video, resize_video_time
+    from dalle2_video_tpu_torch.train import train_clip
+    from dalle2_video_tpu_torch.train.clip_trainer import ClipTrainer
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((2, 16, 64, 64, 3), generator=g, device=dev)
+    worst = {}
+    for method in METHODS:
+        outs = [(resize_video, 37), (resize_video, 96), (resize_video_time, 9),
+                (resize_video_time, 24)]
+        worst[method] = max(float((fn(x, n, method).cpu() - fn(x.cpu(), n, method)).abs().max())
+                            for fn, n in outs)
+    log(f"module check: resize_video / resize_video_time of (2, 16, 64, 64, 3) to 37^2, 96^2, 9 "
+        f"and 24 frames, card vs CPU, max |diff| by method {worst}")
+    if max(worst.values()) > RESIZE_TOL:
+        raise AssertionError(f"resize: the card differs from the CPU by more than {RESIZE_TOL}")
+
+    cfg = load_config(None)
+    vc, tc = train_clip.vivit_config(cfg), train_clip.text_config(cfg)
+    trainer = ClipTrainer(vc, tc, seed=cfg["seed"], device=dev)
+    adapter = VideoClipAdapter.create(vc, trainer.vivit.state_dict(),
+                                      trainer.text_encoder.state_dict(), tc, dev)
+    videos = torch.rand((2, vc.num_frames, vc.frame_size, vc.frame_size, 3), generator=g,
+                        device=dev)
+    tokens = torch.randint(1, 49408, (2, 77), generator=g, device=dev)
+    v_want, t_want = trainer.embed_video(videos), trainer.embed_text(tokens)
+    (v_emb, v_enc), (t_emb, t_enc) = adapter.embed_video(videos), adapter.embed_text(tokens)
+    frozen = not any(p.requires_grad for m in (adapter.vivit, adapter.text_encoder)
+                     for p in m.parameters())
+    generic = GenericClipAdapter(trainer.embed_text, trainer.embed_video, vc.dim)
+    norm = lambda e: e / torch.linalg.vector_norm(e, dim=-1, keepdim=True).clamp_min(1e-12)  # noqa
+    g_v, g_t = generic.embed_video(videos)[0], generic.embed_text(tokens)[0]
+    unit = max(float((torch.linalg.vector_norm(e, dim=-1) - 1).abs().max()) for e in (g_v, g_t))
+    ok = (torch.equal(v_emb, v_want) and torch.equal(t_emb, t_want) and v_enc is None
+          and t_enc.shape == (2, 77, tc.width) and frozen and torch.equal(g_v, norm(v_want))
+          and torch.equal(g_t, norm(t_want)) and unit < 1e-6 and not v_emb.requires_grad)
+    log(f"module check: VideoClipAdapter over the CLIP stage's towers ({vc.num_frames} x "
+        f"{vc.frame_size}^2 ViViT, {tc.layers} x {tc.width} text tower): embeds equal the "
+        f"trainer's bit for bit {torch.equal(v_emb, v_want) and torch.equal(t_emb, t_want)}, "
+        f"encodings {tuple(t_enc.shape)}, no parameter requiring a gradient {frozen}; "
+        f"GenericClipAdapter l2-normalised, max |norm - 1| {unit:.1e}")
+    if not ok:
+        raise AssertionError("clip adapters: the embeds, the freezing or the normalisation "
+                             "differ from the trainer's")
+    del trainer, adapter, videos
+    torch.cuda.empty_cache()
+
+
 def _small_unet(UNet3D, UNet3DConfig, kw, dev):
     """The module checks' UNet3D. Its output conv starts at zero (the JAX
     package's init), which would make both outputs 0 and stop every
@@ -2940,6 +3019,243 @@ def serve_trained(dev, torch, stages):
     return launches
 
 
+# ------------------------------------------------------- import_reference
+# The reference's torch checkpoints (models/torch_import.py) at full width,
+# drawn from the importers' walks (each reference key's shape; the port
+# parameter it fills): a ViViT at the CLIP recipe (150 x 224^2, 25.5M)
+# through train_clip / eval_clip's torch_vivit_ckpt; a decoder at the
+# serve recipe (celebv_text, 90 frames), with non-parameter buffers among
+# its keys, loaded into a serving stack that answers one request; the
+# trainer bundle (EMA shadows the parameters + 1, steps set) into the
+# "train" recipe's trainer, then one step per unet. Walls from
+# utils/profiling.StepTimer; flops_of of one CLIP step beside
+# clip_step_flops.
+IMPORT_BUFFERS = {"noise_schedulers.0.betas": (1000,), "noise_schedulers.1.betas": (1000,),
+                  "lowres_conds.1.blur_kernel": (3, 3)}
+FLOP_RATIO_FAIL = 0.10  # flops_of vs clip_step_flops: a larger gap means one count is wrong
+
+
+def import_reference(dev, torch, stages):
+    """See above. Returns the launches of the imported decoder's request
+    and the bundle's train steps."""
+    import logging
+    from unittest import mock
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.engine.decoder import build_decoder
+    from dalle2_video_tpu_torch.models import torch_import
+    from dalle2_video_tpu_torch.models.vivit import ViViT
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.serve import stack
+    from dalle2_video_tpu_torch.serve.engine import GenerationEngine, GenRequest
+    from dalle2_video_tpu_torch.train import eval_clip, train_clip
+    from dalle2_video_tpu_torch.train.__main__ import SyntheticVideos, build_trainer
+    from dalle2_video_tpu_torch.train.clip_trainer import ClipTrainer
+    from dalle2_video_tpu_torch.utils.config import load_config
+    from dalle2_video_tpu_torch.utils.profiling import StepTimer, flops_of
+
+    card = card_line()
+    root = f"{stages.root}/import"
+    gen = torch.Generator().manual_seed(0)
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset()
+
+    def same(got, want, label):
+        bad = [k for k, v in want.items() if not torch.equal(got[k], v.to(got[k].device))]
+        if set(got) != set(want) or bad:
+            raise AssertionError(f"import_reference: {label} differs from the drawn tensors "
+                                 f"under the walk's conversions: {bad[:6]}")
+
+    def timed(fn):
+        timer = StepTimer()
+        timer.start()
+        out = fn()
+        return out, timer.stop(out if isinstance(out, torch.Tensor) else None)
+
+    # ---- the ViViT through the CLIP entry points
+    cfg = load_config(None)
+    vc = train_clip.vivit_config(cfg)
+    with torch.device("meta"):
+        walk = torch_import.vivit_walk(ViViT(vc))
+    sd = torch_import.draw_walk(walk, gen)
+    want = {e.port_key: e.convert(sd[e.ref_key]) for e in walk}
+    import os
+
+    os.makedirs(root, exist_ok=True)
+    vivit_ckpt = f"{root}/video_encoder_last.pt"
+    torch.save(sd, vivit_ckpt)
+    args = [f"run_dir={root}/runs", f"videos.preprocessed={stages.store}",
+            f"texts.tokenized={stages.tokens}", f"videos.embed={root}/videos.npy",
+            f"texts.embed={root}/texts.npy", *STAGE_CLIP, f"torch_vivit_ckpt={vivit_ckpt}"]
+    first = []
+    step = ClipTrainer.train_step
+
+    def recording_step(self, *a, **kw):
+        if not first:
+            first.append({k: v.detach().clone() for k, v in self.vivit.state_dict().items()})
+        return step(self, *a, **kw)
+
+    with mock.patch.object(ClipTrainer, "train_step", recording_step):
+        trained, t_train = timed(lambda: train_clip.main(args))
+    same(first[0], want, "train_clip's ViViT at its first step")
+    if trained["trainer"].step != 8 or not math.isfinite(trained["train"]["loss"]):
+        raise AssertionError(f"import_reference: train_clip took {trained['trainer'].step} "
+                             f"steps, loss {trained['train'].get('loss')}")
+    evald, t_eval = timed(lambda: eval_clip.main(args + ["clip.batch_size=4"]))
+    same(dict(evald["trainer"].vivit.state_dict()), want, "eval_clip's ViViT")
+    log(f"import_reference: a reference ViViT ({sum(v.numel() for v in sd.values()) / 1e6:.1f}M, "
+        f"{vc.num_frames} x {vc.frame_size}^2, {len(sd)} keys drawn from the walk): "
+        f"train_clip.main with torch_vivit_ckpt {t_train:.2f} s ({trained['trainer'].step} "
+        f"steps at batch 2; the ViViT at its first step the converted tensors bit for bit), "
+        f"eval_clip.main {t_eval:.2f} s (its ViViT the converted tensors bit for bit, over the "
+        f"run's checkpoint) [{card}]")
+    del trained, evald, first
+    torch.cuda.empty_cache()
+
+    # flops_of of one recipe step beside clip_step_flops
+    b = cfg["clip"]["batch_size"]
+    trainer = ClipTrainer(vc, train_clip.text_config(cfg), seed=cfg["seed"], device=dev)
+    trainer.vivit.load_state_dict(want, strict=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    videos = torch.randn((b, vc.num_frames, vc.frame_size, vc.frame_size, 3), generator=g,
+                         device=dev)
+    tokens = torch.randint(1, 49408, (b, 77), generator=g, device=dev)
+    counted = flops_of(trainer.train_step, videos, tokens, trainer.dropout_generator)
+    formula, _ = clip_step_flops(vc, trainer.text_encoder.cfg, b)
+    ratio = counted / formula
+    log(f"import_reference: flops_of(one train_clip step at batch {b}) {counted / 1e12:.4f} "
+        f"TFLOP (FlopCounterMode: matmuls and convolutions, forward and backward), "
+        f"clip_step_flops {formula / 1e12:.4f} TFLOP, ratio {ratio:.5f} [{card}]")
+    if abs(ratio - 1.0) > FLOP_RATIO_FAIL:
+        raise AssertionError(f"import_reference: flops_of / clip_step_flops = {ratio:.4f}, more "
+                             f"than {FLOP_RATIO_FAIL:.0%} apart: one of the counts is wrong")
+    del trainer, videos, tokens
+    torch.cuda.empty_cache()
+
+    # ---- the decoder, served
+    scfg = load_config(None, [*SERVE_PATHS["serve"]["overrides"], f"run_dir={root}/no_runs"])
+    scfg["sample_seed"] = 0
+    made = {}
+    build = stack.build_stack
+
+    def keep(cfg_, device, **kw):
+        made["stack"] = build(cfg_, device, **kw)
+        return made["stack"]
+
+    with mock.patch.object(stack, "build_stack", keep):
+        gb = stack.build_generate_batch(scfg, logging.getLogger("chip_smoke"), dev)
+    decoder = made["stack"][1].decoder
+    dwalk = torch_import.decoder_walk(decoder)
+    dsd = torch_import.draw_walk(dwalk, gen)
+    for key, shape in IMPORT_BUFFERS.items():
+        dsd[key] = torch.rand(shape, generator=gen)
+    dec_ckpt = f"{root}/decoder_last.pt"
+    torch.save(dsd, dec_ckpt)
+    skipped, t_load = timed(lambda: torch_import.load_decoder_torch_ckpt(dec_ckpt, decoder))
+    if sorted(skipped) != sorted(IMPORT_BUFFERS):
+        raise AssertionError(f"import_reference: skipped {skipped}, the buffers are "
+                             f"{sorted(IMPORT_BUFFERS)}")
+    own = {f"{i}.{k}": v for i, u in enumerate(decoder.unets) for k, v in u.state_dict().items()}
+    dwant = {e.port_key: e.convert(dsd[e.ref_key]) for e in dwalk if e.port_key is not None}
+    same(own, dwant, "the served decoder")
+    n_drop = sum(e.port_key is None for e in dwalk)
+    log(f"import_reference: a reference decoder ({sum(v.numel() for v in dsd.values()) / 1e6:.1f}M"
+        f", {len(dsd)} keys: {len(dwalk)} from the walk, {n_drop} of them nulls no port "
+        f"parameter takes, and {len(IMPORT_BUFFERS)} buffers) loaded in {t_load:.2f} s into the "
+        f"serve recipe's unets, bit for bit; skipped exactly {sorted(skipped)}")
+    del own, dwant
+    engine = GenerationEngine(gb, buckets=(1,), max_wait_ms=5.0, default_cond_scale=3.0,
+                              default_ddim_steps=OPTION_STEPS)
+    try:
+        for k in kernels:
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        with ShapeRecord() as shapes:
+            res, wall = timed(lambda: engine.generate(GenRequest(
+                "a person smiling", seed=7, cond_scale=3.0, ddim_steps=OPTION_STEPS),
+                timeout=600))
+        served = {k.name: k.launches for k in kernels}
+    finally:
+        engine.close()
+    vid = res["video"]
+    frames, size = scfg["frame_numbers"][-1], scfg["frame_sizes"][-1]
+    if vid.shape != (frames, size, size, 3) or not (
+            np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+        raise AssertionError(f"import_reference: video {vid.shape} not finite in [0, 1]")
+    shapes.check("import_reference", conv_path_shapes("serve_trained"),
+                 Counter({key: n * OPTION_STEPS for key, n in serve_shapes(2).items()}),
+                 gn_path_calls("serve", {2: 1}, OPTION_STEPS))
+    want_served = option_launches(1, False)
+    log(f"import_reference: the imported decoder served one request, {OPTION_STEPS} DDIM steps a "
+        f"stage: wall {wall:.3f} s, {frames / wall:.2f} frames/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean {float(vid.mean()):.3f} std "
+        f"{float(vid.std()):.3f}; launches {served} expected {want_served} [{card}]")
+    if {k: v for k, v in served.items() if v} != want_served:
+        raise AssertionError("import_reference: the request's launches differ from the unet "
+                             "structure's")
+    del gb, made, engine, decoder
+    torch.cuda.empty_cache()
+
+    # ---- the trainer bundle, then a step per unet
+    tcfg, _ = path_config(TRAIN_PATHS["train"])
+    trainer = build_trainer(tcfg, build_decoder(tcfg, dev))
+    ema_sd = {}
+    for i in range(2):
+        pref = f"unets.{i}."
+        for k, v in dsd.items():
+            if k.startswith(pref):
+                ema_sd[f"{i}.ema_model.{k[len(pref):]}"] = v + 1.0
+        ema_sd[f"{i}.initted"] = torch.tensor(True)
+        ema_sd[f"{i}.step"] = torch.tensor(120 + i)
+    bundle = {"model": dsd, "version": "0.0.0", "steps": torch.tensor([1200, 340]),
+              "optim0": {"state": {}, "param_groups": []}, "sched0": {}, "ema": ema_sd}
+    bundle_ckpt = f"{root}/trainer.pt"
+    torch.save(bundle, bundle_ckpt)
+    del bundle, ema_sd
+    _, t_load = timed(lambda: torch_import.load_trainer_torch_ckpt(bundle_ckpt, trainer))
+    steps, ema_steps = list(trainer.steps), [e.step for e in trainer.ema]
+    if steps != [1200, 340] or ema_steps != [120, 121]:
+        raise AssertionError(f"import_reference: steps {steps}, EMA steps {ema_steps}")
+    for i in range(2):
+        ents = [e for e in dwalk if e.port_key is not None and e.port_key.startswith(f"{i}.")]
+        same(trainer.params(i), {e.port_key.split(".", 1)[1]: e.convert(dsd[e.ref_key])
+                                 for e in ents}, f"unet {i + 1}'s parameters")
+        same(trainer.ema[i].params, {e.port_key.split(".", 1)[1]: e.convert(dsd[e.ref_key] + 1.0)
+                                     for e in ents}, f"unet {i + 1}'s EMA shadow")
+    bt = tcfg["decoder"]["batch_size"]
+    data = SyntheticVideos(bt, tcfg["frame_numbers"][-1], tcfg["frame_sizes"][-1], tcfg["dim"],
+                           tcfg["channels"], seed=0)
+    vid = torch.as_tensor(data.videos, device=dev)
+    emb = torch.as_tensor(data.embeds, device=dev)
+    totals = Counter(served)
+    torch.cuda.reset_peak_memory_stats()
+    ms = {}
+    for u in (1, 2):
+        for k in kernels:
+            k.reset()
+        loss, dt = timed(lambda: trainer.train_step(vid, video_embed=emb, unet_number=u))
+        ms[u] = dt * 1e3
+        got = {k.name: k.launches for k in kernels}
+        want_step = {k.name: 0 for k in kernels}
+        want_step.update(train_expected("train", u, backward=True, recompute=False))
+        if got != want_step or not math.isfinite(float(loss)):
+            raise AssertionError(f"import_reference: unet {u} step from the bundle: loss "
+                                 f"{float(loss)}, launches {got}, expected {want_step}")
+        check_bwd_routes(f"import_reference unet {u}", got, need=True)
+        totals.update(got)
+    log(f"import_reference: the trainer bundle ({os.path.getsize(bundle_ckpt) / 1e6:.0f} MB) "
+        f"loaded in {t_load:.2f} s: parameters and EMA shadows (+1) bit for bit, steps "
+        f"{steps}, EMA steps {ema_steps}, fresh Adam state; one step "
+        f"per unet on the train recipe at batch {bt}: {ms[1]:.1f} / {ms[2]:.1f} ms (first "
+        f"calls), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, rows 1-4 as "
+        f"train predicts [{card}]")
+    del trainer, vid, emb
+    torch.cuda.empty_cache()
+    return {k.name: totals[k.name] for k in kernels}
+
+
 # --------------------------------------------------------------- phase 5e
 # Progressive distillation (train/distill.py) on the "train" recipe's
 # decoder (TRAIN_90, groupnorm_impl pallas, cross_attention_impl xla: row
@@ -2956,6 +3272,26 @@ def serve_trained(dev, torch, stages):
 DISTILL_STEPS = 3
 DISTILL_ENTRY_STEPS = 2
 DISTILL_PATH = dict(overrides=TRAIN_PATHS["train"]["overrides"])
+# the entry point's scoring, cut as its phases are: N_EVAL 4 held-out clips
+# (the scoring's least: the 10-clip store split 6 / 4 by train_ratio 0.6,
+# which costs the loader one epoch start more than 0.8; 4 / 6 cost two) at
+# EVAL_BATCH 2, each student sampled at its own step count, unguided, so
+# every forward is one batch-2 forward of unet 1 on the serve recipe's
+# kernels (rows 1, 3, 5)
+DISTILL_N_EVAL = 4
+DISTILL_EVAL_BATCH = 2
+DISTILL_TRAIN_RATIO = 0.6
+
+
+def score_expected(phases):
+    """The scoring's launches: N_EVAL / EVAL_BATCH batches of each phase's
+    step count of unet-1 forwards at batch EVAL_BATCH: row 1 once, row 3 at
+    every GroupNorm site, row 5 at every cross-attention site."""
+    forwards = DISTILL_N_EVAL // DISTILL_EVAL_BATCH * sum(phases)
+    gn = sum(gn_rows.calls(gn_rows.FWD, DISTILL_EVAL_BATCH, 1).values())
+    xattn = sum(sites for u, _, _, sites in SERVE_SITES if u == 1)
+    return {"flash_mqa_fwd": forwards, "groupnorm_film_silu_fwd": gn * forwards,
+            "cross_attention_fwd": xattn * forwards}
 
 
 def distill_expected(u):
@@ -2974,6 +3310,8 @@ def distill_phase(dev, torch, stages, profile: bool = False):
     launches as distill_expected (the flash backward on the tensor
     cores); then the entry point's four phases with their checkpoints.
     Prints ms per step, samples/s and peak memory per unet."""
+    from unittest import mock
+
     import numpy as np
 
     from dalle2_video_tpu_torch.engine.decoder import build_decoder
@@ -2981,6 +3319,7 @@ def distill_phase(dev, torch, stages, profile: bool = False):
     from dalle2_video_tpu_torch.ops._cuda import all_kernels
     from dalle2_video_tpu_torch.train import distill
     from dalle2_video_tpu_torch.train.__main__ import SyntheticVideos
+    from dalle2_video_tpu_torch.utils.profiling import StepTimer
 
     card = card_line()
     cfg, knobs = path_config(DISTILL_PATH)
@@ -3074,18 +3413,24 @@ def distill_phase(dev, torch, stages, profile: bool = False):
     run_dir = f"{stages.root}/distill"
     for k in kernels:
         k.reset()
-    t0 = time.time()
-    out = distill.main(stages.args(*DISTILL_PATH["overrides"], "loader=grain",
-                                   f"loader_workers={DATA_WORKERS}")
-                       + ["--run", run_dir, "--steps", str(DISTILL_ENTRY_STEPS)])
-    wall = time.time() - t0
+    timer = StepTimer()
+    timer.start()
+    with mock.patch.object(distill, "N_EVAL", DISTILL_N_EVAL), \
+            mock.patch.object(distill, "EVAL_BATCH", DISTILL_EVAL_BATCH):
+        out = distill.main(stages.args(*DISTILL_PATH["overrides"], "loader=grain",
+                                       f"loader_workers={DATA_WORKERS}",
+                                       f"train_ratio={DISTILL_TRAIN_RATIO}")
+                           + ["--run", run_dir, "--steps", str(DISTILL_ENTRY_STEPS)])
+    wall = timer.stop()
     got = {k.name: k.launches for k in kernels}
     n = len(distill.PHASES) * DISTILL_ENTRY_STEPS
     want = {k.name: 0 for k in kernels}
     want.update({k: n * v for k, v in distill_expected(1).items()})
+    for k, v in score_expected(distill.PHASES).items():
+        want[k] += v
     if got != want:
         raise AssertionError(f"distill entry point: launches {got}, the structure predicts "
-                             f"{want}")
+                             f"{want} (the phases' steps and the scoring's forwards)")
     check_bwd_routes("distill entry point", got, need=True)
     totals.update(got)
     import os
@@ -3100,10 +3445,22 @@ def distill_phase(dev, torch, stages, profile: bool = False):
         raise AssertionError(f"distill entry point: losses {losses}")
     log(f"distill: python -m dalle2_video_tpu_torch.train.distill on {stages.store} (teacher "
         f"{stages.run_dir}/decoder_default, {DATA_WORKERS} loader workers) at --steps "
-        f"{DISTILL_ENTRY_STEPS}: phases {distill.PHASES} in {wall:.1f} s, ms per step "
-        f"{ {s: round(out[f'phase{s}_ms_per_step'], 1) for s in distill.PHASES} }, last losses "
-        f"{ {s: float(f'{v[-1]:.4g}') for s, v in losses.items()} }; student_<n>/state and done "
-        f"written [{card}]")
+        f"{DISTILL_ENTRY_STEPS}: phases {distill.PHASES} and the scoring in {wall:.1f} s, ms "
+        f"per step {({s: round(out[f'phase{s}_ms_per_step'], 1) for s in distill.PHASES})}, "
+        f"last losses {({s: float(f'{v[-1]:.4g}') for s, v in losses.items()})}; "
+        f"student_<n>/state and done written [{card}]")
+    anchor = out["fvd_real_vs_real_splithalf"]
+    fvds = {s: out[f"fvd_student{s}"] for s in distill.PHASES}
+    walls = {s: out[f"sample_s_student{s}"] for s in distill.PHASES}
+    floor = -1e-6 * abs(anchor)
+    if not all(math.isfinite(v) and v >= floor for v in (anchor, *fvds.values(), *walls.values())):
+        raise AssertionError(f"distill scoring: anchor {anchor}, FVDs {fvds}, walls {walls}: "
+                             f"not all finite and >= {floor}")
+    log(f"distill scoring (a random teacher's students under a random extractor: these numbers "
+        f"show that the harness runs, not a quality): {DISTILL_N_EVAL} held-out clips at "
+        f"batch {DISTILL_EVAL_BATCH}, extractor {out['extractor']!r}; anchor (real vs real, "
+        f"split half) {anchor!r}; FVD per student {fvds}; sampling wall s per student {walls}; "
+        f"launches of the scoring {score_expected(distill.PHASES)} [{card}]")
     del out
     torch.cuda.empty_cache()
     return {k.name: totals[k.name] for k in kernels}
@@ -3473,6 +3830,7 @@ def main() -> int:
             check_module_grads(dev, torch, case)
         check_temporal_sr_layers(dev, torch)
         check_remat_policies(dev, torch)
+        check_resize_and_adapters(dev, torch)
 
     phase("module checks", module_checks)
     # each main path's own run: its counts set to 0 before it, read after it
@@ -3495,6 +3853,8 @@ def main() -> int:
                                     args.profile)
         runs["train_data"] = phase("train_data", train_data, dev, torch, stages)
         runs["serve_trained"] = phase("serve_trained", serve_trained, dev, torch, stages)
+        runs["import_reference"] = phase("import_reference", import_reference, dev, torch,
+                                         stages)
         runs["distill"] = phase("distill", distill_phase, dev, torch, stages, args.profile)
         runs["serve_student"] = phase("serve_student", serve_student, dev, torch, stages)
     runs["train_prior_moe"] = phase("train_prior_moe", train_prior_moe, dev, torch)

@@ -53,8 +53,25 @@ Each phase writes ``<run>/student_<steps>/state`` and a ``done`` marker;
 a rerun reloads the finished phases. ``results.json`` holds each phase's
 losses and ms per step. Serve a student with ``serve_distill: {ckpt:
 <run>/student_4/state, steps: 4, unet: 1}`` (``serve/stack.py``) at
-cond_scale 1. The JAX script's FVD scoring and its blob-video teacher are
-not part of the port (``utils/fvd.py`` is not ported).
+cond_scale 1.
+
+Then the students are scored (``score_students``, the script's scoring):
+the FVD (``utils/fvd.py``, its fixed-seed ViViT extractor) of each
+phase's EMA student, sampled alone at its own step count and cond_scale 1
+(``stop_at_unet_number`` 1, one request seed ``SEED_BASE`` + i per
+sample), against min(``N_EVAL``, held-out) clips of the data path's
+held-out split (the JAX script's blob videos and their teacher are not
+in the repository), embedded once, with a split-half real-vs-real anchor.
+The space the reals are scored in: the stores hold CLIP-normalised
+values, which the decoder maps by x 2 - 1 as if they were [0, 1]
+pictures, so a sample is the store's values clamped to [0, 1]; the reals
+are the store's clips at the stage's geometry (nearest, as the loss
+resizes them), clamped to [0, 1] (``results.json``'s ``score_space``).
+The students sample through the serve recipe's cross-attention kernel
+(``cross_attention_impl: flash``, which the trainer cannot take). A rerun
+scores only the phases without a score. ``results.json`` gains
+``extractor``, ``fvd_real_vs_real_splithalf``, ``fvd_student<n>`` and
+``sample_s_student<n>``.
 """
 
 from __future__ import annotations
@@ -67,6 +84,7 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from dalle2_video_tpu_torch.engine.conditioner import noise_video
@@ -82,6 +100,9 @@ from dalle2_video_tpu_torch.train.checkpoint import (
 from dalle2_video_tpu_torch.train.common import check_single_device, make_loaders
 from dalle2_video_tpu_torch.utils.config import config_from_argv
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
+from dalle2_video_tpu_torch.utils.fvd import embed_all, fvd_from_features, vivit_embed_fn
+from dalle2_video_tpu_torch.utils.keys import RowKeys
+from dalle2_video_tpu_torch.utils.profiling import StepTimer
 
 log = logging.getLogger("dalle2_video_tpu_torch.distill")
 
@@ -363,6 +384,11 @@ PHASES = (32, 16, 8, 4)  # student_steps per halving phase
 COND_SCALE = 2.0  # folded into the student in the first phase
 LR = 1e-4
 LOG_EVERY = 50
+N_EVAL = 64  # held-out clips scored (at most the split's)
+EVAL_BATCH = 16
+SEED_BASE = 1000  # sample i's request seed: SEED_BASE + i (the script's PRNGKey(1000 + s))
+SCORE_SPACE = ("the store's values (CLIP-normalised) at the stage's geometry (nearest), "
+               "clamped to [0, 1]; samples as the decoder returns them, clamped to [0, 1]")
 
 
 def load_teacher(cfg: Dict[str, Any], decoder: VideoDecoder) -> None:
@@ -389,11 +415,72 @@ def _batches(loader) -> Iterator[Dict[str, Any]]:
             raise ValueError("the training split holds no whole batch")
 
 
+def held_out_reals(dataset, indices, decoder: VideoDecoder):
+    """(videos, video embeds) of the clips at ``indices``: the store's clips
+    at unet 1's geometry (nearest, as the loss resizes them), clamped to
+    [0, 1], on the decoder's device."""
+    dcfg, dev = decoder.config, decoder.device
+    videos, embeds = [], []
+    for s in range(0, len(indices), EVAL_BATCH):
+        batch = dataset.batch_items(indices[s:s + EVAL_BATCH])
+        v = resize_video(torch.as_tensor(batch["videos"]).to(dev), dcfg.frame_sizes[0])
+        videos.append(resize_video_time(v, dcfg.frame_numbers[0]).clamp(0.0, 1.0))
+        embeds.append(torch.as_tensor(batch["video_embeds"]).to(dev, torch.float32))
+    return torch.cat(videos), torch.cat(embeds)
+
+
+def score_students(cfg: Dict[str, Any], dataset, splits: Dict[str, Any],
+                   emas: Dict[int, Params], results: Dict[str, Any], flush,
+                   device: DeviceLike = None) -> None:
+    """scripts/distill_decoder.py's scoring (see the module docstring) into
+    ``results``, ``flush()`` after the anchor and after each student."""
+    dev = resolve_device(device)
+    n = min(N_EVAL, len(splits["val"]))
+    if n < 4:
+        raise ValueError(f"scoring needs at least 4 held-out clips (each half of the "
+                         f"real-vs-real anchor more than one); the split holds "
+                         f"{len(splits['val'])}")
+    decoder = build_decoder({**cfg, **{u: dict(cfg[u], cross_attention_impl="flash")
+                                       for u in ("unet1", "unet2")}}, dev)
+    reals, embeds = held_out_reals(dataset, np.asarray(splits["val"][:n]), decoder)
+    embed_fn, provenance = vivit_embed_fn(device=dev)
+    results.setdefault("extractor", provenance)
+    results["score_space"] = SCORE_SPACE
+    feats_real = embed_all(reals, embed_fn, EVAL_BATCH)  # embedded once
+    half = n // 2
+    results["fvd_real_vs_real_splithalf"] = fvd_from_features(feats_real[:half],
+                                                              feats_real[half:])
+    log.info("anchor (real vs real, split half): %.4f", results["fvd_real_vs_real_splithalf"])
+    flush()
+    own = dict(decoder.unets[0].named_parameters())
+    for steps in PHASES:
+        tag = f"student{steps}"
+        if f"fvd_{tag}" in results:
+            continue
+        with torch.no_grad():
+            for k, p in own.items():
+                p.copy_(emas[steps][k])
+        decoder._sampling_unets.clear()  # the bf16 copy is rebuilt
+        decoder.sample_timesteps = (steps, *decoder.sample_timesteps[1:])
+        timer = StepTimer()
+        timer.start()
+        fakes = torch.cat([decoder.sample(
+            RowKeys.from_request_seeds(range(SEED_BASE + s, SEED_BASE + s + len(e))),
+            video_embed=e, cond_scale=1.0, stop_at_unet_number=1)
+            for s, e in ((s, embeds[s:s + EVAL_BATCH]) for s in range(0, n, EVAL_BATCH))])
+        results[f"sample_s_{tag}"] = timer.stop(fakes)
+        results[f"fvd_{tag}"] = fvd_from_features(feats_real,
+                                                  embed_all(fakes, embed_fn, EVAL_BATCH))
+        log.info("%s: FVD %.4f (%.1f s to sample %d)", tag, results[f"fvd_{tag}"],
+                 results[f"sample_s_{tag}"], n)
+        flush()
+
+
 def distill(cfg: Dict[str, Any], run: Path, steps_per_phase: int,
             device: DeviceLike = None) -> Dict[str, Any]:
-    """The phase loop on one device. Returns the results dict (also written
-    to ``<run>/results.json``) and, under "trainer", the last phase's
-    trainer."""
+    """The phase loop on one device, then the scoring. Returns the results
+    dict (also written to ``<run>/results.json``) and, under "trainer", the
+    last phase's trainer."""
     from dalle2_video_tpu_torch.train.__main__ import store_dataset
 
     check_single_device(cfg)
@@ -409,7 +496,12 @@ def distill(cfg: Dict[str, Any], run: Path, steps_per_phase: int,
     if (run / "results.json").exists():
         results = json.loads((run / "results.json").read_text())
     as_dev = lambda a: torch.as_tensor(a).to(dev, non_blocking=True)  # noqa: E731
+
+    def flush():
+        (run / "results.json").write_text(json.dumps(results, indent=1))
+
     tr = None
+    emas: Dict[int, Params] = {}
     try:
         for phase, steps in enumerate(PHASES):
             w = COND_SCALE if phase == 0 else 1.0
@@ -438,11 +530,12 @@ def distill(cfg: Dict[str, Any], run: Path, steps_per_phase: int,
                 results[f"phase{steps}_losses"] = losses
                 results[f"phase{steps}_ms_per_step"] = (
                     (time.time() - t0) / max(steps_per_phase, 1) * 1e3)
-                (run / "results.json").write_text(json.dumps(results, indent=1))
-            teacher = tr.ema  # the EMA student teaches the next phase
+                flush()
+            teacher = emas[steps] = tr.ema  # the EMA student teaches the next phase
     finally:
         if batches is not None:
             batches.close()
+    score_students(cfg, dataset, splits, emas, results, flush, dev)
     return {**results, "trainer": tr}
 
 

@@ -13,8 +13,10 @@ tower, with a warning). Every clip is embedded in order, the tail the
 drop-remainder loader leaves included, and the (N, dim) f32 arrays are
 written to ``videos.embed`` and ``texts.embed`` (.npy). Then the
 video->text retrieval over all N pairs, similarity rows in chunks of 1,024,
-is logged. Runs on CUDA unless ``device=cpu``; ``torch_vivit_ckpt`` and a
-multi-device ``mesh`` raise (not ported yet).
+is logged. ``torch_vivit_ckpt=<video_encoder_{last,best}.pt>`` embeds with a
+reference torch ViViT checkpoint in place of the run's (as
+scripts/eval_clip.py does). Runs on CUDA unless ``device=cpu``; a
+multi-device ``mesh`` raises (not ported yet).
 """
 
 from __future__ import annotations
@@ -29,7 +31,12 @@ import torch
 from dalle2_video_tpu_torch.data.datasets import BatchLoader, CelebVTextDataset
 from dalle2_video_tpu_torch.train.checkpoint import has_checkpoint, load_best, load_latest
 from dalle2_video_tpu_torch.train.clip_trainer import ClipTrainer
-from dalle2_video_tpu_torch.train.train_clip import refuse_unported, text_config, vivit_config
+from dalle2_video_tpu_torch.train.train_clip import (
+    import_torch_vivit,
+    refuse_unported,
+    text_config,
+    vivit_config,
+)
 from dalle2_video_tpu_torch.utils.config import config_from_argv
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -70,6 +77,7 @@ def eval_clip(cfg: Dict[str, Any], dataset, device: DeviceLike = None) -> Dict[s
         log.info("loaded %s (%s)", ckpt, which)
     else:
         log.warning("no checkpoint at %s: using the random encoder", ckpt)
+    import_torch_vivit(cfg, trainer)
 
     def embed(batch):
         return (trainer.embed_video(torch.as_tensor(batch["videos"])).cpu().numpy(),

@@ -18,8 +18,11 @@ under ``<run_dir>/clip_<train_name>`` (newest ``ckpt_keep``, best 1 by
 ``val_loss``); ``resume=true`` restarts from the newest. Runs on CUDA
 unless ``device=cpu``.
 
-Not ported yet (they raise): a ``mesh`` over more than one device and
-``torch_vivit_ckpt`` (warm starts from reference torch checkpoints).
+``torch_vivit_ckpt=<video_encoder_{last,best}.pt>`` warm-starts the ViViT
+from a reference torch checkpoint (``models/torch_import.py``), with fresh
+optimiser state, as scripts/train_clip.py does; ``resume=true`` still
+restores the newest checkpoint over it. A ``mesh`` over more than one
+device raises (not ported yet).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from dalle2_video_tpu_torch.data.datasets import CelebVTextDataset, split_indices
 from dalle2_video_tpu_torch.models.clip_text import CLIPTextConfig
+from dalle2_video_tpu_torch.models.torch_import import load_vivit_torch_ckpt
 from dalle2_video_tpu_torch.models.vivit import ViViTConfig
 from dalle2_video_tpu_torch.train.checkpoint import RollingCheckpointManager
 from dalle2_video_tpu_torch.train.clip_trainer import ClipTrainer, ClipTrainerConfig
@@ -82,9 +86,17 @@ def text_config(cfg: Dict[str, Any]) -> CLIPTextConfig:
 
 def refuse_unported(cfg: Dict[str, Any]) -> None:
     check_single_device(cfg)
-    if cfg.get("torch_vivit_ckpt"):
-        raise NotImplementedError("torch_vivit_ckpt: importing reference torch ViViT "
-                                  "checkpoints is not ported yet")
+
+
+def import_torch_vivit(cfg: Dict[str, Any], trainer: ClipTrainer) -> None:
+    """``torch_vivit_ckpt``, when set: the reference ViViT checkpoint's
+    weights into ``trainer.vivit`` (a missing file raises
+    FileNotFoundError)."""
+    path = cfg.get("torch_vivit_ckpt")
+    if path:
+        trainer.vivit.load_state_dict(load_vivit_torch_ckpt(str(path), trainer.vivit.cfg),
+                                      strict=True)
+        log.info("imported the reference torch ViViT checkpoint %s", path)
 
 
 def smoke_setup(cfg: Dict[str, Any]):
@@ -111,6 +123,7 @@ def train_clip(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray],
                           total_steps=max(1, len(train_loader)) * epochs,
                           init_temperature=cc["init_temperature"]),
         seed=cfg["seed"], openai_ckpt=cc.get("openai_ckpt"), device=dev)
+    import_torch_vivit(cfg, trainer)  # a warm start; the optimiser state stays fresh
     if not cc.get("openai_ckpt"):
         log.warning("no OpenAI CLIP ckpt given: the text tower is randomly initialized")
 

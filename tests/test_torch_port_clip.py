@@ -462,7 +462,7 @@ def test_eval_text_tower_is_train_text_tower(tmp_path, tiny_text_tower):
 @pytest.mark.parametrize("override,error", [
     ("mesh.data=2", NotImplementedError),
     ("mesh.model=2", NotImplementedError),
-    ("torch_vivit_ckpt=/nonexistent.pt", NotImplementedError),
+    ("torch_vivit_ckpt=/nonexistent.pt", FileNotFoundError),
 ])
 def test_clip_entry_points_refuse_unported_options(tmp_path, override, error):
     args = write_clip_store(tmp_path, n=3)

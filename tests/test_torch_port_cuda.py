@@ -1136,3 +1136,110 @@ def test_serve_stack_loads_the_stages_checkpoints_onto_the_card(dev, tmp_path):
     generate = stack.build_generate_batch(cfg, logging.getLogger("test"), dev)
     video = generate(["a person smiling"], [3], cond_scale=3.0, ddim_steps=2)
     assert video.shape == (1, 2, 16, 16, 3) and np.isfinite(video).all()
+
+
+# ------------------------------------- quality scoring and the reference import
+# No kernel is new here: the resizes and the adapters are plain PyTorch,
+# held on the card to the same functions on the CPU; an imported decoder
+# samples through rows 1 and 3.
+def test_resize_methods_on_cuda_match_cpu(dev):
+    """Every jax.image.resize method of ops/video.py on the card against
+    the CPU, down and up in space and in time, f32 within 1e-5."""
+    from dalle2_video_tpu_torch.ops.video import METHODS, resize_video, resize_video_time
+
+    x = torch.rand(2, 6, 12, 9, 3, generator=torch.Generator().manual_seed(0))
+    for method in METHODS:
+        for fn, n in ((resize_video, 5), (resize_video, 20), (resize_video_time, 4),
+                      (resize_video_time, 9)):
+            got = fn(x.to(dev), n, method)
+            assert got.is_cuda
+            torch.testing.assert_close(got.cpu(), fn(x, n, method), atol=1e-5, rtol=0)
+
+
+def test_clip_adapters_on_cuda(dev):
+    """VideoClipAdapter over copies of a ClipTrainer's towers on the card:
+    its embeds the trainer's bit for bit, every parameter frozen; the
+    x-clip stand-in's adapter keeps its tensors on the card, its embeds
+    within 1e-5 of the CPU's; StepTimer.stop waits on a CUDA result."""
+    from unittest import mock
+
+    from dalle2_video_tpu_torch.models.clip_adapter import VideoClipAdapter, XClipAdapter
+    from dalle2_video_tpu_torch.models.clip_text import CLIPTextConfig
+    from dalle2_video_tpu_torch.models.vivit import ViViTConfig
+    from dalle2_video_tpu_torch.train.clip_trainer import ClipTrainer
+    from dalle2_video_tpu_torch.utils.profiling import StepTimer
+
+    vc, tc = ViViTConfig(**_VIVIT), CLIPTextConfig(**_TEXT)
+    trainer = ClipTrainer(vc, tc, device=dev)
+    ad = VideoClipAdapter.create(vc, trainer.vivit.state_dict(),
+                                 trainer.text_encoder.state_dict(), tc, dev)
+    g = torch.Generator().manual_seed(0)
+    videos = torch.rand(2, 25, 16, 16, 3, generator=g).to(dev)
+    tokens = torch.randint(1, 1000, (2, 77), generator=g).to(dev)
+    assert torch.equal(ad.embed_video(videos)[0], trainer.embed_video(videos))
+    assert torch.equal(ad.embed_text(tokens)[0], trainer.embed_text(tokens))
+    assert not any(p.requires_grad for p in [*ad.vivit.parameters(),
+                                             *ad.text_encoder.parameters()])
+
+    class Standin(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.dim_latent = 12
+            self.emb = torch.nn.Embedding(100, 16)
+            self.to_text_latent = torch.nn.Linear(16, 12, bias=False)
+            self.vis = torch.nn.Linear(3 * 8 * 8, 16, bias=False)
+            self.to_visual_latent = torch.nn.Linear(16, 12, bias=False)
+
+        def text_transformer(self, tok):
+            e = self.emb(tok)
+            return torch.cat([e.mean(1, keepdim=True), e], 1)
+
+        def visual_transformer(self, frames):
+            e = self.vis(frames.reshape(frames.shape[0], -1))[:, None]
+            return torch.cat([e, e], 1)
+
+    torch.manual_seed(0)
+    cpu_model = Standin()
+    card_model = Standin().to(dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    clips = torch.rand(2, 3, 8, 8, 3, generator=g)
+    card_ad, cpu_ad = XClipAdapter(card_model), XClipAdapter(cpu_model)
+    got = card_ad.embed_video(clips)[0]
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), cpu_ad.embed_video(clips)[0], atol=1e-5, rtol=0)
+
+    timer = StepTimer()
+    with mock.patch.object(torch.cuda, "synchronize", wraps=torch.cuda.synchronize) as sync:
+        timer.start()
+        timer.stop({"embed": got})
+    assert sync.call_count == 1
+
+
+def test_imported_decoder_samples_on_cuda_as_on_cpu(dev, tmp_path):
+    """A reference-layout decoder state dict drawn from decoder_walk (with
+    a schedule buffer among its keys) loaded by load_decoder_torch_ckpt into
+    the card's and the CPU's one-stage decoders: the same parameters bit
+    for bit, and a guided batch-1 sample through rows 1 and 3 within 2e-3
+    of the CPU's plain versions from the same x_T."""
+    from dalle2_video_tpu_torch.models import torch_import
+    from dalle2_video_tpu_torch.utils.keys import RowKeys
+
+    card, cpu = _option_decoders(dev)
+    sd = torch_import.draw_walk(torch_import.decoder_walk(cpu), torch.Generator().manual_seed(0))
+    sd["noise_schedulers.0.betas"] = torch.linspace(1e-4, 2e-2, 1000)
+    torch.save(sd, tmp_path / "decoder_best.pt")
+    g = torch.Generator().manual_seed(7)
+    x_t = torch.randn(1, 4, 32, 32, 3, generator=g)
+    embed = torch.randn(1, 32, generator=g)
+    videos = []
+    for dec in (card, cpu):
+        skipped = torch_import.load_decoder_torch_ckpt(str(tmp_path / "decoder_best.pt"), dec)
+        assert skipped == ["noise_schedulers.0.betas"]
+        dec.sample_timesteps = (4,)
+        videos.append(dec.sample(RowKeys([0]), video_embed=embed, cond_scale=3.0,
+                                 init_noises=[x_t]).cpu())
+    for a, b in zip(card.unets[0].state_dict().values(), cpu.unets[0].state_dict().values()):
+        assert torch.equal(a.cpu(), b)
+    got, want = videos
+    assert torch.isfinite(got).all() and 0.0 <= float(got.min()) <= float(got.max()) <= 1.0
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)

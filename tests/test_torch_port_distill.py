@@ -561,6 +561,8 @@ def test_entry_point_hands_each_phase_on_and_resumes(tmp_path):
         calls.append(("step", self.cfg.student_steps))
         return orig_step(self, *a, **kw)
 
+    # the scoring after the phases needs 4 held-out clips: split 2 / 5
+    args = args + ["train_ratio=0.4"]
     with mock.patch.object(DistillTrainer, "init_state", init_state), \
             mock.patch.object(DistillTrainer, "distill_step", step):
         out = distill.main(args + ["--run", str(run), "--steps", "1"])

@@ -50,6 +50,10 @@ def test_source_scan_finds_no_banned_import():
     # and distillation and the prior's experts
     assert {"dalle2_video_tpu_torch.train.distill",
             "dalle2_video_tpu_torch.models.moe"} <= set(_modules())
+    # and quality scoring, profiling, the CLIP adapters and the reference import
+    assert {"dalle2_video_tpu_torch.utils.fvd", "dalle2_video_tpu_torch.utils.profiling",
+            "dalle2_video_tpu_torch.models.clip_adapter",
+            "dalle2_video_tpu_torch.models.torch_import"} <= set(_modules())
 
 
 def test_every_module_imports_with_jax_blocked():
