@@ -155,7 +155,20 @@ Phases (any failure exits non-zero and prints no result line):
      OPTION_STEPS)), two requests at cond_scale 1 (the second warm): rows 1,
      3 and 5 at batch 1 as the structure predicts (held at batch 1 in phase
      2: check_student_kernels); wall, frames/s and peak memory;
- 5g. train_prior_moe: the recipe's prior with 8 experts a layer and
+ 5g. train_vqgan: python -m ...train.train_vqgan on the stages' store at
+     the vqgan section's full widths, batch 8, disc_start 2 (reduced from
+     1000: the gate opens in the run), 3 epochs then resume=true to 5
+     (VQGAN_ARGS, VQGAN_EPOCHS); one PatchDiscriminator and one
+     VectorQuantizer forward held to the CPU; no kernel;
+ 5h. latent: the VQVAE restored from that checkpoint as the frozen VAE of
+     scripts/train_latent90.py's decoder (engine/decoder.py::
+     latent90_decoder; 90 x 32 x 32 x 4 latents of 90 x 128^2 pixels):
+     LATENT_STEPS bf16 train steps at batch 2 (the VAE unchanged), one DDIM
+     request (CFG 2, LATENT_DDIM steps) decoded to 90 x 128^2 x 3 and one
+     inpainting request; rows 1-5 counted exactly (latent_launches) at the
+     map's shapes (probes/gn_rows.py::latent_sites; rows 1 and 2 at this
+     bottleneck held in phase 2: FLASH_FWD_CASES, FLASH_BWD_CASES);
+ 5i. train_prior_moe: the recipe's prior with 8 experts a layer and
      self-conditioning, PRIOR_STEPS steps at batch 256 (finite loss and
      aux, every parameter moved), one best-of-2 64-step sample; no kernel;
   6. probes: the flash probes' variants (rows 10 and 11: the r2 forward, at
@@ -328,7 +341,11 @@ FLASH_FWD_CASES = [("serve_cascade unet 1", 2, 16 * 8 * 8, False),
                    ("serve_cascade unet 2", 2, 64 * 8 * 8, False),
                    ("train_cascade unet 2", 4, 64 * 8 * 8, True),
                    ("train", 2, 90 * 8 * 8, True),
-                   ("probe geometry", 2, 23040, True)]
+                   ("probe geometry", 2, 23040, True),
+                   # the latent stage's unet: 8 heads of 32 at its 5,760-token
+                   # bottleneck, sampled at CFG batch 2 and trained at batch 2
+                   ("latent sample", gn_rows.LATENT_SERVE_BATCH, 90 * 8 * 8, False, 8),
+                   ("latent train", 2, 90 * 8 * 8, True, 8)]
 # The flash backward (row 2): (dtype, label, (batch, query rows, keys)) and
 # the route it takes (ops/flash_mqa.py::bwd_rounds, the JAX "auto" rule:
 # bf16 at batch >= 2 on the tensor cores, else all f32 on the CUDA cores);
@@ -338,6 +355,8 @@ FLASH_BWD_CASES = [("float32", "f32 check", (2, 333, 65), "cuda_cores"),
                    ("bfloat16", "train celebv", (2, 90 * 8 * 8 * 16, 90 * 8 * 8 + 1),
                     "tensor_cores"),
                    ("bfloat16", "train_cascade unet 2", (4, 64 * 8 * 8 * 16, 64 * 8 * 8 + 1),
+                    "tensor_cores"),
+                   ("bfloat16", "latent train", (2, 90 * 8 * 8 * 8, 90 * 8 * 8 + 1),
                     "tensor_cores"),
                    ("bfloat16", "probe 8 VJP", (2, 23040 * 16, 23041), "tensor_cores")]
 
@@ -598,9 +617,18 @@ def check_kernels(dev, torch):
             f"bound_ms={bnd:.4f} plain_ms={timed[label]['plain_ms']:.2f}")
         del q, k, v, qh, kh, vh
     rows["flash_mqa_fwd"] = dict(timed["serve"], probe_geometry=timed["probe geometry"])
-    for label, b, n, save_lse in FLASH_FWD_CASES:
-        q, k, v, bk = row1_case(torch, fm, g, dev, b, n, h, d)
+    for label, b, n, save_lse, *heads in FLASH_FWD_CASES:
+        q, k, v, bk = row1_case(torch, fm, g, dev, b, n, heads[0] if heads else h, d)
         check_row1(torch, fm, label, q, k, v, sc, bk, save_lse)
+        if label.startswith("latent"):
+            kms = time_ms(lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=sc, save_lse=save_lse))
+            bnd, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                            flops=4.0 * q.shape[0] * q.shape[1] * k.shape[1] * d,
+                            exps=float(q.shape[0] * q.shape[1] * k.shape[1]))
+            rows["flash_mqa_fwd"].setdefault("latent", {})[label] = dict(
+                shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 block_k {bk}", ms=kms,
+                bound_ms=bnd, bound_by=by)
+            log(f"  {label}: ms={kms:.4f} bound_ms={bnd:.4f} ({by})")
         del q, k, v
 
     # GroupNorm-FiLM-SiLU (row 3): the standing check at the largest L of
@@ -807,6 +835,10 @@ def check_backward_kernels(dev, torch, rows):
         exp_floor = 2.0 * b * n_q * n_kv / EXP_PER_S * 1e3
         log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) two-pass exponential floor "
             f"{exp_floor:.4f} ms")
+        if label == "latent train":
+            rows["flash_mqa_bwd"]["latent"] = dict(
+                shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 ({route})", ms=kms,
+                bound_ms=bnd, bound_by=by)
         if label == "train celebv":
             h = 16
             qh = q.view(b, n_q // h, h, d).transpose(1, 2)
@@ -3583,6 +3615,272 @@ def serve_student(dev, torch, stages):
     return {k.name: totals[k.name] for k in kernels}
 
 
+# "train_vqgan": python -m ...train.train_vqgan on the stages' 10-clip store
+# at the vqgan section's full widths (VQVAE base 64, f 4, latent 4, 512
+# codes; discriminator base 64, 3 layers) and batch 8: 8 train clips, one
+# batch an epoch, each sized on the card to the recipe's 4 x 64 x 64.
+# Reduced: disc_start 1000 -> 2 (the gate opens at the run's third step),
+# epochs 10 -> 3, then resume=true to 5. No kernel lies on it: the VAE's and
+# the discriminator's convs run through cuDNN, as the JAX package runs them
+# outside any Pallas kernel.
+VQGAN_ARGS = ["vqgan.disc_start=2", "vqgan.batch_size=8"]
+VQGAN_EPOCHS = (3, 5)
+VQGAN_REDUCED = ["disc_start 1000 -> 2", "epochs 10 -> 3 (+ 2 on resume)"]
+
+
+def check_vq_and_disc(dev, torch, trainer, video):
+    """One PatchDiscriminator forward and one VectorQuantizer forward on the
+    card against a CPU copy on the same inputs (the phase's batch): the
+    logits f32 within 1e-4 of their scale (cuDNN and the CPU sum in other
+    orders); the codes equal but where the two nearest codes lie within
+    1e-4 (relative) of each other, the quantised latents equal where the
+    codes are."""
+    import copy
+
+    disc_cpu = copy.deepcopy(trainer.disc).cpu()
+    vq_cpu = copy.deepcopy(trainer.vae.vq).cpu()
+    with torch.no_grad():
+        got = trainer.disc(video)
+        want = disc_cpu(video.cpu())
+        e, _ = check("PatchDiscriminator", f"logits {tuple(got.shape)}", got.cpu(), want,
+                     atol=1e-4 * float(want.abs().max()), rtol=0.0)
+        z = trainer.vae.encoder(video)
+        q, idx, loss = trainer.vae.vq(z)
+        q_c, idx_c, loss_c = vq_cpu(z.cpu())
+    differ = idx.cpu() != idx_c
+    if bool(differ.any()):
+        flat = z.cpu().double().reshape(-1, z.shape[-1])[differ.reshape(-1)]
+        cb = vq_cpu.codebook.double()
+        d = (flat[:, None, :] - cb[None]).pow(2).sum(-1)
+        top2 = d.topk(2, largest=False).values
+        gap = (top2[:, 1] - top2[:, 0]) / top2[:, 0].clamp_min(1e-30)
+        if float(gap.max()) > 1e-4:
+            raise AssertionError(f"VectorQuantizer: {int(differ.sum())} codes differ from the "
+                                 f"CPU's, not all near ties (gap {float(gap.max()):.2e})")
+    same = ~differ
+    if not torch.equal(q.cpu()[same], q_c[same]):
+        raise AssertionError("VectorQuantizer: quantised latents differ where the codes agree")
+    log(f"train_vqgan: PatchDiscriminator on {tuple(video.shape)} max |card - CPU| {e:.3e}; "
+        f"VectorQuantizer on z {tuple(z.shape)}: {int(differ.sum())} of {differ.numel()} codes "
+        f"differ (near ties), loss card {float(loss):.6f} CPU {float(loss_c):.6f}")
+
+
+def train_vqgan_phase(dev, torch, stages):
+    """The VQGAN stage through its entry point on the stages' store
+    (VQGAN_ARGS, VQGAN_EPOCHS): finite metrics, the gate open in the last
+    epoch (lambda > 0, a D loss), a checkpoint at step 3 that resume=true
+    carries on to step 5 (both Adam counts 5), the VAE moved; then
+    check_vq_and_disc at the phase's batch. Prints walls, ms per step and
+    peak memory. No kernel launches."""
+    import numpy as np
+
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.ops.video import resize_video, resize_video_time
+    from dalle2_video_tpu_torch.train import load_latest, train_vqgan
+
+    card = card_line()
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset()
+    run = f"{stages.run_dir}/vqgan_default"
+    with ShapeRecord() as shapes:
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        first = train_vqgan.main(stages.args(*VQGAN_ARGS, f"vqgan.epochs={VQGAN_EPOCHS[0]}"))
+        walls.append(time.time() - t)
+        tr = first["trainer"]
+        if tr.step != VQGAN_EPOCHS[0] or load_latest(run)["step"] != tr.step:
+            raise AssertionError(f"train_vqgan: step {tr.step}, checkpoint "
+                                 f"{load_latest(run)['step']}")
+        if not (first["train"]["lambda_adapt"] > 0 and first["train"]["loss/d"] > 0
+                and all(math.isfinite(v) for v in first["train"].values())):
+            raise AssertionError(f"train_vqgan: last epoch's metrics {first['train']}")
+        vae0 = {k: v.clone() for k, v in tr.vae.state_dict().items()}
+        t = time.time()
+        second = train_vqgan.main(stages.args(*VQGAN_ARGS, f"vqgan.epochs={VQGAN_EPOCHS[1]}",
+                                              "resume=true"))
+        walls.append(time.time() - t)
+        tr2 = second["trainer"]
+        counts = {int(opt.state[next(iter(m.parameters()))]["step"])
+                  for opt, m in ((tr2.opt_g, tr2.vae), (tr2.opt_d, tr2.disc))}
+        if tr2.step != VQGAN_EPOCHS[1] or counts != {VQGAN_EPOCHS[1]}:
+            raise AssertionError(f"train_vqgan: resumed to step {tr2.step}, Adam counts {counts}")
+        if all(torch.equal(v, vae0[k]) for k, v in tr2.vae.state_dict().items()):
+            raise AssertionError("train_vqgan: the VAE did not move on resume")
+        steps = (tr.step, tr2.step)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        vq = load_config_vqgan()
+        clips = torch.as_tensor(np.stack(stages.clips[:vq["batch_size"]]), device=dev)
+        video = resize_video_time(resize_video(clips, vq["frame_size"]), vq["frames"])
+        ms, _ = timed_steps(torch, lambda: tr2.train_step(video), 3)  # past the run: timing only
+        check_vq_and_disc(dev, torch, tr2, video)
+        log(f"train_vqgan: VQVAE base {vq['base_dim']}, {vq['num_down']} downs, latent "
+            f"{vq['latent_dim']}, {vq['codebook_size']} codes; discriminator base "
+            f"{vq['disc_base_dim']}, {vq['disc_layers']} layers; batch {tuple(video.shape)}; "
+            f"reduced: {VQGAN_REDUCED}; entry point walls {[round(w, 2) for w in walls]} s "
+            f"(steps {steps[0]} then {steps[1]}); last epoch lambda "
+            f"{second['train']['lambda_adapt']:.4f} loss/rec {second['train']['loss/rec']:.4f} "
+            f"loss/d {second['train']['loss/d']:.4f}; ms per step {[round(x, 2) for x in ms]}; "
+            f"peak memory {peak:.2f} GiB [{card}]")
+        del first, second, tr, tr2, video, clips
+        torch.cuda.empty_cache()
+    shapes.check("train_vqgan", conv_path_shapes("train_vqgan"))
+    return no_launches(kernels, "train_vqgan")
+
+
+def load_config_vqgan():
+    from dalle2_video_tpu_torch.utils.config import load_config
+
+    return dict(load_config(None, VQGAN_ARGS)["vqgan"])
+
+
+# "latent": the VQVAE restored from train_vqgan's checkpoint as the frozen
+# stage-1 VAE of scripts/train_latent90.py's decoder (90 frames at 128 px,
+# 90 x 32 x 32 x 4 latents; unet dim 64, mults (1, 2, 4), 2 blocks, 8 x 32
+# heads, video embed 512; predict_x_start_for_latent_diffusion) at
+# celebv_text's kernel settings (attention_impl auto: flash at the 5,760
+# joint tokens; groupnorm_impl pallas; cross_attention_impl xla to train,
+# flash to sample): LATENT_STEPS bf16 train steps at batch 2, then one DDIM
+# request at CFG 2 and LATENT_DDIM steps and one inpainting request (the
+# first LATENT_KNOWN frames known) on a sampling decoder that loads the
+# trainer's sampling params (the VAE rides in them). Reduced: 400 steps ->
+# 4, DDIM 64 -> 10.
+LATENT_STEPS = 4
+LATENT_DDIM = 10
+LATENT_KNOWN = 30
+LATENT_BATCH = 2
+
+
+def latent_launches(train_steps, ddim_steps):
+    """Rows 1-5's launches: per unet forward row 1 once and row 3 at every
+    GroupNorm site, per backward rows 2 and 4 likewise; per sampling step
+    also row 5 at every cross-attention site (the trainer's unet takes the
+    plain one)."""
+    gn_sites, xa_sites = gn_rows.latent_sites()
+    g, x = sum(gn_sites.values()), sum(xa_sites.values())
+    fwd = train_steps + ddim_steps
+    return {"flash_mqa_fwd": fwd, "flash_mqa_bwd": train_steps,
+            "groupnorm_film_silu_fwd": g * fwd, "groupnorm_film_silu_bwd": g * train_steps,
+            "cross_attention_fwd": x * ddim_steps}
+
+
+def latent_phase(dev, torch, stages):
+    """The latent stage on the card (see LATENT_STEPS): finite losses, the
+    unet moved and the VAE bit for bit unchanged; the sampling decoder's VAE
+    equal to the trainer's; a request decoded to a finite (90, 128, 128, 3)
+    video equal to the VAE's decode of the sampled latents; the inpainting
+    request's latents equal to the known video's encoding wherever the
+    min-pooled mask is 1; every kernel launch counted exactly
+    (latent_launches) and every GroupNorm / cross-attention shape the map's
+    (gn_rows.latent_sites). Prints walls, peak memory and launches by row."""
+    from unittest import mock
+
+    from dalle2_video_tpu_torch.engine.decoder import latent90_decoder
+    from dalle2_video_tpu_torch.models.layers import kernel_init_
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.train import DecoderTrainer, DecoderTrainerConfig, train_vqgan
+    from dalle2_video_tpu_torch.utils.keys import RowKeys
+
+    card = card_line()
+    vae = train_vqgan.load_vqvae(f"{stages.run_dir}/vqgan_default", load_config_vqgan(), dev)
+    knobs = dict(attention_impl="auto", groupnorm_impl="pallas")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        dec = latent90_decoder(vae, dev, cross_attention_impl="xla", **knobs)
+    w = dec.unets[0].to_out.Conv_0.weight
+    kernel_init_(w, w[0].numel())
+    trainer = DecoderTrainer(dec, DecoderTrainerConfig(lr=3e-4, use_ema=True, bf16_compute=True))
+    frames, size = dec.config.frame_numbers[0], dec.config.frame_sizes[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    videos = torch.rand(LATENT_BATCH, frames, size, size, 3, generator=g, device=dev)
+    embeds = torch.randn(LATENT_BATCH, dec.unet_configs[0].video_embed_dim, generator=g,
+                         device=dev)
+    vae_before = {k: v.clone() for k, v in vae.state_dict().items()}
+    unet_before = {k: p.detach().clone() for k, p in dec.unets[0].named_parameters()}
+    kernels = all_kernels()
+    for k in kernels:
+        k.reset()
+    gn_sites, xa_sites = gn_rows.latent_sites()
+    with ShapeRecord() as shapes:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        ms, losses = timed_steps(torch, lambda: float(trainer.train_step(
+            videos, video_embed=embeds)), LATENT_STEPS)
+        t_train, peak_train = time.time() - t, torch.cuda.max_memory_allocated() / 2**30
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"latent: losses {losses}")
+        moved(torch, unet_before, dec.unets[0], "latent")
+        if not all(torch.equal(v, vae_before[k]) for k, v in vae.state_dict().items()):
+            raise AssertionError("latent: the frozen VAE changed in training")
+        train_launches = {k.name: k.launches for k in kernels if k.launches}
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            sdec = latent90_decoder(train_vqgan.build_vqvae(load_config_vqgan(), dev), dev,
+                                    cross_attention_impl="flash", **knobs)
+        sdec.load_sampling_params(trainer.sampling_params())
+        if not all(torch.equal(v, vae_before[k]) for k, v in sdec.vaes[0].state_dict().items()):
+            raise AssertionError("latent: the sampling decoder's VAE is not the trainer's")
+        seen = {}
+        loop = sdec.p_sample_loop_ddim
+
+        def spy(*a, **kw):
+            seen["latents"] = loop(*a, **kw)
+            seen["inpaint"] = kw.get("inpaint")
+            return seen["latents"]
+
+        walls, outs = [], []
+        mask = torch.zeros(1, frames, 1, 1, 1, device=dev)
+        mask[:, :LATENT_KNOWN] = 1.0
+        requests = [dict(), dict(inpaint_video=videos[:1], inpaint_mask=mask)]
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(sdec, "p_sample_loop_ddim", spy):
+            for seed, extra in enumerate(requests):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                vid = sdec.sample(RowKeys.from_request_seeds([seed]), video_embed=embeds[:1],
+                                  cond_scale=2.0, sample_timesteps=LATENT_DDIM, **extra)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+                if vid.shape != (1, frames, size, size, 3) or not bool(torch.isfinite(vid).all()):
+                    raise AssertionError(f"latent: video {tuple(vid.shape)} not finite")
+                with torch.no_grad():
+                    if not torch.equal(vid, sdec.vaes[0].decode(seen["latents"])):
+                        raise AssertionError("latent: the video is not the VAE's decode")
+                outs.append((float(vid.min()), float(vid.max())))
+        peak_sample = torch.cuda.max_memory_allocated() / 2**30
+        inp = seen["inpaint"]
+        known = inp.mask.expand_as(seen["latents"]) > 0
+        if (tuple(inp.mask.shape[2:4]) != (gn_rows.LATENT_GRID,) * 2
+                or not torch.equal(seen["latents"][known], inp.x0k.expand_as(
+                    seen["latents"])[known])):
+            raise AssertionError("latent: the inpainted latents are not the known encoding")
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    want = latent_launches(LATENT_STEPS, LATENT_DDIM * len(requests))
+    if launches != want:
+        raise AssertionError(f"latent: launches {launches}, the structure predicts {want}")
+    check_bwd_routes("latent", launches, need=True)
+    gn_want = Counter()
+    for name, n in ((gn_rows.FWD, LATENT_STEPS), (gn_rows.BWD, LATENT_STEPS)):
+        gn_want.update({(name, LATENT_BATCH, *key): c * n for key, c in gn_sites.items()})
+    gn_want.update({(gn_rows.FWD, gn_rows.LATENT_SERVE_BATCH, *key): c * LATENT_DDIM
+                    * len(requests) for key, c in gn_sites.items()})
+    xa_want = Counter({(gn_rows.LATENT_SERVE_BATCH, *key): c * LATENT_DDIM * len(requests)
+                       for key, c in xa_sites.items()})
+    shapes.check("latent", conv_path_shapes("latent"), xa_want, gn_want)
+    log(f"latent: {frames} frames at {size} px -> latents {tuple(seen['latents'].shape)}; "
+        f"{LATENT_STEPS} bf16 train steps at batch {LATENT_BATCH}: ms per step "
+        f"{[round(x, 1) for x in ms]}, {t_train:.2f} s, losses {[round(x, 4) for x in losses]}, "
+        f"peak {peak_train:.2f} GiB, launches {train_launches}; requests (DDIM {LATENT_DDIM}, "
+        f"CFG 2; then inpainting {LATENT_KNOWN} of {frames} frames): walls "
+        f"{[round(x, 3) for x in walls]} s, video ranges {outs}, peak {peak_sample:.2f} GiB; "
+        f"launches by row {launches} [{card}]")
+    del trainer, dec, sdec, vae, videos
+    torch.cuda.empty_cache()
+    return {k.name: launches.get(k.name, 0) for k in kernels}
+
+
 # "train_prior_moe": the recipe's prior (depth 6, dim 512, 8 x 64 heads)
 # with a top-2 mixture of 8 experts in every layer (prior.ff_experts 8)
 # and self-conditioning (neither has a config key the JAX prior_from_config
@@ -3857,6 +4155,8 @@ def main() -> int:
                                          stages)
         runs["distill"] = phase("distill", distill_phase, dev, torch, stages, args.profile)
         runs["serve_student"] = phase("serve_student", serve_student, dev, torch, stages)
+        runs["train_vqgan"] = phase("train_vqgan", train_vqgan_phase, dev, torch, stages)
+        runs["latent"] = phase("latent", latent_phase, dev, torch, stages)
     runs["train_prior_moe"] = phase("train_prior_moe", train_prior_moe, dev, torch)
     runs["probes"] = phase("probes", probes, dev, torch)
     log("phase times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
@@ -3875,7 +4175,7 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]}
         for extra in ("conv_alone_ms", "variants", "library_fwd_bwd_ms", "probe_geometry",
-                      "serve_step", "block_k_2048", "text", "student_step"):
+                      "serve_step", "block_k_2048", "text", "student_step", "latent"):
             if extra in r:
                 row[extra] = r[extra]
         out.append(row)

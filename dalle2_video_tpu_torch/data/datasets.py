@@ -60,7 +60,7 @@ class CelebVTextDataset:
     """Stage-detecting dataset over CelebV-Text artifacts. ``batch_items``
     returns the stage's arrays for a batch of indices: {"texts", "videos"}
     (CLIP), {"text_embeds", "video_embeds"} (prior), {"video_embeds",
-    "videos"} (decoder). Its length is the artifacts' count, capped by the
+    "videos"} (decoder), {"videos"} (the VQGAN, from a store alone). Its length is the artifacts' count, capped by the
     video store's.
 
     The store handle is opened lazily in the process that reads (a loader
@@ -89,10 +89,16 @@ class CelebVTextDataset:
             self.stage = "decoder"
             self.video_embeds = _load_array(video_embeds_path).astype(np.float32)
             n = len(self.video_embeds)
+        elif videos_path is not None:
+            # the VQGAN's stage: the store's videos alone (the JAX dataset
+            # has no such stage, so scripts/train_vqgan.py reads only its
+            # synthetic smoke set)
+            self.stage = "videos"
+            n = float("inf")
         else:
             raise ValueError("cannot infer stage: give (texts, videos) for CLIP, "
-                             "(text_embeds, video_embeds) for prior, or "
-                             "(video_embeds, videos) for decoder")
+                             "(text_embeds, video_embeds) for prior, "
+                             "(video_embeds, videos) for decoder, or videos alone")
         if videos_path is not None:
             if _is_vshard(videos_path):
                 from dalle2_video_tpu_torch.data.shards import ShardReader
@@ -150,6 +156,8 @@ class CelebVTextDataset:
         if self.stage == "prior":
             return {"text_embeds": self.text_embeds[indices],
                     "video_embeds": self.video_embeds[indices]}
+        if self.stage == "videos":
+            return {"videos": self.load_videos(indices)}
         return {"video_embeds": self.video_embeds[indices],
                 "videos": self.load_videos(indices)}
 

@@ -30,7 +30,16 @@ draw injected the same way (``draws``: times, noise, video and text keep
 masks, self-cond coin, blur coin, lowres noise levels and noise, the random
 crop's offsets).
 
-Not ported yet: latent (VAE) stages.
+A stage runs in the latent space of its VAE (``VideoDecoder(config,
+vaes=...)``, models/vae.py, models/vqvae.py) where the VAE ``is_latent``:
+its unet's channels follow ``vae.encoded_dim``, the loss encodes the [0, 1]
+video and the low-res conditioning after the resize and crop and does not
+map them to [-1, 1], the samplers neither clip x0 nor unnormalise and end
+with ``vae.decode``, sampling encodes the low-res conditioning, and
+inpainting encodes the known video and min-pools the pixel mask to the
+latent grid. ``predict_x_start_for_latent_diffusion`` predicts x0 on the
+latent stages. The VAEs are frozen (no gradient; the trainer never
+updates them) and run in float32.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from dalle2_video_tpu_torch.engine.conditioner import (
 from dalle2_video_tpu_torch.models.layers import CrossAttention, JointSpaceTimeAttention
 from dalle2_video_tpu_torch.models.unet3d import UNet3D, UNet3DConfig
 from dalle2_video_tpu_torch.models.unet_temporal import UnetTemporalConv
+from dalle2_video_tpu_torch.models.vae import NullVAE
 from dalle2_video_tpu_torch.ops.video import (
     paired_random_crop,
     resize_video,
@@ -211,10 +221,12 @@ class VideoDecoder(nn.Module):
     resolved per-stage knobs; samples on ``device`` (CUDA by default).
     ``per_frame_embeds`` builds the unets that take the video embed for
     per-frame (b, k, d) embeds, as the JAX ``init_params(per_frame_embeds=
-    True)`` initialises them (DALLE2Video's temporal_emb mode)."""
+    True)`` initialises them (DALLE2Video's temporal_emb mode). ``vaes``
+    (one per stage; ``NullVAE`` by default) are held frozen beside the
+    unets: a stage whose VAE ``is_latent`` runs in its latent space."""
 
     def __init__(self, config: VideoDecoderConfig, device: DeviceLike = None,
-                 per_frame_embeds: bool = False):
+                 per_frame_embeds: bool = False, vaes: Optional[Sequence[nn.Module]] = None):
         super().__init__()
         cfg = config
         n = cfg.num_unets
@@ -231,9 +243,15 @@ class VideoDecoder(nn.Module):
         lv = cfg.learned_variance
         lv = (lv,) if isinstance(lv, bool) else tuple(lv)
         self.learned_variance = lv + (False,) * (n - len(lv))
+        vaes = [NullVAE(cfg.channels) for _ in range(n)] if vaes is None else list(vaes)
+        if len(vaes) != n:
+            raise ValueError(f"{len(vaes)} VAEs for {n} unets")
+        self.vaes = nn.ModuleList(vaes)
+        self.vaes.to(self.device).eval().requires_grad_(False)
         if cfg.predict_x_start_for_latent_diffusion:
-            raise NotImplementedError("latent diffusion stages are not ported yet")
-        self.predict_x_start = _cast_tuple(cfg.predict_x_start, n)
+            self.predict_x_start = tuple(v.is_latent for v in self.vaes)
+        else:
+            self.predict_x_start = _cast_tuple(cfg.predict_x_start, n)
         self.predict_v = _cast_tuple(cfg.predict_v, n)
         self.sample_timesteps = _cast_tuple(cfg.sample_timesteps, n)
 
@@ -260,8 +278,8 @@ class VideoDecoder(nn.Module):
             ucfg.cast_for_cascade(
                 lowres_cond=i > 0,
                 lowres_noise_cond=self.use_noise_for_lowres[i],
-                channels=cfg.channels,
-                channels_out=cfg.channels * (2 if self.learned_variance[i] else 1),
+                channels=self.vaes[i].encoded_dim,
+                channels_out=self.vaes[i].encoded_dim * (2 if self.learned_variance[i] else 1),
                 cond_on_video_embeds=not cfg.unconditional and i == 0,
                 cond_on_text_encodings=not cfg.unconditional and ucfg.cond_on_text_encodings,
             )
@@ -291,6 +309,20 @@ class VideoDecoder(nn.Module):
             c.cond_on_text_encodings for c in self.unet_configs)
 
     # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def load_sampling_params(self, stages: Sequence[Dict[str, torch.Tensor]]) -> None:
+        """Load one state dict per stage (``DecoderTrainer.sampling_params``,
+        ``load_decoder_sampling_params``): the unet's entries, and the VAE's
+        under ``vae.<name>``; both strict."""
+        if len(stages) != len(self.unets):
+            raise ValueError(f"{len(stages)} stage states for {len(self.unets)} unets")
+        for unet, vae, sd in zip(self.unets, self.vaes, stages):
+            unet.load_state_dict({k: v for k, v in sd.items() if not k.startswith("vae.")},
+                                 strict=True)
+            vae.load_state_dict({k[4:]: v for k, v in sd.items() if k.startswith("vae.")},
+                                strict=True)
+        self._sampling_unets.clear()
+
     def sampling_unet(self, i: int) -> nn.Module:
         """The unet sampling runs: the master unet, or (bf16 compute and/or
         flash_attention_sampling) a copy of it made at the first sample --
@@ -487,18 +519,25 @@ class VideoDecoder(nn.Module):
             video, lowres_video = paired_random_crop(
                 video, crop, lowres_video, generator=generator,
                 offsets=draws.get("crop_offsets"))
+        vae = self.vaes[i]
+        if vae.is_latent:
+            with torch.no_grad():
+                video = vae.encode(video)
+                if lowres_video is not None:
+                    lowres_video = vae.encode(lowres_video)
         return self._p_losses(
             i, self.unets[i] if unet is None else unet, video, times,
             video_embed=video_embed,
             text_encodings=(text_encodings if self.unet_configs[i].cond_on_text_encodings
                             else None),
             lowres_cond_video=lowres_video,
-            lowres_noise_level=lowres_level, compute_dtype=compute_dtype,
-            generator=generator, draws=draws)
+            lowres_noise_level=lowres_level, is_latent=vae.is_latent,
+            compute_dtype=compute_dtype, generator=generator, draws=draws)
 
     def _p_losses(self, i: int, unet: Callable, x_start, times, *, video_embed=None,
                   text_encodings=None, lowres_cond_video=None, lowres_noise_level=None,
-                  compute_dtype=None, generator=None, draws=None) -> torch.Tensor:
+                  is_latent: bool = False, compute_dtype=None, generator=None,
+                  draws=None) -> torch.Tensor:
         cfg = self.config
         sched = self.schedules[i]
         b = x_start.shape[0]
@@ -511,9 +550,10 @@ class VideoDecoder(nn.Module):
 
         noise = draw("noise", lambda: torch.randn(x_start.shape, generator=generator,
                                                   device=dev))
-        x_start = self._normalize(x_start)
-        if lowres_cond_video is not None:
-            lowres_cond_video = self._normalize(lowres_cond_video)
+        if not is_latent:  # latents are already in model space
+            x_start = self._normalize(x_start)
+            if lowres_cond_video is not None:
+                lowres_cond_video = self._normalize(lowres_cond_video)
         x_noisy = sched.q_sample(x_start, times, noise)
         video_keep = draw("video_keep", lambda: torch.rand(
             b, generator=generator, device=dev) < 1.0 - cfg.video_cond_drop_prob)
@@ -619,11 +659,12 @@ class VideoDecoder(nn.Module):
             return keys.fold_in(k).normal(shape, self.device)
         return given[k].to(self.device, torch.float32)
 
-    def _start(self, keys: RowKeys, shape, init_noise, cond):
-        """x_T and the conditioning (its low-res video normalised)."""
+    def _start(self, keys: RowKeys, shape, init_noise, cond, is_latent: bool):
+        """x_T and the conditioning (its low-res video normalised, but on a
+        latent stage)."""
         x = (keys.normal(shape, self.device) if init_noise is None
              else init_noise.to(self.device, torch.float32))
-        if cond.get("lowres_cond_video") is not None:
+        if cond.get("lowres_cond_video") is not None and not is_latent:
             cond["lowres_cond_video"] = self._normalize(cond["lowres_cond_video"])
         return x
 
@@ -634,14 +675,15 @@ class VideoDecoder(nn.Module):
                            step_noises: Optional[Sequence[torch.Tensor]] = None,
                            inpaint: Optional[Inpaint] = None,
                            known_noises: Optional[Sequence[torch.Tensor]] = None,
-                           **cond) -> torch.Tensor:
+                           is_latent: bool = False, **cond) -> torch.Tensor:
         """Ancestral sampling over all timesteps. ``step_noises[k]`` and
         ``known_noises[k]`` are the k-th step's (t = T-1-k) noises."""
         sched = self.schedules[i]
         ucfg = self.unet_configs[i]
         b = shape[0]
         k_init, k_loop, k_known = keys.split(3)
-        x = self._start(k_init, shape, init_noise, cond)
+        x = self._start(k_init, shape, init_noise, cond, is_latent)
+        clip = self.config.clip_denoised and not is_latent
         acp_pad = torch.cat([torch.ones(1, device=self.device), sched.alphas_cumprod])
         x_start = torch.zeros_like(x)
         for k, ts in enumerate(range(sched.num_timesteps - 1, -1, -1)):
@@ -653,7 +695,7 @@ class VideoDecoder(nn.Module):
                 w = 0.5 * inpaint.weight * torch.sqrt(acp_pad[ts + 1])
                 adjust = lambda xs: xs - w * g
             mean, _, log_var, x_start = self._p_mean_variance(
-                i, x, t, clip_denoised=self.config.clip_denoised, model_output=out,
+                i, x, t, clip_denoised=clip, model_output=out,
                 x_start_adjust=adjust, **kw, **cond)
             if ts > 0:
                 x = mean + torch.exp(0.5 * log_var) * self._draw(k_loop, k, shape, step_noises)
@@ -661,7 +703,7 @@ class VideoDecoder(nn.Module):
                 x = mean
             if inpaint is not None:
                 x = inpaint.replace(x, acp_pad[ts], self._draw(k_known, k, shape, known_noises))
-        return self._unnormalize(x)
+        return x if is_latent else self._unnormalize(x)
 
     @torch.no_grad()
     def p_sample_loop_ddim(self, i: int, keys: RowKeys, shape, *, timesteps: int,
@@ -670,7 +712,7 @@ class VideoDecoder(nn.Module):
                            step_noises: Optional[Sequence[torch.Tensor]] = None,
                            inpaint: Optional[Inpaint] = None,
                            known_noises: Optional[Sequence[torch.Tensor]] = None,
-                           **cond) -> torch.Tensor:
+                           is_latent: bool = False, **cond) -> torch.Tensor:
         """DDIM over ddim_time_pairs; eta = config.ddim_sampling_eta (at
         eta 0 the loop is deterministic once x_T is fixed, inpainting by
         replacement apart)."""
@@ -679,7 +721,8 @@ class VideoDecoder(nn.Module):
         eta = self.config.ddim_sampling_eta
         b = shape[0]
         k_init, k_loop, k_known = keys.split(3)
-        x = self._start(k_init, shape, init_noise, cond)
+        x = self._start(k_init, shape, init_noise, cond, is_latent)
+        clip = self.config.clip_denoised and not is_latent
         acp_pad = torch.cat([torch.ones(1, device=self.device), sched.alphas_cumprod])
         x_start = torch.zeros_like(x)
         for k, (t_now, t_next) in enumerate(ddim_time_pairs(sched.num_timesteps, timesteps)):
@@ -690,7 +733,7 @@ class VideoDecoder(nn.Module):
                 x_start = x_start - (0.5 * inpaint.weight * torch.sqrt(acp_pad[t_now + 1])) * g
             else:
                 x_start, _ = self._x0_of(i, x, t, cond=cond, **kw)
-            if self.config.clip_denoised:
+            if clip:
                 x_start = self.dynamic_threshold(x_start)
             pred_noise = sched.predict_noise_from_start(x, t, x_start)
             alpha, alpha_next = acp_pad[t_now + 1], acp_pad[t_next + 1]
@@ -701,7 +744,7 @@ class VideoDecoder(nn.Module):
                 x = x + c1 * self._draw(k_loop, k, shape, step_noises)
             if inpaint is not None:
                 x = inpaint.replace(x, alpha_next, self._draw(k_known, k, shape, known_noises))
-        return self._unnormalize(x)
+        return x if is_latent else self._unnormalize(x)
 
     @torch.no_grad()
     def p_sample_loop_dpmpp(self, i: int, keys: RowKeys, shape, *, timesteps: int,
@@ -709,7 +752,7 @@ class VideoDecoder(nn.Module):
                             init_noise: Optional[torch.Tensor] = None,
                             inpaint: Optional[Inpaint] = None,
                             known_noises: Optional[Sequence[torch.Tensor]] = None,
-                            **cond) -> torch.Tensor:
+                            is_latent: bool = False, **cond) -> torch.Tensor:
         """DPM-Solver++(2M) over ddim_time_pairs (JAX decoder.py:981-1095):
         per step s -> t, with lambda = log(alpha / sigma), h = lambda_t -
         lambda_s, r = h_prev / h and x0 the data prediction,
@@ -723,7 +766,8 @@ class VideoDecoder(nn.Module):
         coefs = torch.from_numpy(dpmpp_coefficients(
             sched.alphas_cumprod.cpu().numpy(), pairs)).to(self.device)
         k_init, _, k_known = keys.split(3)
-        x = self._start(k_init, shape, init_noise, cond)
+        x = self._start(k_init, shape, init_noise, cond, is_latent)
+        clip = self.config.clip_denoised and not is_latent
         x0_prev = torch.zeros_like(x)
         for k, (t_now, _) in enumerate(pairs):
             cx, cd, c2, acp_now, acp_next = coefs[k]
@@ -734,14 +778,14 @@ class VideoDecoder(nn.Module):
                 x0 = x0 - (0.5 * inpaint.weight * torch.sqrt(acp_now)) * g
             else:
                 x0, _ = self._x0_of(i, x, t, cond=cond, **kw)
-            if self.config.clip_denoised:
+            if clip:
                 x0 = self.dynamic_threshold(x0)
             d = (1.0 + c2) * x0 - c2 * x0_prev
             x = cx * x + cd * d
             if inpaint is not None:
                 x = inpaint.replace(x, acp_next, self._draw(k_known, k, shape, known_noises))
             x0_prev = x0
-        return self._unnormalize(x)
+        return x if is_latent else self._unnormalize(x)
 
     # ------------------------------------------------------------------ #
     def sample_stage(self, i: int, keys: RowKeys, *, batch_size: int,
@@ -767,9 +811,11 @@ class VideoDecoder(nn.Module):
         are resized nearest to this stage's geometry; ``negative_video_embed``
         replaces the CFG baseline of a stage conditioned on the embed, and
         ``negative_text_encodings`` that of a stage conditioned on the text
-        encodings (``text_encodings`` reach only such a stage)."""
+        encodings (``text_encodings`` reach only such a stage). A latent
+        stage samples its VAE's latents and returns their decoding."""
         cfg = self.config
         ucfg = self.unet_configs[i]
+        vae = self.vaes[i]
         size, frames = cfg.frame_sizes[i], cfg.frame_numbers[i]
         k_lowres, k_loop = keys.split()
         cond: Dict[str, torch.Tensor] = {}
@@ -793,8 +839,12 @@ class VideoDecoder(nn.Module):
                                         self.lowres_configs[i], level)
                 cond["lowres_noise_level"] = level
             cond["lowres_cond_video"] = lowres
-        shape = (batch_size, frames, size, size, cfg.channels)
-        loop_kw: Dict[str, Any] = dict(cond_scale=cond_scale, init_noise=init_noise)
+        latent = vae.get_encoded_fmap_size(size)
+        shape = (batch_size, frames, latent, latent, vae.encoded_dim)
+        if vae.is_latent and cond.get("lowres_cond_video") is not None:
+            cond["lowres_cond_video"] = vae.encode(cond["lowres_cond_video"])
+        loop_kw: Dict[str, Any] = dict(cond_scale=cond_scale, init_noise=init_noise,
+                                       is_latent=vae.is_latent)
         if inpaint_video is not None:
             if inpaint_mask is None:
                 raise ValueError("inpaint_video requires inpaint_mask")
@@ -805,18 +855,33 @@ class VideoDecoder(nn.Module):
             mask = torch.as_tensor(inpaint_mask, dtype=torch.float32, device=self.device)
             mask = mask.expand(*inpaint_video.shape[:4], 1)
             mask = resize_video_time(resize_video(mask, size), frames)
-            loop_kw.update(inpaint=Inpaint(self._normalize(known), mask, inpaint_method,
+            if vae.is_latent:
+                # model space is the latent grid: the known video encoded, and
+                # a latent cell known only where its whole f x f pixel patch
+                # is (a spatial min-pool); latents are not normalised again
+                f = size // latent
+                if f * latent != size:
+                    raise ValueError(f"frame size {size} is not a multiple of latent {latent}")
+                known = vae.encode(known)
+                b_, t_ = mask.shape[:2]
+                mask = mask.reshape(b_, t_, latent, f, latent, f, 1).amin(dim=(3, 5))
+            else:
+                known = self._normalize(known)
+            loop_kw.update(inpaint=Inpaint(known, mask, inpaint_method,
                                            float(inpaint_guidance_weight)),
                            known_noises=known_noises)
         st = self.sample_timesteps[i] if sample_timesteps is None else sample_timesteps
         if st is not None and st < cfg.timesteps:
             if cfg.sampler == "dpmpp":
-                return self.p_sample_loop_dpmpp(i, k_loop, shape, timesteps=st,
-                                                **loop_kw, **cond)
-            return self.p_sample_loop_ddim(i, k_loop, shape, timesteps=st,
-                                           step_noises=step_noises, **loop_kw, **cond)
-        return self.p_sample_loop_ddpm(i, k_loop, shape, step_noises=step_noises,
-                                       **loop_kw, **cond)
+                vid = self.p_sample_loop_dpmpp(i, k_loop, shape, timesteps=st,
+                                               **loop_kw, **cond)
+            else:
+                vid = self.p_sample_loop_ddim(i, k_loop, shape, timesteps=st,
+                                              step_noises=step_noises, **loop_kw, **cond)
+        else:
+            vid = self.p_sample_loop_ddpm(i, k_loop, shape, step_noises=step_noises,
+                                          **loop_kw, **cond)
+        return vae.decode(vid)
 
     @torch.no_grad()
     def sample(self, keys: RowKeys, *, video_embed: Optional[torch.Tensor] = None,
@@ -921,6 +986,29 @@ def cascade_sr_overrides() -> List[str]:
     ``load_config("configs/cascade_sr.yaml", cascade_sr_overrides())``."""
     return ["unet2.attention_impl=auto", "sample_timesteps=[64,64]",
             "flash_attention_sampling=true", "sample_compute_dtype=bfloat16"]
+
+
+# scripts/train_latent90.py's recipe: a frozen VQGAN-VAE (f 4, latent 4)
+# encodes 90 x 128^2 x 3 pixels to 90 x 32^2 x 4 latents, and this unet
+# denoises them (its joint bottleneck 90 x 8 x 8 = 5,760 tokens)
+LATENT90_UNET = dict(dim=64, dim_mults=(1, 2, 4), video_embed_dim=512, num_resnet_blocks=2,
+                     attn_heads=8, attn_dim_head=32)
+LATENT90_FRAMES, LATENT90_SIZE = 90, 128
+
+
+def latent90_decoder(vae: nn.Module, device: DeviceLike = None, **unet_knobs) -> VideoDecoder:
+    """scripts/train_latent90.py's decoder: one stage of 90 frames at 128
+    px in the latent space of ``vae``, ``predict_x_start_for_latent_
+    diffusion``, 1000 timesteps, DDIM 64, bf16 sampling; ``unet_knobs``
+    are the unet's kernel settings (``attention_impl``, ``groupnorm_impl``,
+    ``cross_attention_impl``)."""
+    return VideoDecoder(
+        VideoDecoderConfig(
+            unets=(UNet3DConfig(**LATENT90_UNET, **unet_knobs),),
+            frame_sizes=(LATENT90_SIZE,), frame_numbers=(LATENT90_FRAMES,),
+            timesteps=1000, sample_timesteps=64, learned_variance=False,
+            predict_x_start_for_latent_diffusion=True, sample_compute_dtype="bfloat16"),
+        device=device, vaes=(vae,))
 
 
 def build_decoder(cfg: Dict, device: DeviceLike = None) -> VideoDecoder:

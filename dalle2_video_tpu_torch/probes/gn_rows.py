@@ -52,6 +52,58 @@ FWD, BWD, ROW9 = "groupnorm_film_silu_fwd", "groupnorm_film_silu_bwd", "fused_bl
 
 
 # ------------------------------------------------------------------ the map
+def _count(ucfg, frames: int, size: int):
+    """One forward of a unet of config ``ucfg`` on meta tensors at
+    (1, frames, size, size, channels): (Counter{(L, C, G): GroupNorm sites}
+    -- the groupnorm_film_silu calls, or the fused_block3d calls (L = T H
+    W, C = Co) --, Counter{(n, h, d, m): cross-attention sites})."""
+    from unittest import mock
+
+    import torch
+
+    from dalle2_video_tpu_torch.models import layers
+    from dalle2_video_tpu_torch.models.unet3d import UNet3D
+
+    with torch.device("meta"):
+        unet = UNet3D(ucfg).to(torch.bfloat16)
+    seen, xattn = Counter(), Counter()
+
+    def gn_site(x, gamma, beta, scale, shift, groups, eps):
+        seen[(x.shape[1], x.shape[2], groups)] += 1
+        return torch.empty_like(x)
+
+    def fused_site(x, w, bias, gamma, beta, scale, shift, groups, eps):
+        b, t, h, wd, _ = x.shape
+        seen[(t * h * wd, w.shape[0], groups)] += 1
+        return x.new_empty(b, t, h, wd, w.shape[0])
+
+    def conv_site(x, w):
+        return x.new_empty(*x.shape[:-1], w.shape[0])
+
+    def xattn_site(q, k, v, **_):
+        xattn[(*q.shape[1:], k.shape[1])] += 1
+        return torch.empty_like(q)
+
+    x = torch.empty(1, frames, size, size, ucfg.channels, device="meta", dtype=torch.bfloat16)
+    kw = {}
+    if ucfg.cond_on_video_embeds:
+        kw["video_embed"] = torch.empty(1, ucfg.video_embed_dim, device="meta",
+                                        dtype=torch.bfloat16)
+    if ucfg.lowres_cond:
+        kw["lowres_cond_video"] = torch.empty_like(x)
+    if ucfg.lowres_noise_cond:
+        kw["lowres_noise_level"] = torch.zeros(1, dtype=torch.long, device="meta")
+    with mock.patch.object(layers, "groupnorm_film_silu", gn_site), \
+            mock.patch.object(layers, "fused_block3d", fused_site), \
+            mock.patch.object(layers, "conv3x3_spatial_xbwd", conv_site), \
+            mock.patch.object(layers, "cross_attention", xattn_site), \
+            mock.patch.object(layers, "groupnorm_film_silu_as_jax",
+                              lambda x, *a, **k: torch.empty_like(x)), \
+            torch.no_grad():
+        unet(x, torch.zeros(1, dtype=torch.long, device="meta"), **kw)
+    return seen, xattn
+
+
 @functools.lru_cache(maxsize=None)
 def sites(impl: str) -> Dict[int, Counter]:
     """{unet: Counter{(L, C, G): sites per forward}} of the full-width
@@ -63,8 +115,6 @@ def sites(impl: str) -> Dict[int, Counter]:
     import torch
 
     from dalle2_video_tpu_torch.engine import decoder
-    from dalle2_video_tpu_torch.models import layers
-    from dalle2_video_tpu_torch.models.unet3d import UNet3D
     from dalle2_video_tpu_torch.utils.config import load_config
 
     knobs = {"pallas": ["groupnorm_impl=pallas"],
@@ -73,48 +123,45 @@ def sites(impl: str) -> Dict[int, Counter]:
                              *(f"unet{u}.{k}" for u in (1, 2) for k in knobs)])
     with mock.patch.object(decoder, "UNet3D", lambda c: torch.nn.Identity()):
         cfgs = decoder.build_decoder(cfg, "cpu").unet_configs
-    out = {}
-    for u, (ucfg, size) in enumerate(zip(cfgs, cfg["frame_sizes"]), start=1):
-        with torch.device("meta"):
-            unet = UNet3D(ucfg).to(torch.bfloat16)
-        seen = Counter()
-
-        def gn_site(x, gamma, beta, scale, shift, groups, eps, _seen=seen):
-            _seen[(x.shape[1], x.shape[2], groups)] += 1
-            return torch.empty_like(x)
-
-        def fused_site(x, w, bias, gamma, beta, scale, shift, groups, eps, _seen=seen):
-            b, t, h, wd, _ = x.shape
-            _seen[(t * h * wd, w.shape[0], groups)] += 1
-            return x.new_empty(b, t, h, wd, w.shape[0])
-
-        def conv_site(x, w):
-            return x.new_empty(*x.shape[:-1], w.shape[0])
-
-        x = torch.empty(1, FRAMES, size, size, 3, device="meta", dtype=torch.bfloat16)
-        kw = {}
-        if ucfg.cond_on_video_embeds:
-            kw["video_embed"] = torch.empty(1, ucfg.video_embed_dim, device="meta",
-                                            dtype=torch.bfloat16)
-        if ucfg.lowres_cond:
-            kw["lowres_cond_video"] = torch.empty_like(x)
-        if ucfg.lowres_noise_cond:
-            kw["lowres_noise_level"] = torch.zeros(1, dtype=torch.long, device="meta")
-        with mock.patch.object(layers, "groupnorm_film_silu", gn_site), \
-                mock.patch.object(layers, "fused_block3d", fused_site), \
-                mock.patch.object(layers, "conv3x3_spatial_xbwd", conv_site), \
-                mock.patch.object(layers, "groupnorm_film_silu_as_jax",
-                                  lambda x, *a, **k: torch.empty_like(x)), \
-                torch.no_grad():
-            unet(x, torch.zeros(1, dtype=torch.long, device="meta"), **kw)
-        out[u] = seen
-    return out
+    return {u: _count(ucfg, FRAMES, size)[0]
+            for u, (ucfg, size) in enumerate(zip(cfgs, cfg["frame_sizes"]), start=1)}
 
 
-def calls(kernel: str, batch: int, unet: int) -> Counter:
+# The latent stage (chip_smoke.py's "latent"): scripts/train_latent90.py's
+# unet (engine/decoder.py::latent90_decoder) on 90 x 32 x 32 x 4 latents at
+# celebv_text's kernel settings, trained at TRAIN_BATCH and sampled at the
+# CFG batch of one request (LATENT_SERVE_BATCH); its unet key is "latent"
+LATENT = "latent"
+LATENT_SERVE_BATCH = 2
+LATENT_GRID = 32
+
+
+@functools.lru_cache(maxsize=None)
+def latent_sites():
+    """(GroupNorm sites (L, C, G), cross-attention sites (n, h, d, m)) of
+    one forward of the latent recipe's unet at ``groupnorm_impl: pallas``
+    and ``cross_attention_impl: flash``."""
+    from unittest import mock
+
+    import torch
+
+    from dalle2_video_tpu_torch.engine import decoder
+    from dalle2_video_tpu_torch.models.vqvae import VQVAE
+
+    with mock.patch.object(decoder, "UNet3D", lambda c: torch.nn.Identity()):
+        dec = decoder.latent90_decoder(VQVAE(base_dim=8, device="cpu"), "cpu",
+                                       attention_impl="auto", groupnorm_impl="pallas",
+                                       cross_attention_impl="flash")
+    return _count(dec.unet_configs[0], FRAMES, LATENT_GRID)
+
+
+def calls(kernel: str, batch: int, unet) -> Counter:
     """{(batch, L, C, G): launches} of ``kernel`` in one forward (FWD) or
-    one backward (BWD, ROW9) of ``unet`` at ``batch``."""
-    per = sites("fused" if kernel == ROW9 else "pallas")[unet]
+    one backward (BWD, ROW9) of ``unet`` (1, 2 or LATENT) at ``batch``."""
+    if unet == LATENT:
+        per = latent_sites()[0]
+    else:
+        per = sites("fused" if kernel == ROW9 else "pallas")[unet]
     return Counter({(batch, *key): n for key, n in per.items()})
 
 
@@ -127,11 +174,15 @@ def serve_step(batch: int) -> Counter:
 def all_shapes() -> Dict[str, Tuple]:
     """Every (batch, L, C, G) each kernel takes on the paths: row 3 on
     serve (SERVE_BATCHES) and train (TRAIN_BATCH), row 4 on train, row 9
-    on train_conv."""
+    on train_conv; rows 3 and 4 on the latent stage (its training and
+    sampling batches)."""
     fwd = set()
     for b in {*SERVE_BATCHES, TRAIN_BATCH}:
         fwd |= set(serve_step(b))
-    bwd = set(calls(BWD, TRAIN_BATCH, 1) + calls(BWD, TRAIN_BATCH, 2))
+    for b in {LATENT_SERVE_BATCH, TRAIN_BATCH}:
+        fwd |= set(calls(FWD, b, LATENT))
+    bwd = set(calls(BWD, TRAIN_BATCH, 1) + calls(BWD, TRAIN_BATCH, 2)
+              + calls(BWD, TRAIN_BATCH, LATENT))
     row9 = set(calls(ROW9, TRAIN_BATCH, 1) + calls(ROW9, TRAIN_BATCH, 2))
     return {FWD: tuple(sorted(fwd)), BWD: tuple(sorted(bwd)), ROW9: tuple(sorted(row9))}
 

@@ -102,9 +102,8 @@ def build_stack(cfg: Dict[str, Any], device: DeviceLike = None,
         log.warning("no prior checkpoint at %s: random prior (smoke quality only)", prior_ckpt)
     dec_ckpt = run_dir / f"decoder_{cfg['train_name']}"
     if has_checkpoint(str(dec_ckpt)):
-        for unet, sd in zip(decoder.unets,
-                            load_decoder_sampling_params(str(dec_ckpt), map_location=device)):
-            unet.load_state_dict(sd, strict=True)
+        decoder.load_sampling_params(
+            load_decoder_sampling_params(str(dec_ckpt), map_location=device))
         log.info("loaded decoder %s", dec_ckpt)
     else:
         log.warning("no decoder checkpoint at %s: random decoder (smoke quality only)",

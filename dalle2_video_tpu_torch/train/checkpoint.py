@@ -229,9 +229,12 @@ def load_params_subtree(path: str, which: str = "best", prefer_ema: bool = True,
 def load_decoder_sampling_params(path: str,
                                  map_location: Any = "cpu") -> List[Dict[str, torch.Tensor]]:
     """The decoder's sampling state from the best training state under
-    ``path`` (``DecoderTrainer.state_dict``): one state dict per unet, its
-    parameters the EMA shadow's where the trainer kept one, as
-    ``DecoderTrainer.sampling_params``."""
+    ``path`` (``DecoderTrainer.state_dict``): one state dict per stage, its
+    unet's parameters the EMA shadow's where the trainer kept one, and a
+    latent stage's VAE under ``vae.<name>``, as ``DecoderTrainer.
+    sampling_params`` (``VideoDecoder.load_sampling_params`` loads it)."""
     state = load_best(path, map_location)
-    return [sd if ema is None else dict(sd, **ema["params"])
-            for sd, ema in zip(state["params"], state["ema"])]
+    vaes = state.get("vaes") or [{}] * len(state["params"])
+    return [dict(sd if ema is None else dict(sd, **ema["params"]),
+                 **{f"vae.{k}": v for k, v in vae.items()})
+            for sd, ema, vae in zip(state["params"], state["ema"], vaes)]

@@ -212,11 +212,13 @@ class DistillTrainer:
         return torch.sqrt(acp), torch.sqrt(1.0 - acp)
 
     def _xstart(self, params: Params, z, t, *, cond_scale: float, cond: Dict[str, Any]):
-        """One forward's x-prediction, dynamic-thresholded as the sampler's."""
+        """One forward's x-prediction, dynamic-thresholded as the sampler's
+        (a pixel stage only: latents are not clipped)."""
         dec, i = self.decoder, self.i
         out = dec._unet_apply(i, z, t, cond_scale=cond_scale, params=params, **cond)
         x0 = dec._predict_x_start(i, z, t, dec._split_output(i, out)[0])
-        return dec.dynamic_threshold(x0) if dec.config.clip_denoised else x0
+        clip = dec.config.clip_denoised and not dec.vaes[i].is_latent
+        return dec.dynamic_threshold(x0) if clip else x0
 
     def _ddim_to(self, z, x0, t_from, t_to, nd: int):
         """One eta-0 DDIM step given the x-prediction."""
@@ -230,7 +232,8 @@ class DistillTrainer:
         """An SR stage's conditioning as sample() builds it: the [0, 1] clip
         nearest-resized to the previous stage's geometry and back up to
         this stage's, noised at the fixed ``lowres_noise_sample_level`` (no
-        blur, no random level), normalised. ``noise`` replaces the draw."""
+        blur, no random level), VAE-encoded on a latent stage, normalised
+        otherwise. ``noise`` replaces the draw."""
         dec, i = self.decoder, self.i
         dcfg = dec.config
         prev = resize_video(video01, dcfg.frame_sizes[i - 1], clamp_range=(0.0, 1.0))
@@ -247,7 +250,12 @@ class DistillTrainer:
             lowres, _ = noise_video(None, lowres, dec.lowres_noise_schedule,
                                     dec.lowres_configs[i], level, noise=noise.to(lowres))
             out["lowres_noise_level"] = level
-        out["lowres_cond_video"] = dec._normalize(lowres)
+        vae = dec.vaes[i]
+        if vae.is_latent:
+            with torch.no_grad():
+                out["lowres_cond_video"] = vae.encode(lowres)
+        else:
+            out["lowres_cond_video"] = dec._normalize(lowres)
         return out
 
     def loss(self, video: torch.Tensor, *, video_embed: Optional[torch.Tensor] = None,
@@ -274,7 +282,12 @@ class DistillTrainer:
 
         video = resize_video_time(resize_video(video, dcfg.frame_sizes[i]),
                                   dcfg.frame_numbers[i])
-        x0 = dec._normalize(video)
+        vae = dec.vaes[i]
+        if vae.is_latent:  # the student's target lives in the VAE's latent space
+            with torch.no_grad():
+                x0 = vae.encode(video)
+        else:
+            x0 = dec._normalize(video)
         nd = x0.ndim
         seg = draws.get("segments")
         seg = (torch.randint(0, len(self.t_starts), (b,), generator=g, device=dev)
@@ -397,10 +410,8 @@ def load_teacher(cfg: Dict[str, Any], decoder: VideoDecoder) -> None:
     path = Path(cfg["run_dir"]) / f"decoder_{cfg['train_name']}"
     if not has_checkpoint(str(path)):
         raise FileNotFoundError(f"no decoder checkpoint at {path} to distill")
-    for unet, sd in zip(decoder.unets, load_decoder_sampling_params(
-            str(path), map_location=decoder.device)):
-        unet.load_state_dict(sd, strict=True)
-    decoder._sampling_unets.clear()
+    decoder.load_sampling_params(load_decoder_sampling_params(
+        str(path), map_location=decoder.device))
     log.info("teacher: %s", path)
 
 

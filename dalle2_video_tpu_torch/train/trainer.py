@@ -16,7 +16,10 @@ softmax in f32 and would give different numbers).
 
 The train state lives in the decoder's unets (params), the optimisers, the
 EMA shadows and ``steps``; ``state_dict`` / ``load_state_dict`` carry all
-of it (plus the draw generator) through ``train/checkpoint.py``. The JAX
+of it (plus the draw generator) through ``train/checkpoint.py``. A latent
+stage's VAE (the JAX ``vae_{i}``) is frozen: no gradient, in no optimiser
+group and no EMA; it is saved and restored with the unets (``vaes``) and
+rides to the server in the sampling params (keys ``vae.<name>``). The JAX
 package's ``train_steps_scan`` (K steps in one compiled program) becomes
 the caller's plain loop over ``train_step``.
 """
@@ -201,11 +204,16 @@ class DecoderTrainer:
 
     # ------------------------------------------------------------------ #
     def sampling_params(self, use_ema: bool = True) -> List[Dict[str, torch.Tensor]]:
-        """Per unet, the parameters sampling uses: the EMA shadows when
-        ``use_ema`` (and EMA is on), else the online ones."""
+        """Per stage, the parameters sampling uses: the unet's EMA shadows
+        when ``use_ema`` (and EMA is on), else the online ones, and its
+        frozen VAE's under ``vae.<name>`` (``VideoDecoder.
+        load_sampling_params`` loads them)."""
         if use_ema and self.cfg.use_ema:
-            return [dict(e.params) for e in self.ema]
-        return [self.params(i) for i in range(self.num_unets)]
+            unets = [dict(e.params) for e in self.ema]
+        else:
+            unets = [self.params(i) for i in range(self.num_unets)]
+        return [dict(sd, **{f"vae.{k}": v for k, v in vae.state_dict().items()})
+                for sd, vae in zip(unets, self.decoder.vaes)]
 
     @torch.no_grad()
     def sample(self, keys: RowKeys, use_ema: bool = True, **kwargs) -> torch.Tensor:
@@ -232,6 +240,7 @@ class DecoderTrainer:
     def state_dict(self) -> Dict[str, Any]:
         return {
             "params": [u.state_dict() for u in self.decoder.unets],
+            "vaes": [v.state_dict() for v in self.decoder.vaes],
             "opt_states": [o.state_dict() for o in self.optimizers],
             "ema": [None if e is None else {"params": dict(e.params), "step": e.step}
                     for e in self.ema],
@@ -245,6 +254,8 @@ class DecoderTrainer:
                              f"trainer {self.num_unets}")
         for unet, sd in zip(self.decoder.unets, state["params"]):
             unet.load_state_dict(sd, strict=True)
+        for vae, sd in zip(self.decoder.vaes, state.get("vaes") or [{}] * self.num_unets):
+            vae.load_state_dict(sd, strict=True)
         for opt, sd in zip(self.optimizers, state["opt_states"]):
             opt.load_state_dict(sd)
         for i, e in enumerate(state["ema"]):

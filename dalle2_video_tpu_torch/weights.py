@@ -31,7 +31,14 @@ into a ``ClipTrainer`` (the ViViT's params, the temperature, the moments of
 both, the step), ``load_prior_train_state_from_jax`` for the prior's
 training state (params, Adam moments, EMA shadow) into a ``PriorTrainer``,
 ``load_distill_state_from_jax`` a ``DistillState`` (student, EMA, Adam
-moments, step) into a ``DistillTrainer``.
+moments, step) into a ``DistillTrainer``. A VAE's tree nests one flax
+``params`` collection per part (``{"encoder": {"params": ...}, "vq": ...,
+"decoder": ...}``): those levels drop out of the names, so ``load_from_jax``
+takes ``ConvVAE`` / ``VQVAE`` (and ``PatchDiscriminator``) trees as they
+are; a latent stage's ``vae_{i}`` rides in the decoder's and the distill
+states, and ``load_vqgan_train_state_from_jax`` carries a
+``VQGanTrainState`` (both Adam states with their counts, ``vq_ema``, step)
+into a ``VQGanTrainer``.
 
 The prior's stacked layout (``scan_layers``: flax nn.scan's ``layers``
 subtree, every leaf with a leading depth axis) converts slice by slice and
@@ -58,7 +65,9 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     for k, v in tree.items():
         name = f"{prefix}.{k}" if prefix else str(k)
         if isinstance(v, Mapping):
-            out.update(_flatten(v, name))
+            # a nested flax collection (a VAE part's {"params": ...}) adds
+            # no name
+            out.update(_flatten(v, prefix if k == "params" else name))
         else:
             out[name] = np.asarray(v)
     return out
@@ -133,8 +142,11 @@ def _set_adam(optimizer: torch.optim.Optimizer, own: Mapping[str, torch.Tensor],
     optimizer.state.clear()
     step = float(np.asarray(count))
     for k, p in own.items():
+        # copies: the optimiser updates its moments in place and must never
+        # write into memory the caller still reads (a JAX state's buffers)
         optimizer.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
-                              "exp_avg": mu[k].to(p), "exp_avg_sq": nu[k].to(p)}
+                              "exp_avg": mu[k].to(p, copy=True),
+                              "exp_avg_sq": nu[k].to(p, copy=True)}
 
 
 def _load_ema(ema, tree, what: str) -> None:
@@ -161,7 +173,7 @@ def load_clip_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
         if set(opt[m]) != {"vivit", "temp"}:
             raise ValueError(f"opt_state {m} holds {sorted(opt[m])}, not vivit and temp")
         sd = dict(_strict(opt[m]["vivit"], own, f"vivit {m}"))
-        sd["temperature"] = torch.as_tensor(np.asarray(opt[m]["temp"], dtype=np.float32))
+        sd["temperature"] = torch.tensor(np.asarray(opt[m]["temp"]), dtype=torch.float32)
         moments.append(sd)
     _set_adam(trainer.optimizer, {**own, "temperature": trainer.temperature}, *moments,
               opt["count"])
@@ -186,15 +198,22 @@ def load_prior_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
 @torch.no_grad()
 def load_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
     """Strict load of a JAX decoder TrainState, given as numpy trees:
-    ``{"params": {"unet_<i>": flax params}, "opt_states": [{"mu", "nu":
+    ``{"params": {"unet_<i>": flax params[, "vae_<i>": a latent stage's VAE
+    tree]}, "opt_states": [{"mu", "nu":
     flax trees, "count": int}] per unet, "ema": [{"params": tree, "step":
     int} or None] per unet, "steps": [int] per unet}``."""
     n = trainer.num_unets
     for key in ("opt_states", "ema", "steps"):
         if len(state[key]) != n:
             raise ValueError(f"{key}: {len(state[key])} entries for {n} unets")
-    if set(state["params"]) != {f"unet_{i}" for i in range(n)}:
-        raise ValueError(f"params hold {sorted(state['params'])}, not unet_0..unet_{n - 1}")
+    vaes = trainer.decoder.vaes
+    want = {f"unet_{i}" for i in range(n)} | {f"vae_{i}" for i in range(n)
+                                               if vaes[i].is_latent}
+    if set(state["params"]) != want:
+        raise ValueError(f"params hold {sorted(state['params'])}, not {sorted(want)}")
+    for i, vae in enumerate(vaes):
+        if vae.is_latent:
+            load_from_jax(vae, state["params"][f"vae_{i}"])
     for i, unet in enumerate(trainer.decoder.unets):
         load_from_jax(unet, state["params"][f"unet_{i}"])
         own = dict(unet.named_parameters())
@@ -211,9 +230,17 @@ def load_distill_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
     """Strict load of a JAX DistillState into a ``DistillTrainer`` after its
     ``init_state`` (the template), given as numpy trees: ``{"student": flax
     params, "ema": flax params, "opt_state": {"mu", "nu": trees, "count":
-    int}, "step": int}``."""
+    int}, "step": int}``, and on a latent stage ``"vae_<i>"``: the
+    teacher's VAE (the JAX teacher params' subtree), into the decoder's."""
     if trainer.student is None:
         raise ValueError("init_state first: the state loads into its template")
+    vae_key = f"vae_{trainer.i}"
+    vae = trainer.decoder.vaes[trainer.i]
+    if (vae_key in state) != vae.is_latent:
+        raise ValueError(f"{vae_key}: a latent stage's state carries its VAE, a pixel "
+                         "stage's none")
+    if vae.is_latent:
+        load_from_jax(vae, state[vae_key])
     for key in ("student", "ema"):
         own = getattr(trainer, key)
         for k, v in _strict(state[key], own, f"distill {key}").items():
@@ -223,3 +250,36 @@ def load_distill_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
     _set_adam(trainer.optimizer, own, _strict(opt["mu"], own, "distill mu"),
               _strict(opt["nu"], own, "distill nu"), opt["count"])
     trainer.step = int(np.asarray(state["step"]))
+
+
+@torch.no_grad()
+def load_vqgan_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
+    """Strict load of a JAX VQGanTrainState into a ``VQGanTrainer``, given
+    as numpy trees: ``{"vae_params": VQVAE tree, "disc_params": flax
+    params, "opt_g": {"mu", "nu": trees, "count": int}, "opt_d": ...,
+    "step": int, "vq_ema": {"cluster_size", "embed_avg"} or None}``. With
+    ``codebook_ema`` the codebook is a buffer outside the optimiser: its
+    JAX moments must be zero (it never has a gradient) and are dropped."""
+    load_from_jax(trainer.vae, state["vae_params"])
+    load_from_jax(trainer.disc, state["disc_params"])
+    for opt, module, key in ((trainer.opt_g, trainer.vae, "opt_g"),
+                             (trainer.opt_d, trainer.disc, "opt_d")):
+        own = dict(module.named_parameters())
+        full = {**own, **dict(module.named_buffers())}
+        moments = []
+        for m in ("mu", "nu"):
+            sd = _strict(state[key][m], full, f"{key} {m}")
+            for k in set(sd) - set(own):
+                if bool(sd.pop(k).any()):
+                    raise ValueError(f"{key} {m} {k}: non-zero moments of a buffer")
+            moments.append(sd)
+        _set_adam(opt, own, *moments, state[key]["count"])
+    trainer.step = int(np.asarray(state["step"]))
+    ema = state["vq_ema"]
+    if (ema is None) != (trainer.vq_ema is None):
+        raise ValueError("vq_ema present in one of state and trainer only")
+    if ema is not None:
+        if set(ema) != {"cluster_size", "embed_avg"}:
+            raise ValueError(f"vq_ema holds {sorted(ema)}")
+        trainer.vq_ema = {k: torch.as_tensor(np.array(v, np.float32)).to(trainer.device)
+                          for k, v in ema.items()}

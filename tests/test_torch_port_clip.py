@@ -300,6 +300,47 @@ def test_clip_train_steps_match_jax(kw):
         kw.get("weight_decay", 0.0), 0.0]
 
 
+def test_clip_state_bridge_copies_so_the_port_step_may_run_first():
+    """The CLIP bridge copies what it loads: no tensor of the port's state
+    shares memory with the JAX state's arrays. The port's Adam updates its
+    moments in place; where the temperature's moments aliased the JAX
+    buffers, a port step that ran before the JAX step had read its inputs
+    (JAX dispatches asynchronously) moved the JAX step's moments too: JAX
+    then gave 3.99800158 for 3.99814439. Here the port steps first every
+    time, then JAX; the cosine case's temperatures and moments hold as in
+    test_clip_train_steps_match_jax (1e-5 relative; mu, nu 1e-4), and the
+    JAX state's arrays are unchanged by the port's step."""
+    kw = dict(lr_scheduler="cosine", total_steps=4)
+    _, vp = _jax_vivit()
+    tp = _jax_text()
+    jtr = JaxClipTrainer(JaxViViTCfg(**VIVIT), JaxTextCfg(**TEXT),
+                         JaxClipCfg(lr=1e-3, init_temperature=4.0, **kw))
+    state = _jax_state(jtr, vp)
+    batches = [_batch(10 + i) for i in range(3)]
+    step = _compiled(jtr.train_step, state, tp, *batches[0])
+    state, _ = step(state, tp, *batches[0])
+    tr = ClipTrainer(ViViTConfig(**VIVIT), CLIPTextConfig(**TEXT),
+                     ClipTrainerConfig(lr=1e-3, init_temperature=4.0, **kw), device="cpu")
+    load_from_jax(tr.text_encoder, _np_tree(tp))
+    mu, nu, count = _adam(state)
+    load_clip_train_state_from_jax(tr, {
+        "vivit_params": _np_tree(state.vivit_params), "temperature": state.temperature,
+        "opt_state": {"mu": mu, "nu": nu, "count": count}, "step": state.step})
+    given = [a for tree in (mu, nu) for a in jax.tree_util.tree_leaves(tree)]
+    before = [a.copy() for a in given]
+    ours = [t for st in tr.optimizer.state.values() for t in st.values()]
+    assert not any(np.shares_memory(t.numpy(), a) for t in ours for a in given)
+    for videos, tokens in batches[1:]:
+        got = tr.train_step(torch.from_numpy(videos), torch.from_numpy(tokens))
+        state, want = step(state, tp, videos, tokens)
+        _close(got["temperature"], want["temperature"], 1e-5, 1e-6, "temperature")
+        st = tr.optimizer.state[tr.temperature]
+        jmu, jnu, _ = _adam(state)
+        _close(st["exp_avg"], jmu["temp"], 1e-4, 1e-9, "mu temp")
+        _close(st["exp_avg_sq"], jnu["temp"], 1e-4, 1e-12, "nu temp")
+    assert all(np.array_equal(a, b) for a, b in zip(given, before))
+
+
 # --------------------------------------------------------------- OpenAI loader
 class _OpenAITower(torch.nn.Module):
     """Parameters under OpenAI CLIP's text-tower state-dict names; scripted

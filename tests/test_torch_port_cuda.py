@@ -1243,3 +1243,107 @@ def test_imported_decoder_samples_on_cuda_as_on_cpu(dev, tmp_path):
     got, want = videos
     assert torch.isfinite(got).all() and 0.0 <= float(got.min()) <= float(got.max()) <= 1.0
     torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+
+
+# ------------------------------------------------------------ the latent stage
+def test_flash_kernels_at_the_latent_bottleneck(dev):
+    """Rows 1 and 2 at the latent recipe's joint bottleneck (8 heads of 32
+    over 90 x 8 x 8 = 5,760 tokens and the null kv, bf16, batch 2): the
+    forward held as every bf16 flash forward (one bf16 step, the f64
+    oracle on 256 rows, the lse), the backward on the tensor-core route
+    against its plain version."""
+    n = 90 * 8 * 8
+    _flash_bf16_case(dev, 2, n * 8, n + 1, seed=n, oracle=True)
+    g = torch.Generator(device=dev).manual_seed(n + 1)
+    q, go = (torch.randn(2, n * 8, 32, generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(2, n + 1, 32, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fm.flash_mqa_fwd(q, k, v, sm_scale=32**-0.5, save_lse=True)
+    got = _flash_bwd_launch(q, k, v, out, lse, go, 32**-0.5, _bwd_route(torch.bfloat16, 2))
+    _assert_grads_close(got, fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 32**-0.5),
+                        torch.bfloat16)
+
+
+def test_vqgan_train_step_on_cuda_matches_the_cpu(dev):
+    """One VQGanTrainer.train_step past disc_start (f32; the convs through
+    cuDNN without TF32) on the card and on the CPU from the same weights:
+    every metric within 1e-4 relative; after the step (Adam's first, lr
+    1e-3) every parameter within 1e-5 but where a gradient within f32
+    noise of 0 takes the other sign (at most 0.1% of a tensor's values, by
+    at most 2 lr)."""
+    from dalle2_video_tpu_torch.models.discriminator import PatchDiscriminator
+    from dalle2_video_tpu_torch.models.vqvae import VQVAE
+    from dalle2_video_tpu_torch.train.vqgan_trainer import VQGanTrainer, VQGanTrainerConfig
+
+    cfg = VQGanTrainerConfig(lr_g=1e-3, lr_d=1e-3, disc_start=0)
+    trainers = []
+    for d in ("cpu", dev):
+        g = torch.Generator().manual_seed(0)
+        trainers.append(VQGanTrainer(
+            VQVAE(base_dim=16, codebook_size=64, device=d, generator=g),
+            PatchDiscriminator(base_dim=16, num_layers=2, device=d, generator=g), cfg))
+    video = torch.rand(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    want = trainers[0].train_step(video)
+    got = trainers[1].train_step(video.to(dev))
+    for key, w in want.items():
+        assert abs(float(got[key]) - float(w)) <= 1e-4 * abs(float(w)) + 1e-7, key
+    for a, b in ((trainers[0].vae, trainers[1].vae), (trainers[0].disc, trainers[1].disc)):
+        theirs = dict(b.named_parameters())
+        for name, p in a.named_parameters():
+            diff = (theirs[name].detach().cpu() - p.detach()).abs()
+            assert float(diff.max()) <= 2e-3 + 1e-5, name
+            assert float((diff > 1e-5).float().mean()) <= 1e-3, name
+
+
+def test_latent_decoder_loss_on_cuda_matches_the_cpu(dev):
+    """A decoder with a VQVAE stage (predict_x_start_for_latent_diffusion;
+    the unet's flash attention and GroupNorm kernels, f32) on the card and,
+    with the same weights, on the CPU (the plain versions), the draws
+    injected: the loss within 1e-4 relative and the unet's gradients within
+    1e-3 relative L2; rows 1-4 launch on the card; the VAE's encoding of
+    the video agrees to 1e-5 of its scale."""
+    from dalle2_video_tpu_torch.engine.decoder import VideoDecoder, VideoDecoderConfig
+    from dalle2_video_tpu_torch.models.layers import kernel_init_
+    from dalle2_video_tpu_torch.models.unet3d import UNet3DConfig
+    from dalle2_video_tpu_torch.models.vqvae import VQVAE
+
+    ucfg = UNet3DConfig(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, attn_heads=4,
+                        attn_dim_head=32, video_embed_dim=32, attention_impl="flash",
+                        groupnorm_impl="pallas", cross_attention_impl="xla")
+    cfg = VideoDecoderConfig(unets=(ucfg,), frame_sizes=(64,), frame_numbers=(4,),
+                             learned_variance=False, predict_x_start_for_latent_diffusion=True)
+    torch.manual_seed(0)
+    cpu = VideoDecoder(cfg, device="cpu", vaes=(VQVAE(base_dim=16, codebook_size=64,
+                                                      device="cpu"),))
+    w = cpu.unets[0].to_out.Conv_0.weight
+    kernel_init_(w, w[0].numel())
+    card = VideoDecoder(cfg, device=dev, vaes=(VQVAE(base_dim=16, codebook_size=64,
+                                                      device=dev),))
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(3)
+    video = torch.rand(2, 4, 64, 64, 3, generator=g)
+    draws = {"times": torch.tensor([3, 700]), "noise": torch.randn(2, 4, 16, 16, 4, generator=g),
+             "video_keep": torch.tensor([True, False])}
+    embed = torch.randn(2, 32, generator=g)
+    kernels = (fm.KERNEL, fm.BWD_KERNEL, gn.KERNEL, gn.BWD_KERNEL)
+    outs = []
+    for dec, d in ((card, dev), (cpu, torch.device("cpu"))):
+        before = [k.launches for k in kernels]
+        loss = dec.loss(video.to(d), video_embed=embed.to(d),
+                        draws={k: v.to(d) for k, v in draws.items()})
+        loss.backward()
+        launched = [k.launches - n for k, n in zip(kernels, before)]
+        assert all(launched) if d.type == "cuda" else not any(launched), launched
+        with torch.no_grad():
+            z = dec.vaes[0].encoder(video.to(d)).cpu()
+        outs.append((float(loss.detach()), z, {k: p.grad.cpu() for k, p in
+                                               dec.unets[0].named_parameters()
+                                               if p.grad is not None}))
+    (l_k, z_k, g_k), (l_p, z_p, g_p) = outs
+    assert abs(l_k - l_p) <= 1e-4 * abs(l_p) and l_p > 0
+    assert float((z_k - z_p).abs().max()) <= 1e-5 * float(z_p.abs().max())
+    assert set(g_k) == set(g_p)
+    for k in g_p:
+        if float(g_p[k].norm()) > 0:
+            assert _rel_l2(g_k[k], g_p[k]) <= 1e-3, (k, _rel_l2(g_k[k], g_p[k]))

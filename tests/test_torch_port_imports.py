@@ -54,6 +54,10 @@ def test_source_scan_finds_no_banned_import():
     assert {"dalle2_video_tpu_torch.utils.fvd", "dalle2_video_tpu_torch.utils.profiling",
             "dalle2_video_tpu_torch.models.clip_adapter",
             "dalle2_video_tpu_torch.models.torch_import"} <= set(_modules())
+    # and the latent stage
+    assert {*(f"dalle2_video_tpu_torch.models.{m}" for m in ("vae", "vqvae", "discriminator")),
+            "dalle2_video_tpu_torch.train.vqgan_trainer",
+            "dalle2_video_tpu_torch.train.train_vqgan"} <= set(_modules())
 
 
 def test_every_module_imports_with_jax_blocked():
