@@ -168,6 +168,23 @@ Phases (any failure exits non-zero and prints no result line):
      inpainting request; rows 1-5 counted exactly (latent_launches) at the
      map's shapes (probes/gn_rows.py::latent_sites; rows 1 and 2 at this
      bottleneck held in phase 2: FLASH_FWD_CASES, FLASH_BWD_CASES);
+ 5i'. parallel: the data and model axes (dalle2_video_tpu_torch/parallel/)
+     on the one card, after the kernels are built: PAR_RANKS ranks
+     (`chip_smoke.py --parallel-rank DIR`) share it over gloo: train_dp
+     (the train path's unet 1 at mesh {data 2, model 1}, global batch 2,
+     ZeRO-1, the reduced gradient once then PAR_DP_STEPS steps: the ranks'
+     losses and parameters bit for bit equal, each within the one-process
+     batch-2 steps' losses (PAR_LOSS_RTOL), gradient (PAR_GRAD_RTOL) and
+     parameters after the steps (PAR_PARAM_RTOL per tensor), the moment
+     bytes per rank logged), train_sp (mesh {data 1, model 2},
+     attention_impl sp: rows 1 and 2 at one rank's query shard, PAR_SP_SHAPES,
+     counted exactly; the same holds) and serve_dp (2 requests of the serve
+     recipe at OPTION_STEPS split over the ranks through
+     serve/stack.py::DataParallelGenerate, each row bit for bit the request
+     served alone by one process); each run's launches are each rank's, summed in
+     launches_by_run, each rank's in launches_by_rank. Then the decoder's
+     entry point under torchrun --nproc_per_node=1 (NCCL, smoke=true,
+     mesh.data=-1) must train one batch through both unets;
  5i. train_prior_moe: the recipe's prior with 8 experts a layer and
      self-conditioning, PRIOR_STEPS steps at batch 256 (finite loss and
      aux, every parameter moved), one best-of-2 64-step sample; no kernel;
@@ -2635,11 +2652,19 @@ def train_data(dev, torch, stages):
             return out
         return call
 
+    def checked_steps(trainer, mesh, u, **kw):
+        """The entry point's train step (parallel/sharded.py's, on a
+        one-rank mesh here), checked as ``checked`` does."""
+        step = saved[1](trainer, mesh, u, **kw)
+        call = checked(lambda self, video, *, video_embed=None, unet_number=u: step(
+            video, video_embed), backward=True)
+        return lambda video, emb: call(trainer, video, video_embed=emb, unet_number=u)
+
     totals = {k.name: 0 for k in kernels}
-    saved = (entry.make_loaders, DecoderTrainer.train_step, DecoderTrainer.eval_loss)
+    saved = (entry.make_loaders, entry.make_sharded_train_step, DecoderTrainer.eval_loss)
     entry.make_loaders = lambda *a: tuple(
         Timed(loader, kind) for loader, kind in zip(saved[0](*a), ("train", "val")))
-    DecoderTrainer.train_step = checked(saved[1], backward=True)
+    entry.make_sharded_train_step = checked_steps
     DecoderTrainer.eval_loss = checked(saved[2], backward=False)
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -2647,7 +2672,7 @@ def train_data(dev, torch, stages):
         with ShapeRecord() as shapes:
             summary = entry.train_decoder(cfg, dataset, splits, dev, max_steps=DATA_STEPS)
     finally:
-        entry.make_loaders, DecoderTrainer.train_step, DecoderTrainer.eval_loss = saved
+        entry.make_loaders, entry.make_sharded_train_step, DecoderTrainer.eval_loss = saved
     wall = time.time() - t
     peak = torch.cuda.max_memory_allocated() / 2**30
     trainer = summary["trainer"]
@@ -3881,6 +3906,394 @@ def latent_phase(dev, torch, stages):
     return {k.name: launches.get(k.name, 0) for k in kernels}
 
 
+# --------------------------------------------------------------- phase 5i'
+# "parallel": the data and model axes (dalle2_video_tpu_torch/parallel/) on
+# the one card. PAR_RANKS ranks share it over gloo (NCCL refuses two ranks
+# on one GPU; this torch's gloo carries all-reduce, all-gather and
+# broadcast for CUDA tensors, staged through the host), each started as
+# `chip_smoke.py --parallel-rank DIR` after the kernels are built (they
+# load the built libraries):
+#   train_dp: the train path's unet 1 (the 90-frame recipe at full width,
+#     bf16, attention_impl auto, cross_attention_impl xla) at mesh {data 2,
+#     model 1}, global batch 2 (one row a rank), the sharded step's reduced
+#     gradient once, then PAR_DP_STEPS steps (ZeRO-1 moments);
+#   train_sp: the same unet at mesh {data 1, model 2} with attention_impl
+#     sp, batch 2, the gradient once, then PAR_SP_STEPS steps: rows 1 and 2
+#     at one rank's query shard q (2, 46080, 32) against kv (2, 5761, 32);
+#   serve_dp: a group of 2 requests of the serve recipe at OPTION_STEPS
+#     DDIM steps split over the ranks (serve/stack.py::DataParallelGenerate:
+#     rank 0 the engine's callable, rank 1 in serve_worker). Each rank
+#     samples its request as a one-request group at CFG batch 2, so each row
+#     must equal, bit for bit, that request served alone by one process; the
+#     one process's group of 2 (CFG batch 4: other kernel shapes, whose bf16
+#     roundings flip saturated pixels) is logged beside it.
+# This process computes the one-process references meanwhile (the same
+# unet, batch 2, the same draws; the serve stack's group of 2), and runs the
+# decoder's entry point under torchrun --nproc_per_node=1 with NCCL
+# (smoke=true, mesh.data=-1: one batch through both unets). The walls of
+# the shared-card runs time gloo's host-staged collectives on one card, not
+# multi-GPU training.
+PAR_RANKS = 2
+PAR_DP_STEPS = 3
+PAR_SP_STEPS = 2
+# a rank's query shard at unet 1's 5,760-token mid attention, 16 heads,
+# against the gathered kv and the null kv
+PAR_SP_SHAPES = [[[2, 90 * 8 * 8 // PAR_RANKS * 16, 32], [2, 90 * 8 * 8 + 1, 32]]]
+# bf16, two batchings (one row a rank against two in one process): the
+# holds of the losses, the gradient's and the parameters' worst per-tensor
+# relative L2 after the steps, each a few times the worst of train_dp's and
+# train_sp's readings on an H100 (3.0e-5, 3.9e-3 and 7.1e-2: a bias that
+# starts at zero, whose Adam steps flip sign where its gradient is near
+# zero). A block of a ZeRO-1 leaf gathered into another rank's slice puts
+# unrelated values there (for two independent blocks of one norm, sqrt(2)
+# relative L2).
+PAR_LOSS_RTOL = 3e-4
+PAR_GRAD_RTOL = 2e-2
+PAR_PARAM_RTOL = 0.25
+
+
+def par_config(impl: str):
+    return path_config(dict(overrides=[*TRAIN_PATHS["train"]["overrides"],
+                                       f"unet1.attention_impl={impl}"]))[0]
+
+
+def par_trainer(torch, impl: str, unet1_state, dev, decoder=None):
+    """The train path's trainer (on ``decoder`` when given: its joint
+    attention set to ``impl``) with unet 1 at ``unet1_state`` and its EMA
+    shadow restarted from it."""
+    from dalle2_video_tpu_torch.engine.decoder import build_decoder
+    from dalle2_video_tpu_torch.models.layers import JointSpaceTimeAttention
+    from dalle2_video_tpu_torch.train.__main__ import build_trainer
+
+    cfg = par_config(impl)
+    decoder = build_decoder(cfg, dev) if decoder is None else decoder
+    for m in decoder.unets[0].modules():
+        if isinstance(m, JointSpaceTimeAttention):
+            m.impl = impl
+    decoder.unets[0].load_state_dict(unet1_state)
+    return build_trainer(cfg, decoder)
+
+
+def par_rank(rank_dir: str) -> int:
+    """One rank of the shared-card runs (RANK / WORLD_SIZE / MASTER_* set by
+    the parent): every run's loss, launches, walls and moment bytes to
+    rank<r>.json; rank 0's gradients, its unet-1 parameters after the steps
+    and its videos to .pt files."""
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from dalle2_video_tpu_torch.ops import flash_mqa as fm
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.parallel.collectives import all_gather_cat
+    from dalle2_video_tpu_torch.parallel.mesh import (
+        active_mesh,
+        create_mesh,
+        maybe_init_distributed,
+        shard_batch,
+    )
+    from dalle2_video_tpu_torch.parallel.sharded import (
+        all_reduce_mean,
+        make_sharded_train_step,
+        reduce_gradients,
+        shard_draws,
+        shard_state,
+    )
+    from dalle2_video_tpu_torch.serve.stack import DataParallelGenerate, serve_worker
+    from dalle2_video_tpu_torch.utils.device import resolve_device
+
+    root = Path(rank_dir)
+    dev = resolve_device("cuda:0")  # every rank on the one card
+    maybe_init_distributed(True, device=dev, backend="gloo")
+    rank = dist.get_rank()
+    inp = torch.load(root / "inputs.pt", weights_only=False)
+    kernels = all_kernels()
+    out = {"launches": {}, "routes": {}, "walls": {}, "flash_shapes": {}}
+    shapes = []
+    real_fwd = fm.flash_mqa_fwd
+
+    def recording_fwd(q, k, v, **kw):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return real_fwd(q, k, v, **kw)
+
+    fm.flash_mqa_fwd = recording_fwd
+
+    def run(name, fn):
+        for k in kernels:
+            k.reset()
+        shapes.clear()
+        torch.cuda.synchronize()
+        t = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        out["walls"][name] = time.time() - t
+        out["launches"][name] = {k.name: k.launches for k in kernels}
+        out["routes"][name] = dict(fm.BWD_KERNEL.routes)
+        out["flash_shapes"][name] = sorted(set(shapes))
+        return res
+
+    video, embed = inp["video"], inp["embed"]
+    decoder = None
+    for name, impl, shape, steps in (("train_dp", "auto", (2, 1), PAR_DP_STEPS),
+                                     ("train_sp", "sp", (1, 2), PAR_SP_STEPS)):
+        mesh = create_mesh(*shape, device=dev, backend="gloo")
+        trainer = shard_state(par_trainer(torch, impl, inp["unet1"], dev, decoder), mesh)
+        decoder = trainer.decoder
+        params = list(trainer.decoder.unets[0].parameters())
+        vid, emb = shard_batch(mesh, (video, embed))
+
+        def grads():
+            with active_mesh(mesh):
+                loss = trainer.backward(vid, video_embed=emb, unet_number=1,
+                                        draws=shard_draws(inp["draws"][0], mesh))
+                loss = all_reduce_mean(loss, mesh.data_group)
+                reduce_gradients(params, mesh.data_group)
+            return float(loss)
+
+        step = make_sharded_train_step(trainer, mesh, 1)
+        out[name] = {"grad_loss": run(f"{name} gradient", grads)}
+        if rank == 0:
+            torch.save({k: p.grad.float().cpu() for k, p in
+                        trainer.decoder.unets[0].named_parameters()}, root / f"{name}_grads.pt")
+        trainer.optimizers[0].zero_grad()
+        out[name]["losses"] = run(name, lambda: [
+            float(step(vid, emb, draws=inp["draws"][j])) for j in range(steps)])
+        flat = torch.cat([p.detach().reshape(-1) for p in params])
+        every = all_gather_cat(flat, mesh.world_group, 0).view(mesh.world, -1)
+        out[name]["ranks_equal"] = all(torch.equal(every[0], every[r])
+                                       for r in range(1, mesh.world))
+        if rank == 0:
+            torch.save({k: p.detach().float().cpu() for k, p in
+                        trainer.decoder.unets[0].named_parameters()}, root / f"{name}_params.pt")
+        out[name]["moment_bytes"] = trainer.optimizers[0].moment_bytes()
+        out[name]["moment_bytes_whole"] = sum(8 * p.numel() for p in params)
+        del trainer, params, flat, every
+        torch.cuda.empty_cache()
+    del decoder
+
+    mesh = create_mesh(PAR_RANKS, 1, device=dev, backend="gloo")
+    cfg, _ = path_config(SERVE_PATHS["serve"])
+    cfg["sample_seed"], cfg["run_dir"] = 0, str(root / "no_checkpoints")
+    generate_batch, _ = option_stack(cfg, dev, torch)
+    dp = DataParallelGenerate(generate_batch, mesh)
+    if rank == 0:
+        videos = run("serve_dp", lambda: dp(*inp["requests"], cond_scale=3.0,
+                                            ddim_steps=OPTION_STEPS))
+        dp.stop()
+        torch.save(videos, root / "serve_dp_videos.pt")
+    else:
+        out["served"] = run("serve_dp", lambda: serve_worker(dp))
+    dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def par_expected(path: str) -> dict:
+    """One rank's launches on each run: rows 1-4 per unet-1 forward and
+    backward as train_expected (one flash forward launch at the global
+    batch's route, one backward on the tensor cores), serve's per DDIM step
+    of a one-request group."""
+    if path == "serve_dp":
+        return {k: OPTION_STEPS * n for k, n in SERVE_PATHS["serve"]["per_step"].items()}
+    steps = {"train_dp": PAR_DP_STEPS, "train_sp": PAR_SP_STEPS}[path.split()[0]]
+    n = 1 if path.endswith("gradient") else steps
+    recompute = par_config("auto")["unet1"].get("checkpoint_during_training", False)
+    return {k: n * v for k, v in train_expected("train", 1, True, recompute).items()}
+
+
+def par_rel_l2(torch, got, want, start=None):
+    """The worst per-tensor relative L2 distance of two tensor dicts (of
+    their changes from ``start`` when given)."""
+    worst, name = 0.0, ""
+    for k, w in want.items():
+        g = got[k]
+        if start is not None:
+            g, w = g - start[k].float(), w - start[k].float()
+        if float(w.norm()) == 0:
+            continue
+        err = float((g - w).norm() / w.norm())
+        if err > worst:
+            worst, name = err, k
+    return worst, name
+
+
+def parallel_phase(dev, torch, root: str):
+    """See the comment above PAR_RANKS. Returns {run: launches summed over
+    the ranks} and {run: [each rank's launches]}."""
+    import os
+    import socket
+    import subprocess
+    from pathlib import Path
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.engine.decoder import build_decoder
+    from dalle2_video_tpu_torch.models.layers import kernel_init_
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.train import load_latest
+    from dalle2_video_tpu_torch.train.__main__ import SyntheticVideos
+
+    out_dir = Path(root) / "parallel"
+    out_dir.mkdir()
+    cfg = par_config("auto")
+    torch.manual_seed(0)
+    decoder = build_decoder(cfg, dev)
+    w = decoder.unets[0].to_out.Conv_0.weight  # redrawn, as the train path's
+    kernel_init_(w, w[0].numel())
+    unet1 = {k: v.detach().cpu() for k, v in decoder.unets[0].state_dict().items()}
+    del decoder
+    data = SyntheticVideos(2, cfg["frame_numbers"][-1], cfg["frame_sizes"][-1], cfg["dim"],
+                           cfg["channels"], seed=3)
+    g = torch.Generator().manual_seed(4)
+    size1 = cfg["frame_sizes"][0]
+    draws = [{"times": torch.randint(0, 1000, (2,), generator=g),
+              "noise": torch.randn(2, cfg["frame_numbers"][0], size1, size1, 3, generator=g),
+              "video_keep": torch.tensor([True, False])} for _ in range(PAR_DP_STEPS)]
+    requests = (["a person smiling", "a person talking"], np.array([7, 8], dtype=np.uint32))
+    torch.save({"unet1": unet1, "video": torch.from_numpy(data.videos),
+                "embed": torch.from_numpy(data.embeds), "draws": draws,
+                "requests": requests}, out_dir / "inputs.pt")
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    env = dict(os.environ, WORLD_SIZE=str(PAR_RANKS), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(PAR_RANKS)]
+    t0 = time.time()
+    ranks = [subprocess.Popen([sys.executable, __file__, "--parallel-rank", str(out_dir)],
+                              env=dict(env, RANK=str(r), LOCAL_RANK="0"), stdout=log,
+                              stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+    nccl_log = open(out_dir / "nccl.log", "w")
+    nccl = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         "-m", "dalle2_video_tpu_torch.train", "smoke=true", "mesh.data=-1",
+         f"run_dir={out_dir / 'nccl_run'}", "log_level=INFO"],
+        stdout=nccl_log, stderr=subprocess.STDOUT)
+    try:
+        # the one-process references, meanwhile
+        refs = {}
+        trainer = par_trainer(torch, "auto", unet1, dev)
+        vid, emb = torch.from_numpy(data.videos).to(dev), torch.from_numpy(data.embeds).to(dev)
+        refs["grad_loss"] = float(trainer.backward(vid, video_embed=emb, unet_number=1,
+                                                   draws=draws[0]))
+        refs["grads"] = {k: p.grad.float().cpu() for k, p in
+                         trainer.decoder.unets[0].named_parameters()}
+        trainer.optimizers[0].zero_grad()
+        refs["losses"], refs["params"] = [], {}
+        for j in range(PAR_DP_STEPS):
+            refs["losses"].append(float(trainer.train_step(vid, video_embed=emb, unet_number=1,
+                                                           draws=draws[j])))
+            refs["params"][j + 1] = {k: p.detach().float().cpu() for k, p in
+                                     trainer.decoder.unets[0].named_parameters()}
+        del trainer, vid, emb
+        torch.cuda.empty_cache()
+        scfg, _ = path_config(SERVE_PATHS["serve"])
+        scfg["sample_seed"], scfg["run_dir"] = 0, str(out_dir / "no_checkpoints")
+        generate_batch, _ = option_stack(scfg, dev, torch)
+        refs["videos"] = generate_batch(*requests, cond_scale=3.0, ddim_steps=OPTION_STEPS)
+        refs["alone"] = np.concatenate([generate_batch(
+            requests[0][i:i + 1], requests[1][i:i + 1], cond_scale=3.0,
+            ddim_steps=OPTION_STEPS) for i in range(len(requests[0]))])
+        del generate_batch
+        torch.cuda.empty_cache()
+        for p in (*ranks, nccl):
+            p.wait(timeout=600)
+    finally:
+        for p in (*ranks, nccl):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (*logs, nccl_log):
+            f.close()
+    wall = time.time() - t0
+    for r, p in enumerate(ranks):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel: rank {r} exited {p.returncode}:\n"
+                                 + (out_dir / f"rank{r}.log").read_text()[-3000:])
+    results = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(PAR_RANKS)]
+    kernels = all_kernels()
+    runs, by_rank = {}, {}
+    for name in ("train_dp gradient", "train_dp", "train_sp gradient", "train_sp", "serve_dp"):
+        want = {k.name: 0 for k in kernels}
+        want.update(par_expected(name))
+        for r, res in enumerate(results):
+            got = res["launches"][name]
+            if got != want:
+                raise AssertionError(f"parallel {name}: rank {r} launches {got}, the structure "
+                                     f"predicts {want}")
+            bwd = got.get("flash_mqa_bwd", 0)
+            if bwd and res["routes"][name] != {"tensor_cores": bwd}:
+                raise AssertionError(f"parallel {name}: rank {r} backward routes "
+                                     f"{res['routes'][name]} (the global batch's: tensor cores)")
+        if name.startswith("train_sp"):
+            for r, res in enumerate(results):
+                if res["flash_shapes"][name] != PAR_SP_SHAPES:
+                    raise AssertionError(f"parallel {name}: rank {r} flash shapes "
+                                         f"{res['flash_shapes'][name]}, want {PAR_SP_SHAPES}")
+        by_rank[name] = [res["launches"][name] for res in results]
+        runs[name] = {k.name: sum(res["launches"][name][k.name] for res in results)
+                      for k in kernels}
+    card = card_line()
+    for name in ("train_dp", "train_sp"):
+        r0 = results[0][name]
+        if not all(res[name]["ranks_equal"] for res in results):
+            raise AssertionError(f"parallel {name}: the ranks' parameters differ")
+        if any(res[name]["losses"] != r0["losses"] for res in results):
+            raise AssertionError(f"parallel {name}: the ranks' losses differ")
+        worst, which = par_rel_l2(torch, torch.load(out_dir / f"{name}_grads.pt"),
+                                  refs["grads"])
+        got_params = torch.load(out_dir / f"{name}_params.pt")
+        want_params = refs["params"][len(r0["losses"])]
+        p_worst, p_which = par_rel_l2(torch, got_params, want_params)
+        u_worst, u_which = par_rel_l2(torch, got_params, want_params, unet1)
+        losses = [r0["grad_loss"], *r0["losses"]]
+        want = [refs["grad_loss"], *refs["losses"][:len(r0["losses"])]]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        log(f"parallel {name}: losses {[round(x, 5) for x in losses]} vs one process "
+            f"{[round(x, 5) for x in want]} (worst relative {loss_err:.2e}, hold "
+            f"{PAR_LOSS_RTOL}); gradient vs one process: worst relative L2 {worst:.3e} "
+            f"({which}; hold {PAR_GRAD_RTOL}); unet-1 parameters after the steps vs one "
+            f"process: worst relative L2 {p_worst:.3e} ({p_which}; hold {PAR_PARAM_RTOL}), "
+            f"of their change from the start {u_worst:.3e} ({u_which}); Adam moments per rank "
+            f"{[res[name]['moment_bytes'] for res in results]} B of "
+            f"{r0['moment_bytes_whole']} B whole; walls per rank (s) "
+            f"{[round(res['walls'][name], 2) for res in results]} for {len(r0['losses'])} "
+            f"steps, gradient {[round(res['walls'][name + ' gradient'], 2) for res in results]}"
+            f" (gloo, host-staged, {PAR_RANKS} ranks on one card) [{card}]")
+        if not (loss_err <= PAR_LOSS_RTOL and worst <= PAR_GRAD_RTOL
+                and p_worst <= PAR_PARAM_RTOL):
+            raise AssertionError(f"parallel {name}: differs from the one-process steps")
+    videos = torch.load(out_dir / "serve_dp_videos.pt", weights_only=False)
+    alone = refs["alone"]
+    if videos.shape != alone.shape or not np.isfinite(videos).all():
+        raise AssertionError(f"parallel serve_dp: videos {videos.shape}, want {alone.shape}")
+    diff = np.abs(alone - refs["videos"])
+    log(f"parallel serve_dp: 2 requests over {PAR_RANKS} ranks equal each request served "
+        f"alone by one process: {bool(np.array_equal(videos, alone))}; one process's group "
+        f"of 2 against its requests alone: max |diff| {float(diff.max()):.3e}, mean "
+        f"{float(diff.mean()):.3e}, share differing {float((diff > 0).mean()):.4f}; walls "
+        f"per rank (s) {[round(res['walls']['serve_dp'], 2) for res in results]} [{card}]")
+    if not np.array_equal(videos, alone):
+        raise AssertionError("parallel serve_dp: a row's video depends on the rank that "
+                             "sampled it")
+    nccl_text = (out_dir / "nccl.log").read_text()
+    if nccl.returncode != 0:
+        raise AssertionError(f"parallel: the NCCL entry point exited {nccl.returncode}:\n"
+                             + nccl_text[-3000:])
+    nccl_state = load_latest(str(out_dir / "nccl_run" / "decoder_default"))
+    if nccl_state["steps"] != [1, 1] or "backend nccl" not in nccl_text:
+        raise AssertionError(f"parallel: the NCCL run took steps {nccl_state['steps']}; "
+                             f"its log:\n{nccl_text[-2000:]}")
+    log(f"parallel: the decoder's entry point under torchrun --nproc_per_node=1 "
+        f"(process group backend nccl) trained one batch through both unets; phase wall "
+        f"{wall:.1f} s; launches by run {runs}")
+    return runs, by_rank
+
+
 # "train_prior_moe": the recipe's prior (depth 6, dim 512, 8 x 64 heads)
 # with a top-2 mixture of 8 experts in every layer (prior.ff_experts 8)
 # and self-conditioning (neither has a config key the JAX prior_from_config
@@ -4073,6 +4486,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one request and one train step per unet by kernel")
+    ap.add_argument("--parallel-rank", metavar="DIR",
+                    help="(internal) run one rank of the parallel phase's shared-card runs")
     args = ap.parse_args()
 
     import torch
@@ -4081,6 +4496,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if args.parallel_rank:
+        return par_rank(args.parallel_rank)
     from dalle2_video_tpu_torch.ops import _cuda
     from dalle2_video_tpu_torch.utils.device import resolve_device
 
@@ -4157,6 +4574,8 @@ def main() -> int:
         runs["serve_student"] = phase("serve_student", serve_student, dev, torch, stages)
         runs["train_vqgan"] = phase("train_vqgan", train_vqgan_phase, dev, torch, stages)
         runs["latent"] = phase("latent", latent_phase, dev, torch, stages)
+        par_runs, par_by_rank = phase("parallel", parallel_phase, dev, torch, root)
+        runs.update(par_runs)
     runs["train_prior_moe"] = phase("train_prior_moe", train_prior_moe, dev, torch)
     runs["probes"] = phase("probes", probes, dev, torch)
     log("phase times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
@@ -4170,6 +4589,9 @@ def main() -> int:
                "replaces": k.replaces,
                "launches": sum(counts[k.name] for counts in runs.values()),
                "launches_by_run": {path: counts[k.name] for path, counts in runs.items()},
+               # the shared-card runs: each rank's count beside the sum
+               "launches_by_rank": {path: [c[k.name] for c in counts]
+                                    for path, counts in par_by_rank.items()},
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],

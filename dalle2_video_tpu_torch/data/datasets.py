@@ -170,40 +170,49 @@ def split_indices(n: int, train_ratio: float = 0.8, seed: int = 1234
     return {"train": perm[:n_train], "val": perm[n_train:]}
 
 
-def epoch_order(indices: np.ndarray, shuffle: bool, seed: int, epoch: int) -> np.ndarray:
+def epoch_order(indices: np.ndarray, shuffle: bool, seed: int, epoch: int,
+                shard_index: int = 0, num_shards: int = 1) -> np.ndarray:
     """One epoch's order of ``indices``: permuted by ``RandomState(seed +
-    epoch)`` when ``shuffle`` (both of the port's loaders batch it, the
+    epoch)`` when ``shuffle``, then this shard's contiguous slice of it
+    (len // num_shards indices from shard_index times that), as the JAX
+    loader's per-host shard (both of the port's loaders batch it, the
     remainder dropped)."""
-    if not shuffle:
-        return indices
-    return indices[np.random.RandomState(seed + epoch).permutation(len(indices))]
+    if shuffle:
+        indices = indices[np.random.RandomState(seed + epoch).permutation(len(indices))]
+    if not 0 <= shard_index < num_shards:
+        raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+    per = len(indices) // num_shards
+    return indices[shard_index * per:(shard_index + 1) * per]
 
 
 PREFETCH = 2  # batches read ahead by the loader's thread
 
 
 class BatchLoader:
-    """Epoch iterator: seeded shuffle (seed + epoch), drop-remainder
-    batches, a background thread that reads ``PREFETCH`` batches ahead; a
-    read error fails the epoch. One device, so no per-host shard (the JAX
-    loader's ``shard_index`` / ``num_shards`` wait for data-parallel
-    training)."""
+    """Epoch iterator: seeded shuffle (seed + epoch), this rank's shard of
+    it (``shard_index`` of ``num_shards``: the data index and size of the
+    mesh), drop-remainder batches of ``batch_size`` (the rank's rows), a
+    background thread that reads ``PREFETCH`` batches ahead; a read error
+    fails the epoch."""
 
     def __init__(self, dataset, batch_size: int, indices: Optional[np.ndarray] = None,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0, shard_index: int = 0,
+                 num_shards: int = 1):
         self.ds = dataset
         self.batch_size = batch_size
         self.indices = (np.asarray(indices) if indices is not None
                         else np.arange(len(dataset)))
         self.shuffle = shuffle
         self.seed = seed
+        self.shard_index, self.num_shards = shard_index, num_shards
         self.epoch = 0
 
     def __len__(self) -> int:
-        return len(self.indices) // self.batch_size
+        return len(self.indices) // self.num_shards // self.batch_size
 
     def _epoch_indices(self) -> np.ndarray:
-        return epoch_order(self.indices, self.shuffle, self.seed, self.epoch)
+        return epoch_order(self.indices, self.shuffle, self.seed, self.epoch,
+                           self.shard_index, self.num_shards)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._epoch_indices()

@@ -16,8 +16,9 @@ One deviation from the JAX package: grain's ``IndexSampler`` draws its own
 order, which is not reproduced here. ``EpochBatches`` yields the index
 batches of the thread loader, ``datasets.BatchLoader`` (a
 ``RandomState(seed + epoch)`` permutation, drop remainder), so both
-loaders of the port give the same batches bit for bit. Per-host
-``shard_index`` / ``num_shards`` wait for data-parallel training.
+loaders of the port give the same batches bit for bit, each rank its
+shard (``shard_index`` / ``num_shards``: a contiguous slice of the epoch's
+order, as the JAX loader's per-host shard).
 """
 
 from __future__ import annotations
@@ -38,18 +39,20 @@ class EpochBatches(Sampler):
     dropped; the epoch advances each time the sampler is iterated."""
 
     def __init__(self, indices: np.ndarray, batch_size: int, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, shard_index: int = 0, num_shards: int = 1):
         self.indices = np.asarray(indices)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.shard_index, self.num_shards = shard_index, num_shards
         self.epoch = 0
 
     def __len__(self) -> int:
-        return len(self.indices) // self.batch_size
+        return len(self.indices) // self.num_shards // self.batch_size
 
     def __iter__(self) -> Iterator[List[int]]:
-        idx = epoch_order(self.indices, self.shuffle, self.seed, self.epoch)
+        idx = epoch_order(self.indices, self.shuffle, self.seed, self.epoch,
+                          self.shard_index, self.num_shards)
         self.epoch += 1
         for i in range(len(self)):
             yield idx[i * self.batch_size:(i + 1) * self.batch_size].tolist()
@@ -87,16 +90,19 @@ class WorkerLoader(DataLoader):
 
 
 def make_worker_loader(dataset, batch_size: int, indices: Optional[np.ndarray] = None, *,
-                       shuffle: bool = True, seed: int = 0, worker_count: int = 4,
+                       shuffle: bool = True, seed: int = 0, shard_index: int = 0,
+                       num_shards: int = 1, worker_count: int = 4,
                        read_buffer: int = 2, pin_memory: bool = False) -> WorkerLoader:
-    """A DataLoader of dict batches (tensors) over ``dataset[indices]``:
-    ``worker_count`` worker processes (0: read in the caller's process),
-    ``read_buffer`` batches read ahead per worker, pinned host memory if
-    ``pin_memory``. Each iteration is one epoch, in ``EpochBatches``' order."""
+    """A DataLoader of dict batches (tensors) over ``dataset[indices]``, this
+    rank's shard of each epoch: ``worker_count`` worker processes (0: read
+    in the caller's process), ``read_buffer`` batches read ahead per worker,
+    pinned host memory if ``pin_memory``. Each iteration is one epoch, in
+    ``EpochBatches``' order."""
     indices = np.arange(len(dataset)) if indices is None else np.asarray(indices)
     return WorkerLoader(
         _Batches(dataset), batch_size=None,
-        sampler=EpochBatches(indices, batch_size, shuffle=shuffle, seed=seed),
+        sampler=EpochBatches(indices, batch_size, shuffle=shuffle, seed=seed,
+                             shard_index=shard_index, num_shards=num_shards),
         num_workers=worker_count, collate_fn=_as_tensors, pin_memory=pin_memory,
         prefetch_factor=read_buffer if worker_count > 0 else None,
         multiprocessing_context=multiprocessing.get_context("spawn") if worker_count > 0

@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from dalle2_video_tpu_torch.utils.keys import batch_draw
+
 __all__ = [
     "make_beta_schedule",
     "DiffusionSchedule",
@@ -119,9 +121,9 @@ class DiffusionSchedule:
     def sample_random_times(self, batch: int, generator: torch.Generator = None
                             ) -> torch.Tensor:
         """(batch,) int64 timesteps uniform in [0, T), on the schedule's
-        device."""
-        return torch.randint(0, self.num_timesteps, (batch,), generator=generator,
-                             device=self.betas.device)
+        device (this rank's rows of the global batch's: ``batch_draw``)."""
+        return batch_draw(lambda s: torch.randint(
+            0, self.num_timesteps, s, generator=generator, device=self.betas.device), (batch,))
 
     def q_sample(self, x_start, t, noise):
         nd = x_start.ndim

@@ -22,7 +22,7 @@ from dalle2_video_tpu_torch.ops.video import (
     resize_video,
     resize_video_time,
 )
-from dalle2_video_tpu_torch.utils.keys import RowKeys
+from dalle2_video_tpu_torch.utils.keys import RowKeys, batch_draw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +107,6 @@ def lowres_condition(
     if noise_levels is None:
         noise_levels = noise_schedule.sample_random_times(video.shape[0], generator)
     if noise is None:
-        noise = torch.randn(video.shape, generator=generator, device=video.device,
-                            dtype=video.dtype)
+        noise = batch_draw(lambda s: torch.randn(s, generator=generator, device=video.device,
+                                                 dtype=video.dtype), video.shape)
     return noise_video(None, video, noise_schedule, cfg, noise_levels, noise)

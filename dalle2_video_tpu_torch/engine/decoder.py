@@ -76,7 +76,7 @@ from dalle2_video_tpu_torch.ops.video import (
 )
 from dalle2_video_tpu_torch.utils.chunked import split_batch
 from dalle2_video_tpu_torch.utils.device import DeviceLike, dtype_from_name, resolve_device
-from dalle2_video_tpu_torch.utils.keys import RowKeys
+from dalle2_video_tpu_torch.utils.keys import RowKeys, batch_draw
 
 SAMPLERS = ("ddim", "dpmpp")
 INPAINT_METHODS = ("replace", "guided")
@@ -548,19 +548,20 @@ class VideoDecoder(nn.Module):
             v = draws.get(name)
             return fn() if v is None else torch.as_tensor(v).to(dev)
 
-        noise = draw("noise", lambda: torch.randn(x_start.shape, generator=generator,
-                                                  device=dev))
+        noise = draw("noise", lambda: batch_draw(
+            lambda s: torch.randn(s, generator=generator, device=dev), x_start.shape))
         if not is_latent:  # latents are already in model space
             x_start = self._normalize(x_start)
             if lowres_cond_video is not None:
                 lowres_cond_video = self._normalize(lowres_cond_video)
         x_noisy = sched.q_sample(x_start, times, noise)
-        video_keep = draw("video_keep", lambda: torch.rand(
-            b, generator=generator, device=dev) < 1.0 - cfg.video_cond_drop_prob)
+        keep = lambda prob: batch_draw(lambda s: torch.rand(  # noqa: E731
+            s, generator=generator, device=dev), (b,)) < 1.0 - prob
+        video_keep = draw("video_keep", lambda: keep(cfg.video_cond_drop_prob))
         # drawn only for a unet that takes text: a text-free unet's stream of
         # draws is the same with or without text elsewhere in the cascade
-        text_keep = None if text_encodings is None else draw("text_keep", lambda: torch.rand(
-            b, generator=generator, device=dev) < 1.0 - cfg.text_cond_drop_prob)
+        text_keep = None if text_encodings is None else draw(
+            "text_keep", lambda: keep(cfg.text_cond_drop_prob))
 
         # the network runs in compute_dtype; the diffusion math stays f32
         cast = (lambda a: a) if compute_dtype is None else (

@@ -55,6 +55,7 @@ from dalle2_video_tpu_torch.ops.cross_attention import (
     cross_attention_reference,
 )
 from dalle2_video_tpu_torch.ops.flash_mqa import mqa_attention
+from dalle2_video_tpu_torch.parallel.mesh import get_active_mesh, global_batch
 from dalle2_video_tpu_torch.ops.fused_block import fused_block3d
 from dalle2_video_tpu_torch.ops.groupnorm_film import groupnorm_film_silu
 from dalle2_video_tpu_torch.ops.spatial_conv import conv3x3_spatial_xbwd
@@ -352,7 +353,13 @@ def rotary_embed(x: torch.Tensor, rot_dim: Optional[int] = None) -> torch.Tensor
 class Attention(nn.Module):
     """Multi-query self-attention (one shared kv head) with a learned null
     kv; causal / rotary / additive attn_bias for the prior. impl "flash"
-    runs the CUDA flash-MQA kernel when there is no mask, bias or causality."""
+    runs the CUDA flash-MQA kernel when there is no mask, bias or causality;
+    its backward's route follows the global batch (``parallel.mesh.
+    global_batch``). impl "sp" splits the token axis over the active mesh's
+    ``model`` axis (``parallel/sp_attention.py``) where that axis is over 1
+    and divides the tokens, with no bias or causality; otherwise it takes
+    the auto rule (flash from FLASH_MIN_TOKENS tokens on CUDA, else xla), as
+    the JAX layer does."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  causal: bool = False, cosine_sim: bool = False,
@@ -373,8 +380,8 @@ class Attention(nn.Module):
 
     def forward(self, x, attn_bias=None, impl: Optional[str] = None):
         impl = self.impl if impl is None else impl
-        if impl not in ("xla", "flash"):
-            raise NotImplementedError(f"Attention impl {impl!r} is not ported yet")
+        if impl not in ("xla", "flash", "sp"):
+            raise NotImplementedError(f"Attention impl {impl!r} is not ported")
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         x_in = self.norm(x)
@@ -390,10 +397,20 @@ class Attention(nn.Module):
             scale = self.cosine_sim_scale
         else:
             scale = d**-0.5
+        simple = not self.causal and attn_bias is None
+        if impl == "sp" and simple:
+            mesh = get_active_mesh()
+            if mesh is not None and mesh.model > 1 and n % mesh.model == 0:
+                from dalle2_video_tpu_torch.parallel.sp_attention import sequence_parallel_mqa
+
+                out = sequence_parallel_mqa(q, k, v, mesh, sm_scale=scale, null_kv=(nk, nv))
+                out = self.to_out(out.reshape(b, n, h * d))
+                return attn_out(self.out_norm(out))
+            impl = "flash" if n >= FLASH_MIN_TOKENS and x.is_cuda else "xla"
         k = torch.cat([nk, k], dim=1)
         v = torch.cat([nv, v], dim=1)
-        if impl == "flash" and not self.causal and attn_bias is None:
-            out = mqa_attention(q, k, v, sm_scale=scale)
+        if impl == "flash" and simple:
+            out = mqa_attention(q, k, v, sm_scale=scale, route_batch=global_batch(b))
         else:
             # in the activation dtype, as the JAX package (bf16 GEMMs
             # accumulate in f32 and round their result)
@@ -418,8 +435,8 @@ class JointSpaceTimeAttention(nn.Module):
                  cosine_sim: bool = False, joint_time: bool = True,
                  impl: str = "xla"):
         super().__init__()
-        if impl not in ("xla", "flash", "auto"):
-            raise NotImplementedError(f"attention impl {impl!r} is not ported yet")
+        if impl not in ("xla", "flash", "auto", "sp"):
+            raise NotImplementedError(f"attention impl {impl!r} is not ported")
         self.joint_time = joint_time
         self.impl = impl
         self.attn = Attention(dim, heads=heads, dim_head=dim_head,

@@ -22,8 +22,10 @@ order among equal values). The experts' weights are initialised as flax's
 a truncated normal of std 1 / sqrt(d * e) (and 1 / sqrt(h * e) for the
 second), not 1 / sqrt(d).
 
-Expert parallelism (the JAX ``moe_sharding_tree``) needs a mesh and is
-not ported: the whole layer runs on one device.
+Expert parallelism (the JAX ``moe_sharding_tree``: the expert axis over
+the mesh, all-to-all dispatch) is not ported: the whole layer runs on one
+device. It waits, with the prior's GPipe pipeline, for ``ROADMAP.md``
+queue 1 item 3 (point-to-point and all-to-all transfers over NCCL).
 """
 
 from __future__ import annotations

@@ -120,7 +120,10 @@ class UNet3DConfig:
     checkpoint_during_training: bool = False
     remat_policy: str = "nothing"
     joint_time_attention: bool = True
-    # "xla" | "flash" | "auto" (flash on CUDA from 4096 joint tokens)
+    # "xla" | "flash" | "auto" (flash on CUDA from 4096 joint tokens) |
+    # "sp" (the token axis split over the active mesh's model axis:
+    # parallel/sp_attention.py; the auto rule where no such mesh is active
+    # or the tokens do not divide over it)
     attention_impl: str = "xla"
     # "xla" | "pallas" (the fused GroupNorm-FiLM-SiLU CUDA kernel) |
     # "fused" (conv + bias + GroupNorm + FiLM + SiLU kernels)

@@ -33,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dalle2_video_tpu_torch.models.layers import Dense, LayerNorm, kernel_init_
+from dalle2_video_tpu_torch.utils.keys import batch_draw
 
 
 class Dropout(nn.Module):
@@ -48,7 +49,8 @@ class Dropout(nn.Module):
                              "training applies it")
         if self.rate == 1.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.rate
+        keep = batch_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                          x.shape) < 1.0 - self.rate
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

@@ -19,6 +19,7 @@ launch under its route in ``routes``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -72,11 +73,24 @@ def _lib_path(source: str) -> Path:
 
 def build(sources: Iterable[str]) -> Dict[str, float]:
     """Compile every source that has no up-to-date library, all nvcc
-    processes started together. Returns seconds spent per source built."""
-    todo = [s for s in sources if not _lib_path(s).exists()]
-    if not todo:
+    processes started together, behind a file lock on the build directory
+    (ranks of one machine starting at once build each library once; the
+    others wait, then load it). Returns seconds spent per source built."""
+    sources = list(sources)
+    if all(_lib_path(s).exists() for s in sources):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "nvcc.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_unlocked([s for s in sources if not _lib_path(s).exists()])
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_unlocked(todo: List[str]) -> Dict[str, float]:
+    if not todo:
+        return {}
     nvcc = _nvcc()
     procs = []
     t0 = time.time()

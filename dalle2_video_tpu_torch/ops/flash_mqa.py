@@ -134,32 +134,41 @@ def flash_mqa_reference(q, k, v, sm_scale: float, save_lse: bool = False,
     return (out, lse) if save_lse else out
 
 
-def bwd_rounds(q: torch.Tensor) -> bool:
+def _route_batch(q: torch.Tensor, batch: Optional[int]) -> int:
+    return q.shape[0] if batch is None else batch
+
+
+def bwd_rounds(q: torch.Tensor, batch: Optional[int] = None) -> bool:
     """The JAX package's ``bwd_impl="auto"`` (flash_mqa.py:468): batch >= 2
     takes ``_bwd_pallas``, whose products take the pre-scaled q, dS and P
     rounded to the input dtype; batch 1 the all-f32 ``_bwd_xla_scan``. In
-    f32 the roundings change nothing, so only a 16-bit batch >= 2 rounds."""
-    return q.shape[0] >= 2 and q.dtype in (torch.bfloat16, torch.float16)
+    f32 the roundings change nothing, so only a 16-bit batch >= 2 rounds.
+    The batch is the one the JAX program traces: ``batch`` when given (the
+    global batch under a data mesh, whose ranks hold fewer rows each), else
+    q's."""
+    return _route_batch(q, batch) >= 2 and q.dtype in (torch.bfloat16, torch.float16)
 
 
-def bwd_delta_from_out(q: torch.Tensor) -> bool:
+def bwd_delta_from_out(q: torch.Tensor, batch: Optional[int] = None) -> bool:
     """Where delta is rowsum(g * out), as ``_bwd_pallas`` takes it (batch
-    >= 2). ``_bwd_xla_scan`` (batch 1) never reads out: its delta is
-    rowsum(P * dP) of its f32 P and dP, which a bf16 out would perturb."""
-    return q.shape[0] >= 2
+    >= 2; ``batch`` as in ``bwd_rounds``). ``_bwd_xla_scan`` (batch 1)
+    never reads out: its delta is rowsum(P * dP) of its f32 P and dP, which
+    a bf16 out would perturb."""
+    return _route_batch(q, batch) >= 2
 
 
 def flash_mqa_bwd_reference(q, k, v, out, lse, g, sm_scale: float,
-                            chunk: int = BWD_CHUNK):
+                            chunk: int = BWD_CHUNK, batch: Optional[int] = None):
     """Plain backward, one (chunk, n_kv) tile of query rows at a time, so
     the card can hold it at the training shape. P = exp(s - lse) from the
     saved lse, delta as ``bwd_delta_from_out`` says, every sum in f32. Where
     ``bwd_rounds(q)``, the arithmetic of ``_bwd_pallas``: qs = q * sm_scale
     rounded to the input dtype, s = qs k^T, and dS (for dq, dk) and P (for
     dv) rounded to the input dtype before their products; else all f32.
-    Returns dq, dk, dv in the input dtypes."""
-    rnd = (lambda t: t.to(q.dtype).float()) if bwd_rounds(q) else (lambda t: t)
-    from_out = bwd_delta_from_out(q)
+    Returns dq, dk, dv in the input dtypes. ``batch``: the route's batch
+    (``bwd_rounds``)."""
+    rnd = (lambda t: t.to(q.dtype).float()) if bwd_rounds(q, batch) else (lambda t: t)
+    from_out = bwd_delta_from_out(q, batch)
     kf, vf = k.float(), v.float()
     qs = rnd(q.float() * sm_scale)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -237,25 +246,26 @@ def flash_mqa_fwd(
     return (out, lse) if save_lse else out
 
 
-def flash_mqa_bwd(q, k, v, out, lse, g, *, sm_scale: float
+def flash_mqa_bwd(q, k, v, out, lse, g, *, sm_scale: float, batch: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq, dk, dv (input dtypes) of ``flash_mqa_fwd`` given its ``out``, its
     ``lse`` and g = dL/dout, on the route ``bwd_rounds`` picks. Where
     ``bwd_delta_from_out``, delta = rowsum(g * out) is a plain op, as the
     JAX package computes it in XLA, and so is qs = bf16(q * sm_scale) on the
-    tensor-core route; at batch 1 the kernel computes delta itself."""
+    tensor-core route; at batch 1 the kernel computes delta itself.
+    ``batch``: the route's batch (``bwd_rounds``)."""
     _check_shapes("flash_mqa_bwd", q, k, v)
     if out.shape != q.shape or g.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError("flash_mqa_bwd: out and g must be (b, n_q, d), lse (b, n_q)")
     if q.device.type == "cpu":
-        return flash_mqa_bwd_reference(q, k, v, out, lse, g, sm_scale)
+        return flash_mqa_bwd_reference(q, k, v, out, lse, g, sm_scale, batch=batch)
     _require_kernel_inputs("flash_mqa_bwd", [q, k, v, out, g])
     require_cuda("flash_mqa_bwd", [lse], (torch.float32,))
     b, n_q, d = q.shape
     n_kv = k.shape[1]
-    route = "tensor_cores" if bwd_rounds(q) else "cuda_cores"
+    route = "tensor_cores" if bwd_rounds(q, batch) else "cuda_cores"
     tensor_cores = route == "tensor_cores"
-    from_out = bwd_delta_from_out(q)
+    from_out = bwd_delta_from_out(q, batch)
     if tensor_cores:
         q = (q.float() * sm_scale).to(q.dtype)  # this route's kernel takes qs
     delta = ((g.float() * out.float()).sum(-1) if from_out
@@ -277,14 +287,16 @@ def flash_mqa_bwd(q, k, v, out, lse, g, *, sm_scale: float
     return dq, dk, dv
 
 
-def fwd_residuals(q, k, v, *, sm_scale: float, block_k: Optional[int] = None):
+def fwd_residuals(q, k, v, *, sm_scale: float, block_k: Optional[int] = None,
+                  batch: Optional[int] = None):
     """The forward's out and the lse its backward takes, as the JAX
     custom_vjp saves them: where ``bwd_rounds`` (``_bwd_pallas``), the
     forward's own lse, m + log of the sum of the rounded probabilities; else
     (batch 1, ``_bwd_xla_scan``, which recomputes an f32 softmax) the exact
-    f32 logsumexp, from the f32 forward on f32 copies (the same in f32)."""
+    f32 logsumexp, from the f32 forward on f32 copies (the same in f32).
+    ``batch``: the route's batch (``bwd_rounds``)."""
     out, lse = flash_mqa_fwd(q, k, v, sm_scale=sm_scale, save_lse=True, block_k=block_k)
-    if not bwd_rounds(q) and q.dtype != torch.float32:
+    if not bwd_rounds(q, batch) and q.dtype != torch.float32:
         lse = flash_mqa_fwd(q.float(), k.float(), v.float(), sm_scale=sm_scale,
                             save_lse=True)[1]
     return out, lse
@@ -292,37 +304,40 @@ def fwd_residuals(q, k, v, *, sm_scale: float, block_k: Optional[int] = None):
 
 class _FlashMQA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, block_k):
-        out, lse = fwd_residuals(q, k, v, sm_scale=sm_scale, block_k=block_k)
+    def forward(ctx, q, k, v, sm_scale, block_k, batch):
+        out, lse = fwd_residuals(q, k, v, sm_scale=sm_scale, block_k=block_k, batch=batch)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.sm_scale = sm_scale
+        ctx.sm_scale, ctx.batch = sm_scale, batch
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_mqa_bwd(q, k, v, out, lse, g.contiguous(),
-                                   sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+                                   sm_scale=ctx.sm_scale, batch=ctx.batch)
+        return dq, dk, dv, None, None, None
 
 
 def flash_mqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              sm_scale: float = 1.0, **tuning) -> torch.Tensor:
+              sm_scale: float = 1.0, route_batch: Optional[int] = None,
+              **tuning) -> torch.Tensor:
     """Differentiable flash MQA (see module docstring); shapes as
-    ``flash_mqa_fwd``."""
+    ``flash_mqa_fwd``. ``route_batch`` is the batch the backward's route
+    follows (``bwd_rounds``; q's batch by default)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashMQA.apply(q, k, v, float(sm_scale), tuning.get("block_k"))
+        return _FlashMQA.apply(q, k, v, float(sm_scale), tuning.get("block_k"), route_batch)
     return flash_mqa_fwd(q, k, v, sm_scale=sm_scale, **tuning)
 
 
 def mqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  sm_scale: float, **tuning) -> torch.Tensor:
+                  sm_scale: float, route_batch: Optional[int] = None,
+                  **tuning) -> torch.Tensor:
     """q (b, n, h, d); k, v (b, m, d) (null kv already prepended).
     Returns (b, n, h, d). Heads are folded token-major ((n, h) -> n*h rows,
     a free reshape): every head shares the kv, so row order is immaterial.
-    The backward uses the same fold."""
+    The backward uses the same fold; ``route_batch`` as in ``flash_mqa``."""
     b, n, h, d = q.shape
     out = flash_mqa(q.reshape(b, n * h, d), k.contiguous(), v.contiguous(),
-                    sm_scale=sm_scale, **tuning)
+                    sm_scale=sm_scale, route_batch=route_batch, **tuning)
     return out.reshape(b, n, h, d)

@@ -25,6 +25,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from dalle2_video_tpu_torch.utils.keys import batch_draw
+
 __all__ = [
     "resize_video",
     "resize_video_time",
@@ -199,8 +201,8 @@ def paired_random_crop(
     b, _, h, w, _ = video.shape
     dev = video.device
     if offsets is None:
-        oh = torch.randint(0, h - crop + 1, (b,), generator=generator, device=dev)
-        ow = torch.randint(0, w - crop + 1, (b,), generator=generator, device=dev)
+        oh, ow = (batch_draw(lambda s, n=n: torch.randint(0, n - crop + 1, s, generator=generator,
+                                                          device=dev), (b,)) for n in (h, w))
     else:
         oh, ow = (torch.as_tensor(o).to(dev, torch.long) for o in offsets)
     if not (oh.shape == ow.shape == (b,)):

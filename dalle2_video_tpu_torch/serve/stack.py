@@ -22,7 +22,14 @@ stream, as in the JAX server.
 the checkpoint at ``ckpt`` takes cascade slot ``unet`` (default 1) and that
 slot alone samples ``steps`` DDIM steps (``train/distill.py::
 serve_student``). Students fold CFG in, so serve them at cond_scale 1: one
-unguided forward a step. Data-parallel serving is not ported yet.
+unguided forward a step.
+
+Data-parallel serving (``serve_data_parallel: true`` under torchrun,
+scripts/serve.py's sharded sampler): every rank builds the same stack;
+rank 0 runs the engine and the HTTP server, and each dispatched group is
+broadcast to every rank (``DataParallelGenerate``), which samples its rows
+through the whole stack; the videos are gathered back to rank 0. The other
+ranks wait in ``serve_worker`` until rank 0 stops them.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dalle2_video_tpu_torch.data.tokenizer import tokenize
 from dalle2_video_tpu_torch.engine.dalle2video import DALLE2Video
@@ -43,6 +51,8 @@ from dalle2_video_tpu_torch.models.clip_text import (
     load_openai_clip_text_params,
 )
 from dalle2_video_tpu_torch.models.prior import prior_from_config
+from dalle2_video_tpu_torch.parallel.mesh import Mesh
+from dalle2_video_tpu_torch.parallel.sharded import make_data_parallel_sampler
 from dalle2_video_tpu_torch.train.checkpoint import (
     has_checkpoint,
     load_decoder_sampling_params,
@@ -155,3 +165,57 @@ def build_generate_batch(cfg: Dict[str, Any], log: logging.Logger,
         return video.float().cpu().numpy()
 
     return generate_batch
+
+
+# generate_batch's keywords that carry one entry per row (split over ranks)
+ROW_KEYWORDS = ("inpaint_video", "inpaint_mask", "negative_prompts")
+
+
+class DataParallelGenerate:
+    """``generate_batch`` over the mesh's data axis. On rank 0 it is the
+    engine's callable: each call is broadcast to every rank, then every
+    rank samples its rows (``make_data_parallel_sampler``: prompts, seeds
+    and the row keywords split, the rest shared) and rank 0 returns the
+    whole group's videos. Groups must be multiples of the data axis
+    (``parallel.sharded.data_parallel_buckets``). ``stop`` releases the
+    workers."""
+
+    def __init__(self, generate_batch: Callable[..., np.ndarray], mesh: Mesh):
+        self.mesh = mesh
+
+        def rows_fn(prompts, seeds, *rows, row_keys=(), **kw):
+            return generate_batch(prompts, seeds, **dict(zip(row_keys, rows)), **kw)
+
+        self._sampler = make_data_parallel_sampler(rows_fn, mesh)
+
+    def _broadcast(self, msg):
+        box = [msg]
+        if self.mesh.world_group is not None:
+            dist.broadcast_object_list(box, src=0, group=self.mesh.world_group)
+        return box[0]
+
+    def run(self, prompts, seeds, **kw) -> np.ndarray:
+        """Every rank's part of one group (called on every rank)."""
+        rows = {k: kw.pop(k) for k in ROW_KEYWORDS if kw.get(k) is not None}
+        return self._sampler(list(prompts), np.asarray(seeds, dtype=np.uint32),
+                             *rows.values(), row_keys=tuple(rows), **kw)
+
+    def __call__(self, prompts, seeds, **kw) -> np.ndarray:
+        self._broadcast((list(prompts), np.asarray(seeds), kw))
+        return self.run(prompts, seeds, **kw)
+
+    def stop(self) -> None:
+        self._broadcast(None)
+
+
+def serve_worker(dp: DataParallelGenerate) -> int:
+    """A rank other than 0: sample its rows of each group rank 0 broadcasts,
+    until rank 0 stops. Returns the groups served."""
+    served = 0
+    while True:
+        msg = dp._broadcast(None)
+        if msg is None:
+            return served
+        prompts, seeds, kw = msg
+        dp.run(prompts, seeds, **kw)
+        served += 1

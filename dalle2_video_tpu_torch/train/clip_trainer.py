@@ -33,7 +33,10 @@ from dalle2_video_tpu_torch.models.clip_text import (
     load_openai_clip_text_params,
 )
 from dalle2_video_tpu_torch.models.vivit import ViViT, ViViTConfig
-from dalle2_video_tpu_torch.utils.contrastive import clip_loss, retrieval_metrics
+from dalle2_video_tpu_torch.parallel.collectives import all_gather_cat
+from dalle2_video_tpu_torch.parallel.mesh import Mesh, active_mesh
+from dalle2_video_tpu_torch.parallel.sharded import reduce_gradients
+from dalle2_video_tpu_torch.utils.contrastive import clip_loss, retrieval_metrics, sharded_clip_loss
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
 from dalle2_video_tpu_torch.utils.keys import derive_generator, init_from
 
@@ -126,15 +129,36 @@ class ClipTrainer:
         the updated temperature and top1 / top10 of the step's embeddings
         (0-dim tensors on the device). With dropout configured a
         ``generator`` is required."""
+        return self._step(videos, tokens, generator, None)
+
+    def make_sharded_train_step(self, mesh: Mesh):
+        """The data-parallel step with the GLOBAL-batch contrastive loss
+        (``sharded_clip_loss``): ``step(videos, tokens, generator=None)`` on
+        this rank's rows; each rank embeds its rows, the logits span the
+        gathered batch, each rank's gradient (its part of the global loss's)
+        is summed over the data axis, and every rank takes the same update.
+        The metrics are the global batch's (the embeddings gathered)."""
+        return lambda videos, tokens, generator=None: self._step(videos, tokens, generator, mesh)
+
+    def _step(self, videos, tokens, generator, mesh: Optional[Mesh]):
         if self.vivit.cfg.has_dropout and generator is None:
             raise ValueError("ViViT dropout / emb_dropout is configured: pass a generator "
                              "to train_step so training applies it")
         text_embeds = self.embed_text(tokens)
         self.vivit.train()
         self.optimizer.zero_grad(set_to_none=True)
-        video_embeds = self.vivit(videos.to(self.device, torch.float32), generator)
-        loss = clip_loss(video_embeds, text_embeds, self.temperature)
-        loss.backward()
+        with active_mesh(mesh):  # the dropout draws: this rank's rows of the global batch's
+            video_embeds = self.vivit(videos.to(self.device, torch.float32), generator)
+        if mesh is None:
+            loss = clip_loss(video_embeds, text_embeds, self.temperature)
+            loss.backward()
+        else:
+            loss = sharded_clip_loss(video_embeds, text_embeds, self.temperature, mesh)
+            loss.backward()
+            reduce_gradients([*self.vivit.parameters(), self.temperature], mesh.data_group,
+                             mean=False)
+            video_embeds, text_embeds = (all_gather_cat(e.detach(), mesh.data_group, 0)
+                                         for e in (video_embeds, text_embeds))
         lr = lr_at(self.cfg, self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

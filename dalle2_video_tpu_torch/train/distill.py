@@ -101,7 +101,7 @@ from dalle2_video_tpu_torch.train.common import check_single_device, make_loader
 from dalle2_video_tpu_torch.utils.config import config_from_argv
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
 from dalle2_video_tpu_torch.utils.fvd import embed_all, fvd_from_features, vivit_embed_fn
-from dalle2_video_tpu_torch.utils.keys import RowKeys
+from dalle2_video_tpu_torch.utils.keys import RowKeys, batch_draw
 from dalle2_video_tpu_torch.utils.profiling import StepTimer
 
 log = logging.getLogger("dalle2_video_tpu_torch.distill")
@@ -245,8 +245,8 @@ class DistillTrainer:
             level = torch.full((video01.shape[0],), int(dcfg.lowres_noise_sample_level * 1000),
                                dtype=torch.long, device=video01.device)
             if noise is None:
-                noise = torch.randn(lowres.shape, generator=self.generator,
-                                    device=lowres.device)
+                noise = batch_draw(lambda s: torch.randn(s, generator=self.generator,
+                                                         device=lowres.device), lowres.shape)
             lowres, _ = noise_video(None, lowres, dec.lowres_noise_schedule,
                                     dec.lowres_configs[i], level, noise=noise.to(lowres))
             out["lowres_noise_level"] = level
@@ -290,12 +290,13 @@ class DistillTrainer:
             x0 = dec._normalize(video)
         nd = x0.ndim
         seg = draws.get("segments")
-        seg = (torch.randint(0, len(self.t_starts), (b,), generator=g, device=dev)
+        seg = (batch_draw(lambda s: torch.randint(0, len(self.t_starts), s, generator=g,
+                                                  device=dev), (b,))
                if seg is None else torch.as_tensor(seg).to(dev, torch.long))
         t, t_mid, t_end = self.t_starts[seg], self.t_mids[seg], self.t_ends[seg]
         noise = draws.get("noise")
-        noise = (torch.randn(x0.shape, generator=g, device=dev) if noise is None
-                 else torch.as_tensor(noise).to(dev, torch.float32))
+        noise = (batch_draw(lambda s: torch.randn(s, generator=g, device=dev), x0.shape)
+                 if noise is None else torch.as_tensor(noise).to(dev, torch.float32))
         z_t = sched.q_sample(x0, t, noise)
 
         with torch.no_grad():  # the teacher: two guided DDIM steps
@@ -320,7 +321,18 @@ class DistillTrainer:
                      text_encodings: Optional[torch.Tensor] = None,
                      draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
         """One Adam update of the student, then the EMA d * e + (1 - d) * p;
-        returns the loss (0-dim, on the device)."""
+        returns the loss (0-dim, on the device). The two halves are
+        ``backward`` and ``apply_update`` (the data-parallel step reduces the
+        gradients between them: ``parallel/sharded.py``)."""
+        loss = self.backward(video, video_embed=video_embed, text_encodings=text_encodings,
+                             draws=draws)
+        return self.apply_update(loss)
+
+    def backward(self, video: torch.Tensor, *, video_embed: Optional[torch.Tensor] = None,
+                 text_encodings: Optional[torch.Tensor] = None,
+                 draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """The loss and its gradient in every student parameter's ``grad``
+        (zero where the stage does not reach it); returns the loss."""
         if self.student is None:
             raise RuntimeError("init_state first")
         self.optimizer.zero_grad(set_to_none=True)
@@ -330,6 +342,11 @@ class DistillTrainer:
         for p in self.student.values():
             if p.grad is None:  # unused on this stage: a zero gradient, as in JAX
                 p.grad = torch.zeros_like(p)
+        return loss.detach()
+
+    def apply_update(self, loss: torch.Tensor) -> torch.Tensor:
+        """The Adam update from the gradients ``backward`` left, the EMA and
+        the step count; returns loss."""
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         d = self.cfg.ema_decay
@@ -340,7 +357,7 @@ class DistillTrainer:
             torch._foreach_mul_(ema, d)
             torch._foreach_add_(ema, scaled)
         self.step += 1
-        return loss.detach()
+        return loss
 
     # ------------------------------------------------------------------ #
     def state_dict(self) -> Dict[str, Any]:

@@ -152,10 +152,21 @@ class DecoderTrainer:
         (0-dim f32, on the device). With grad_accum = a the batch (the
         video, its embeds and text encodings) is cut into a microbatches
         (``draws`` then a list of a dicts or None), gradients and loss
-        averaged over them."""
+        averaged over them. The two halves are ``backward`` and
+        ``apply_update`` (the data-parallel step reduces the gradients
+        between them: ``parallel/sharded.py``)."""
+        loss = self.backward(video, video_embed=video_embed, text_encodings=text_encodings,
+                             unet_number=unet_number, draws=draws)
+        return self.apply_update(unet_number, loss)
+
+    def backward(self, video: torch.Tensor, *, video_embed: Optional[torch.Tensor] = None,
+                 text_encodings: Optional[torch.Tensor] = None, unet_number: int = 1,
+                 draws: Union[Draws, Sequence[Draws]] = None) -> torch.Tensor:
+        """The loss of unet ``unet_number`` on the batch and its gradient in
+        every parameter's ``grad`` (zero where the step does not reach it);
+        returns the loss. Arguments as ``train_step``."""
         i = unet_number - 1
-        cfg = self.cfg
-        a = cfg.grad_accum
+        a = self.cfg.grad_accum
         b = video.shape[0]
         if b % a:
             raise ValueError(f"batch {b} not divisible by grad_accum {a}")
@@ -172,13 +183,19 @@ class DecoderTrainer:
             loss = self._loss(i, video[sl], take(video_embed), take(text_encodings), micro[j])
             (loss / a).backward()
             total = loss.detach() if total is None else total + loss.detach()
-        loss = total / a
-
-        params = list(self.decoder.unets[i].parameters())
-        for p in params:
+        for p in self.decoder.unets[i].parameters():
             if p.grad is None:  # unused on this step: a zero gradient, as in JAX
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
+        return total / a
+
+    def apply_update(self, unet_number: int, loss: torch.Tensor) -> torch.Tensor:
+        """The update from the gradients ``backward`` left: clip to the
+        global norm, skip where the loss or the norm is not finite, AdamW at
+        the schedule's lr, then the EMA and the step count; returns loss."""
+        i = unet_number - 1
+        cfg = self.cfg
+        opt = self.optimizers[i]
+        grads = [p.grad for p in self.decoder.unets[i].parameters()]
         norm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g.float()) for g in grads]))
         if cfg.max_grad_norm is not None:

@@ -5,8 +5,8 @@ dalle2_video_tpu/utils/contrastive.py).
 embeddings with logits scaled by exp(temperature) (a learned log-scale,
 init 5.0); ``retrieval_metrics`` the top-k accuracy over the cosine
 similarity matrix, a pair's rank counting every tie against it (``>=``).
-``sharded_clip_loss`` needs a device mesh: it raises until data-parallel
-training is ported.
+``sharded_clip_loss`` is the global-batch loss over a mesh's data axis
+(each rank's rows; every rank holds the global loss).
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from dalle2_video_tpu_torch.parallel.collectives import gather_sharded, psum
+from dalle2_video_tpu_torch.parallel.mesh import DATA_AXIS
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -36,10 +39,31 @@ def clip_loss(x: torch.Tensor, y: torch.Tensor, temperature: torch.Tensor,
     return (logits, loss) if return_logits else loss
 
 
-def sharded_clip_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "sharded_clip_loss needs a device mesh: data-parallel training is not ported "
-        "yet (one device only; use clip_loss)")
+def sharded_clip_loss(x: torch.Tensor, y: torch.Tensor, temperature: torch.Tensor, mesh,
+                      axis: str = DATA_AXIS) -> torch.Tensor:
+    """Global-batch symmetric CLIP loss; x, y are this rank's rows of the
+    batch split over ``axis``. Each rank gathers both towers, computes its
+    (local_b, global_b) logit rows against offset-diagonal targets, and the
+    summed losses are added over the axis and divided by the global batch:
+    ``clip_loss`` of the gathered batch, on every rank. Backward: the sum's
+    cotangent is taken once per rank (``psum``), the gathers' cotangents
+    summed over the ranks (``gather_sharded``), so each rank's gradient in
+    its rows is the single-device gradient, and in a replicated input (the
+    temperature) its part of it (the data-parallel step sums the parts)."""
+    if mesh is None:
+        raise ValueError("sharded_clip_loss needs a mesh (parallel.mesh.create_mesh); "
+                         "use clip_loss on one device")
+    group = mesh.group(axis)
+    lb = x.shape[0]
+    xs = l2_normalize(x.reshape(lb, -1))
+    ys = l2_normalize(y.reshape(lb, -1))
+    x_all = gather_sharded(xs, group, dim=0)
+    y_all = gather_sharded(ys, group, dim=0)
+    scale = torch.exp(temperature)
+    targets = mesh.index(axis) * lb + torch.arange(lb, device=xs.device)
+    loss = 0.5 * (F.cross_entropy((xs @ y_all.T) * scale, targets, reduction="sum")
+                  + F.cross_entropy((ys @ x_all.T) * scale, targets, reduction="sum"))
+    return psum(loss, group) / (lb * mesh.shape[axis])
 
 
 def retrieval_metrics(z: torch.Tensor, y: torch.Tensor,

@@ -14,13 +14,32 @@ streams; tests that compare with the JAX package inject the JAX draws.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Sequence, Tuple
+from typing import Callable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from dalle2_video_tpu_torch.parallel.mesh import get_active_mesh
+
 _MASK63 = (1 << 63) - 1
 _SPLIT, _FOLD = 0, 1
+
+
+def batch_draw(draw: Callable[[Tuple[int, ...]], torch.Tensor],
+               shape: Sequence[int]) -> torch.Tensor:
+    """``draw(shape)`` of a batch-major shape (a generator's draw for a
+    batch's rows). Under an active mesh whose data axis splits the batch
+    (``parallel.mesh.active_mesh``), the draw is made at the global batch
+    (shape[0] times the data axis) and this rank's rows are returned, as
+    the JAX package's sharded step draws for the global batch and shards
+    it: every rank's generator stays in step, and ``data`` ranks take the
+    update one device takes at the same global batch."""
+    shape = tuple(shape)
+    mesh = get_active_mesh()
+    if mesh is None or mesh.data == 1:
+        return draw(shape)
+    b = shape[0]
+    return draw((b * mesh.data,) + shape[1:])[mesh.data_index * b:(mesh.data_index + 1) * b]
 
 
 def derive_generator(seed: int, *path: int, device="cpu") -> torch.Generator:

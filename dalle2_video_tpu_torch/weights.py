@@ -201,7 +201,11 @@ def load_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
     ``{"params": {"unet_<i>": flax params[, "vae_<i>": a latent stage's VAE
     tree]}, "opt_states": [{"mu", "nu":
     flax trees, "count": int}] per unet, "ema": [{"params": tree, "step":
-    int} or None] per unet, "steps": [int] per unet}``."""
+    int} or None] per unet, "steps": [int] per unet}``. A state the JAX
+    ``shard_state`` placed (ZeRO-1, tensor-parallel columns) gives the same
+    trees (``np.asarray`` gathers a sharded leaf); load it into the trainer
+    on one device, then place it on the mesh with
+    ``parallel.sharded.shard_state``."""
     n = trainer.num_unets
     for key in ("opt_states", "ema", "steps"):
         if len(state[key]) != n:

@@ -132,7 +132,7 @@ def test_clip_loss_and_retrieval_metrics_match_jax(ties):
     if ties:  # rows 0 and 1 tie: each ranks the other's caption level with its own
         sim = contrastive.l2_normalize(_t(x).reshape(6, -1)) @ contrastive.l2_normalize(_t(y)).T
         assert sim[0, 1] == sim[0, 0] and float(got["top1"]) <= 4 / 6
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         contrastive.sharded_clip_loss(_t(x), _t(y), torch.tensor(temp), None)
 
 

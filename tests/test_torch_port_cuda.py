@@ -1347,3 +1347,54 @@ def test_latent_decoder_loss_on_cuda_matches_the_cpu(dev):
     for k in g_p:
         if float(g_p[k].norm()) > 0:
             assert _rel_l2(g_k[k], g_p[k]) <= 1e-3, (k, _rel_l2(g_k[k], g_p[k]))
+
+
+# ------------------------------------------------------------ the parallel axes
+@pytest.mark.parametrize("model", [2, 4])
+def test_flash_kernels_at_a_sequence_parallel_shard(dev, model):
+    """Rows 1 and 2 at one model rank's query shard of the 90-frame
+    recipe's unet-1 bottleneck under attention_impl sp (16 heads of 32 over
+    5,760 / model tokens: 46,080 query rows at model 2, 23,040 at 4,
+    against the 5,761 gathered keys, bf16, batch 2): row 2's library plans
+    a split for the count, the forward is held as every bf16 flash forward,
+    the backward on the tensor-core route against its plain version."""
+    n = 90 * 8 * 8
+    rows = n // model * 16
+    assert fm.BWD_KERNEL.query("d2v_flash_mqa_bwd_splits", 2, rows, n + 1, 32, 1) > 0
+    _flash_bf16_case(dev, 2, rows, n + 1, seed=rows, oracle=True)
+    g = torch.Generator(device=dev).manual_seed(rows + 1)
+    q, go = (torch.randn(2, rows, 32, generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(2, n + 1, 32, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fm.flash_mqa_fwd(q, k, v, sm_scale=32**-0.5, save_lse=True)
+    got = _flash_bwd_launch(q, k, v, out, lse, go, 32**-0.5, _bwd_route(torch.bfloat16, 2))
+    _assert_grads_close(got, fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 32**-0.5),
+                        torch.bfloat16)
+
+
+def test_flash_backward_routes_by_the_global_batch_on_the_card(dev):
+    """A data rank's one bf16 row under a data axis of 2: the saved lse is
+    the forward's own and the backward takes the tensor-core route (the
+    batch JAX traces is the global 2), held to the plain version at that
+    route; with no mesh the same row takes the CUDA-core route."""
+    from dalle2_video_tpu_torch.parallel.mesh import Mesh, active_mesh, global_batch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, go = (torch.randn(1, 5760, 32, generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(1, 1441, 32, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    with active_mesh(Mesh(2, 1, 0, dev, None)):
+        batch = global_batch(1)
+    assert batch == 2
+    out, lse = fm.fwd_residuals(q, k, v, sm_scale=32**-0.5, batch=batch)
+    own = fm.flash_mqa_fwd(q, k, v, sm_scale=32**-0.5, save_lse=True)[1]
+    assert torch.equal(lse, own)
+    before = dict(fm.BWD_KERNEL.routes)
+    got = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=32**-0.5, batch=batch)
+    assert fm.BWD_KERNEL.routes["tensor_cores"] == before.get("tensor_cores", 0) + 1
+    _assert_grads_close(got, fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 32**-0.5,
+                                                        batch=batch), torch.bfloat16)
+    fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=32**-0.5)
+    assert fm.BWD_KERNEL.routes["cuda_cores"] == before.get("cuda_cores", 0) + 1

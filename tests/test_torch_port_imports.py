@@ -58,6 +58,10 @@ def test_source_scan_finds_no_banned_import():
     assert {*(f"dalle2_video_tpu_torch.models.{m}" for m in ("vae", "vqvae", "discriminator")),
             "dalle2_video_tpu_torch.train.vqgan_trainer",
             "dalle2_video_tpu_torch.train.train_vqgan"} <= set(_modules())
+    # and the data and model axes on torch.distributed
+    assert {f"dalle2_video_tpu_torch.parallel.{m}" for m in (
+        "mesh", "collectives", "sharded", "sp_attention")} | {
+        "dalle2_video_tpu_torch.probes.parallel_steps"} <= set(_modules())
 
 
 def test_every_module_imports_with_jax_blocked():

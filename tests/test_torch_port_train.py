@@ -595,7 +595,8 @@ def test_train_entry_point_smoke_and_resume(tmp_path):
     """python -m dalle2_video_tpu_torch.train smoke=true on the CPU: one
     batch through both unets, validation, a checkpoint; resume=true picks it
     up. Without smoke the store is read (tests/test_torch_port_data.py):
-    where there is none, that raises; so does a multi-device mesh."""
+    where there is none, that raises; so does a mesh over more devices than
+    the one process launched (tests/test_torch_port_parallel.py runs 4)."""
     args = ["smoke=true", "device=cpu", f"run_dir={tmp_path}", "decoder.bf16_compute=false",
             "dim=16", "log_level=WARNING"]
     train_main(args)
@@ -606,7 +607,7 @@ def test_train_entry_point_smoke_and_resume(tmp_path):
     assert len(lines) == 4 and all("nan" not in line for line in lines)
     with pytest.raises(FileNotFoundError, match="embed"):
         train_main(["device=cpu"])  # no store at the default videos.* paths
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh 4x1 = 4 devices, but 1 ranks were launched"):
         train_main(args + ["mesh.data=4"])
 
 
