@@ -182,9 +182,16 @@ Phases (any failure exits non-zero and prints no result line):
      recipe at OPTION_STEPS split over the ranks through
      serve/stack.py::DataParallelGenerate, each row bit for bit the request
      served alone by one process); each run's launches are each rank's, summed in
-     launches_by_run, each rank's in launches_by_rank. Then the decoder's
-     entry point under torchrun --nproc_per_node=1 (NCCL, smoke=true,
-     mesh.data=-1) must train one batch through both unets;
+     launches_by_run, each rank's in launches_by_rank. Then the prior's
+     model axis on the same ranks: prior_pp (the recipe's prior pipelined
+     over 2 stages at M = 4, batch 256: the gradient, PRIOR_PAR_STEPS steps,
+     a 64-step sample at cond_scale 2) and prior_ep (8 experts, 4 a rank:
+     the gradient, the steps), each held to one process (PRIOR_PAR_*
+     holds), the replicated parameters bit for bit equal on the ranks, each
+     rank's parameter and moment bytes logged, no kernel launched. The
+     decoder's entry point under torchrun --nproc_per_node=1 (NCCL,
+     smoke=true, mesh.data=-1) must train one batch through both unets, and
+     the prior's (pipeline_microbatches 4: its local loop) its 2 steps;
  5i. train_prior_moe: the recipe's prior with 8 experts a layer and
      self-conditioning, PRIOR_STEPS steps at batch 256 (finite loss and
      aux, every parameter moved), one best-of-2 64-step sample; no kernel;
@@ -4084,6 +4091,20 @@ def par_rank(rank_dir: str) -> int:
         torch.save(videos, root / "serve_dp_videos.pt")
     else:
         out["served"] = run("serve_dp", lambda: serve_worker(dp))
+    del dp, generate_batch
+    torch.cuda.empty_cache()
+    from dalle2_video_tpu_torch.parallel.collectives import all_gather_list
+
+    for kind in PRIOR_PAR:
+        mesh = create_mesh(1, PAR_RANKS, device=dev, backend="gloo")
+        res = prior_par_run(torch, dev, kind, mesh, run)
+        every = all_gather_list(res.pop("replicated"), mesh.model_group)
+        out[kind] = {"losses": res["losses"], "grad_loss": res["grad_loss"],
+                     "bytes": list(res["bytes"]),
+                     "replicated_equal": all(torch.equal(every[0], e) for e in every[1:])}
+        if rank == 0:
+            torch.save({k: res[k] for k in ("grads", "params", "sample") if k in res},
+                       root / f"{kind}.pt")
     dist.destroy_process_group()
     (root / f"rank{rank}.json").write_text(json.dumps(out))
     return 0
@@ -4116,6 +4137,155 @@ def par_rel_l2(torch, got, want, start=None):
         if err > worst:
             worst, name = err, k
     return worst, name
+
+
+# The prior's model axis on the shared card (the same 2 ranks over gloo):
+#   prior_pp: the recipe's prior (dim 512, depth 6, 8 x 64 heads) in the
+#     stacked layout, pipelined over 2 stages at PRIOR_PP_MICROBATCHES
+#     microbatches (configs/celebv_text.yaml's commented settings), each
+#     rank holding 3 of the 6 layers;
+#   prior_ep: the same prior with prior.ff_experts 8 at expert_parallel 2,
+#     each rank holding 4 of the 8 experts of every layer.
+# Each takes the loss's gradient once (draws from its own stream), then
+# PRIOR_PAR_STEPS Adam steps at prior.batch_size 256 on seeded device
+# embeddings, every rank on the whole batch with the same draws; prior_pp
+# then samples PRIOR_PP_SAMPLE rows at cond_scale 2 (the CFG-doubled batch
+# through the pipeline) over the recipe's 64 DDIM steps. Each is held to
+# the same network in one process (the pipeline's local loop, the experts
+# whole): losses (PRIOR_PAR_LOSS_RTOL), the gradient and the parameters
+# after the steps per tensor by relative L2 (PRIOR_PAR_GRAD_RTOL,
+# PRIOR_PAR_PARAM_RTOL), the sample by relative L2 (PRIOR_PAR_SAMPLE_RTOL);
+# the replicated parameters must be bit for bit equal on the two ranks, and
+# each rank's parameter and moment bytes are logged beside the whole's. No
+# kernel lies on the prior: each run must launch none.
+PRIOR_PAR = {"prior_pp": dict(scan_layers=True, pipeline_microbatches=4),
+             "prior_ep": dict(ff_experts=8)}
+PRIOR_PP_MICROBATCHES = 4
+PRIOR_PAR_STEPS = 3
+PRIOR_PP_SAMPLE = 8
+# f32, holds set before the first reading on the card: the pipeline and the
+# experts change only the order of sums (microbatched matmuls, the psum
+# over the model axis)
+PRIOR_PAR_LOSS_RTOL = 1e-5
+PRIOR_PAR_GRAD_RTOL = 1e-4
+PRIOR_PAR_PARAM_RTOL = 1e-4
+PRIOR_PAR_SAMPLE_RTOL = 1e-4
+
+
+def prior_par_trainer(torch, dev, kind: str, mesh=None):
+    """The recipe's prior with ``kind``'s options (placed on ``mesh`` when
+    given: a rank's stage or experts), its trainer (the entry point's init
+    and draw streams), seeded (batch_size, dim) embeddings and a third
+    stream for the gradient check's draws."""
+    from dalle2_video_tpu_torch.models.prior import (
+        DiffusionPrior,
+        DiffusionPriorConfig,
+        PriorNetworkConfig,
+    )
+    from dalle2_video_tpu_torch.train.train_prior import PriorTrainer
+    from dalle2_video_tpu_torch.utils.config import load_config
+    from dalle2_video_tpu_torch.utils.keys import derive_generator, init_from
+
+    cfg = load_config(None)
+    pc = cfg["prior"]
+    pcfg = DiffusionPriorConfig(
+        network=PriorNetworkConfig(dim=cfg["dim"], depth=pc["depth"], heads=pc["heads"],
+                                   dim_head=pc["dim_head"], **PRIOR_PAR[kind]),
+        timesteps=pc["timesteps"], sample_timesteps=pc["sample_timesteps"])
+    with init_from(derive_generator(cfg["seed"], 4, 0)):
+        prior = DiffusionPrior(pcfg, dev, mesh=mesh)
+    trainer = PriorTrainer(prior, float(pc["lr"]),
+                           generator=derive_generator(cfg["seed"], 4, 1, device=dev))
+    g = torch.Generator(device=dev).manual_seed(2)
+    ve, te = (torch.randn(pc["batch_size"], cfg["dim"], generator=g, device=dev)
+              for _ in range(2))
+    return trainer, ve, te, derive_generator(cfg["seed"], 4, 2, device=dev)
+
+
+def prior_par_run(torch, dev, kind: str, mesh=None, timed=lambda name, fn: fn()):
+    """``kind``'s gradient once, then PRIOR_PAR_STEPS steps (and for prior_pp
+    a sample): losses, the whole gradient and parameters on the host
+    (gathered from every rank's blocks: collective), each rank's bytes, the
+    replicated parameters' flat vector."""
+    from dalle2_video_tpu_torch.parallel.mesh import active_mesh
+    from dalle2_video_tpu_torch.utils.keys import RowKeys
+
+    trainer, ve, te, grad_draws = prior_par_trainer(torch, dev, kind, mesh)
+    prior, net = trainer.prior, trainer.prior.network
+    out = {}
+
+    def grad():
+        net.train()
+        with active_mesh(mesh):
+            loss = prior.loss(ve, te, generator=grad_draws)
+            loss.backward()
+        return float(loss.detach())
+
+    out["grad_loss"] = timed(f"{kind} gradient", grad)
+    out["grads"] = {k: trainer.whole(k, p.grad).float().cpu() for k, p in
+                    net.named_parameters() if p.grad is not None}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    out["losses"] = timed(kind, lambda: [float(trainer.train_step(ve, te))
+                                         for _ in range(PRIOR_PAR_STEPS)])
+    out["params"] = {k: trainer.whole(k, p.detach()).float().cpu() for k, p in
+                     net.named_parameters()}
+    out["replicated"] = torch.cat([p.detach().reshape(-1) for k, p in net.named_parameters()
+                                   if not trainer.specs.get(k)])
+    out["bytes"] = trainer.param_bytes()
+    if kind == "prior_pp":
+        g = torch.Generator(device=dev).manual_seed(5)
+        noise = torch.randn(PRIOR_PP_SAMPLE, ve.shape[1], generator=g, device=dev)
+        net.eval()
+
+        def sample():
+            with active_mesh(mesh):
+                return prior.sample_loop(RowKeys(list(range(PRIOR_PP_SAMPLE))),
+                                         te[:PRIOR_PP_SAMPLE], cond_scale=2.0,
+                                         init_noise=noise).float().cpu()
+
+        out["sample"] = timed(f"{kind} sample", sample)
+    del trainer, prior, net
+    torch.cuda.empty_cache()
+    return out
+
+
+# rows of the prior's NCCL run's handoff (half train, half val: 2 steps at
+# the recipe's batch of 256)
+PRIOR_NCCL_ROWS = 1024
+
+
+def prior_par_hold(torch, kind, ranks, ref, got, walls, card) -> None:
+    """Hold ``kind``'s shared-card run (``ranks``: each rank's numbers;
+    ``got``: rank 0's gathered gradient, parameters and sample) to the one
+    process's ``ref``, and log it."""
+    losses = [ranks[0]["grad_loss"], *ranks[0]["losses"]]
+    want = [ref["grad_loss"], *ref["losses"]]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    g_worst, g_which = par_rel_l2(torch, got["grads"], ref["grads"])
+    p_worst, p_which = par_rel_l2(torch, got["params"], ref["params"])
+    whole = ref["bytes"]
+    line = (f"parallel {kind}: losses {[round(x, 6) for x in losses]} vs one process "
+            f"{[round(x, 6) for x in want]} (worst relative {loss_err:.2e}, hold "
+            f"{PRIOR_PAR_LOSS_RTOL}); gradient vs one process: worst relative L2 {g_worst:.3e} "
+            f"({g_which}; hold {PRIOR_PAR_GRAD_RTOL}); parameters after {PRIOR_PAR_STEPS} steps: "
+            f"worst relative L2 {p_worst:.3e} ({p_which}; hold {PRIOR_PAR_PARAM_RTOL}); "
+            f"replicated parameters equal on the ranks: "
+            f"{all(r['replicated_equal'] for r in ranks)}; bytes per rank (parameters, Adam "
+            f"moments) {[tuple(r['bytes']) for r in ranks]} of {tuple(whole)} whole; walls per "
+            f"rank (s) {[round(w[kind], 3) for w in walls]} for {PRIOR_PAR_STEPS} steps, "
+            f"gradient {[round(w[kind + ' gradient'], 3) for w in walls]}")
+    ok = (loss_err <= PRIOR_PAR_LOSS_RTOL and g_worst <= PRIOR_PAR_GRAD_RTOL
+          and p_worst <= PRIOR_PAR_PARAM_RTOL and all(r["replicated_equal"] for r in ranks)
+          and all(r["losses"] == ranks[0]["losses"] for r in ranks))
+    if "sample" in ref:
+        s_err = float((got["sample"] - ref["sample"]).norm() / ref["sample"].norm())
+        line += (f"; sample of {PRIOR_PP_SAMPLE} rows at cond_scale 2 over 64 DDIM steps: "
+                 f"relative L2 {s_err:.3e} (hold {PRIOR_PAR_SAMPLE_RTOL}), walls per rank (s) "
+                 f"{[round(w[kind + ' sample'], 3) for w in walls]}")
+        ok = ok and s_err <= PRIOR_PAR_SAMPLE_RTOL and bool(torch.isfinite(got["sample"]).all())
+    log(line + f" (gloo, host-staged, {PAR_RANKS} ranks on one card) [{card}]")
+    if not ok:
+        raise AssertionError(f"parallel {kind}: differs from the one-process run")
 
 
 def parallel_phase(dev, torch, root: str):
@@ -4173,6 +4343,20 @@ def parallel_phase(dev, torch, root: str):
          "-m", "dalle2_video_tpu_torch.train", "smoke=true", "mesh.data=-1",
          f"run_dir={out_dir / 'nccl_run'}", "log_level=INFO"],
         stdout=nccl_log, stderr=subprocess.STDOUT)
+    # the prior's entry point under torchrun at world size 1 (NCCL): the
+    # pipeline's fallback, the recipe's prior at M = 4 on a handoff of
+    # seeded embeddings
+    emb = np.random.default_rng(6).standard_normal((2, PRIOR_NCCL_ROWS, cfg["dim"]))
+    for name, a in zip(("video", "text"), emb.astype(np.float32)):
+        np.save(out_dir / f"prior_{name}.npy", a)
+    prior_log = open(out_dir / "nccl_prior.log", "w")
+    nccl_prior = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         "-m", "dalle2_video_tpu_torch.train.train_prior",
+         f"videos.embed={out_dir / 'prior_video.npy'}",
+         f"texts.embed={out_dir / 'prior_text.npy'}", f"run_dir={out_dir / 'nccl_prior'}",
+         f"prior.pipeline_microbatches={PRIOR_PP_MICROBATCHES}", "prior.epochs=1",
+         "train_ratio=0.5", "log_level=INFO"], stdout=prior_log, stderr=subprocess.STDOUT)
     try:
         # the one-process references, meanwhile
         refs = {}
@@ -4200,14 +4384,16 @@ def parallel_phase(dev, torch, root: str):
             ddim_steps=OPTION_STEPS) for i in range(len(requests[0]))])
         del generate_batch
         torch.cuda.empty_cache()
-        for p in (*ranks, nccl):
+        for kind in PRIOR_PAR:  # the priors in one process
+            refs[kind] = prior_par_run(torch, dev, kind)
+        for p in (*ranks, nccl, nccl_prior):
             p.wait(timeout=600)
     finally:
-        for p in (*ranks, nccl):
+        for p in (*ranks, nccl, nccl_prior):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for f in (*logs, nccl_log):
+        for f in (*logs, nccl_log, prior_log):
             f.close()
     wall = time.time() - t0
     for r, p in enumerate(ranks):
@@ -4217,9 +4403,13 @@ def parallel_phase(dev, torch, root: str):
     results = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(PAR_RANKS)]
     kernels = all_kernels()
     runs, by_rank = {}, {}
-    for name in ("train_dp gradient", "train_dp", "train_sp gradient", "train_sp", "serve_dp"):
+    for name in ("train_dp gradient", "train_dp", "train_sp gradient", "train_sp", "serve_dp",
+                 *(f"{kind}{part}" for kind in PRIOR_PAR
+                   for part in (" gradient", "", " sample") if kind == "prior_pp"
+                   or part != " sample")):
         want = {k.name: 0 for k in kernels}
-        want.update(par_expected(name))
+        if not name.startswith("prior"):  # no kernel lies on the prior
+            want.update(par_expected(name))
         for r, res in enumerate(results):
             got = res["launches"][name]
             if got != want:
@@ -4280,6 +4470,10 @@ def parallel_phase(dev, torch, root: str):
     if not np.array_equal(videos, alone):
         raise AssertionError("parallel serve_dp: a row's video depends on the rank that "
                              "sampled it")
+    for kind in PRIOR_PAR:
+        prior_par_hold(torch, kind, [res[kind] for res in results], refs[kind],
+                       torch.load(out_dir / f"{kind}.pt"),
+                       [res["walls"] for res in results], card)
     nccl_text = (out_dir / "nccl.log").read_text()
     if nccl.returncode != 0:
         raise AssertionError(f"parallel: the NCCL entry point exited {nccl.returncode}:\n"
@@ -4288,9 +4482,19 @@ def parallel_phase(dev, torch, root: str):
     if nccl_state["steps"] != [1, 1] or "backend nccl" not in nccl_text:
         raise AssertionError(f"parallel: the NCCL run took steps {nccl_state['steps']}; "
                              f"its log:\n{nccl_text[-2000:]}")
+    prior_text = (out_dir / "nccl_prior.log").read_text()
+    if nccl_prior.returncode != 0:
+        raise AssertionError(f"parallel: the prior's NCCL entry point exited "
+                             f"{nccl_prior.returncode}:\n" + prior_text[-3000:])
+    prior_state = load_latest(str(out_dir / "nccl_prior" / "prior_default"))
+    prior_steps = PRIOR_NCCL_ROWS // 2 // int(cfg["prior"]["batch_size"])
+    if prior_state["step"] != prior_steps or "backend nccl" not in prior_text:
+        raise AssertionError(f"parallel: the prior's NCCL run took {prior_state['step']} "
+                             f"steps, want {prior_steps}; its log:\n{prior_text[-2000:]}")
     log(f"parallel: the decoder's entry point under torchrun --nproc_per_node=1 "
-        f"(process group backend nccl) trained one batch through both unets; phase wall "
-        f"{wall:.1f} s; launches by run {runs}")
+        f"(process group backend nccl) trained one batch through both unets, the prior's "
+        f"(pipeline_microbatches {PRIOR_PP_MICROBATCHES}, its local loop at world size 1) "
+        f"{prior_steps} steps; phase wall {wall:.1f} s; launches by run {runs}")
     return runs, by_rank
 
 

@@ -22,22 +22,38 @@ order among equal values). The experts' weights are initialised as flax's
 a truncated normal of std 1 / sqrt(d * e) (and 1 / sqrt(h * e) for the
 second), not 1 / sqrt(d).
 
-Expert parallelism (the JAX ``moe_sharding_tree``: the expert axis over
-the mesh, all-to-all dispatch) is not ported: the whole layer runs on one
-device. It waits, with the prior's GPipe pipeline, for ``ROADMAP.md``
-queue 1 item 3 (point-to-point and all-to-all transfers over NCCL).
+Expert parallelism (the JAX ``moe_sharding_tree``): the expert axis of
+``experts_w1`` / ``experts_w2`` split over the mesh's model axis, each rank
+holding E / ep experts (their weights, Adam moments and EMA shadow;
+``moe_sharding_tree`` gives the specs, ``parallel/sharded.py::place_blocks``
+places them). Under an active mesh a layer whose weights hold fewer than
+``num_experts`` experts runs its rank's block: the routing runs
+replicated, unchanged; the rank takes its experts' block of dispatch and
+combine, runs the three einsums on its experts and sums the combined
+output over the model axis. The JAX program does the same: it passes every
+batch whole, so its partitioner splits the expert einsums over the expert
+axis, and the last einsum's contraction over that axis becomes partial
+sums and an all-reduce (no all-to-all: the tokens are never split over the
+experts). The replicated tensors that enter the rank's part carry their
+cotangents back whole: the normed tokens through ``sum_cotangent``,
+``combine`` (the gate values, so the router's gradient) through
+``shard_replicated``, so the router and the norm get the full gradient on
+every rank. The aux comes from the replicated router probabilities.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Mapping, Tuple
 
 import torch
 import torch.nn as nn
 
 from dalle2_video_tpu_torch.models.layers import Dense, ScaleOnlyLayerNorm
 from dalle2_video_tpu_torch.ops.as_jax import gelu_as_jax, silu_as_jax
+from dalle2_video_tpu_torch.parallel.collectives import psum, shard_replicated, sum_cotangent
+from dalle2_video_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, get_active_mesh
+from dalle2_video_tpu_torch.parallel.sharded import Spec
 
 # flax's truncated_normal variance scaling divides the std by this: the std
 # of a unit normal truncated to [-2, 2]
@@ -102,6 +118,17 @@ class MoEFF(nn.Module):
         e = self.num_experts
         y = self.norm(x).reshape(b * n, d)
         dispatch, combine, probs, gate_idx = self.route(y)
+        held = self.experts_w1.shape[0]
+        group = None
+        if held != e:  # this rank's block of the experts (expert parallelism)
+            mesh = get_active_mesh()
+            if mesh is None or mesh.model * held != e:
+                raise ValueError(f"{held} of {e} experts held, but the active mesh has a model "
+                                 f"axis of {1 if mesh is None else mesh.model}")
+            group, lo = mesh.model_group, mesh.model_index * held
+            y = sum_cotangent(y, group)
+            dispatch = dispatch[:, lo:lo + held]
+            combine = shard_replicated(combine, group, dim=1)
         xe = torch.einsum("gd,gec->ecd", y, dispatch.to(y.dtype))
         h = torch.einsum("ecd,edh->ech", xe, self.experts_w1.to(xe.dtype))
         if self.swiglu:
@@ -110,7 +137,29 @@ class MoEFF(nn.Module):
         else:
             h = gelu_as_jax(h)
         ye = torch.einsum("ech,ehd->ecd", h, self.experts_w2.to(h.dtype))
-        out = torch.einsum("ecd,gec->gd", ye, combine.to(ye.dtype))
+        out = psum(torch.einsum("ecd,gec->gd", ye, combine.to(ye.dtype)), group)
         f_e = (gate_idx[:, 0:1] == torch.arange(e, device=x.device)).float().mean(0)
         aux = e * torch.sum(f_e * probs.mean(0))
         return x + out.reshape(b, n, d), aux
+
+
+def moe_sharding_tree(named: Mapping[str, torch.Tensor], mesh: Mesh,
+                      axis: str = MODEL_AXIS) -> Dict[str, Spec]:
+    """Spec per parameter name for expert parallelism (JAX
+    ``moe_sharding_tree``): an ``experts_*`` leaf is split over ``axis`` on
+    its expert dim -- dim 0, or dim 1 under a stacked ``layers`` module
+    (dim 0 is the depth) -- when the experts divide; everything else
+    replicated. The pipeline and the experts both take the model axis: one
+    per run."""
+    size = mesh.shape[axis]
+
+    def spec(name, leaf) -> Spec:
+        parts = name.split(".")
+        if not any(p.startswith("experts_") for p in parts):
+            return ()
+        dim = 1 if "layers" in parts else 0
+        if leaf.ndim > dim and leaf.shape[dim] % size == 0:
+            return (None,) * dim + (axis,)
+        return ()
+
+    return {k: spec(k, v) for k, v in named.items()}

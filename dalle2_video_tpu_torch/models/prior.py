@@ -23,7 +23,18 @@ module whose every parameter carries a leading depth axis, run as a loop
 over its slices) and ``self_cond`` (``self_cond_proj`` over [x_t, x0
 estimate]; the loss's coin draws a detached estimate from a forward
 without it, the sampler carries the previous step's x0, doubled with the
-batch under CFG). ``pipeline_microbatches > 0`` (GPipe over a mesh) raises.
+batch under CFG).
+
+``pipeline_microbatches > 0`` (which implies ``scan_layers``) pipelines the
+stacked layers over an active mesh's model axis when it has more than one
+rank (``parallel/pipeline.py::pipeline_apply``, GPipe fill-drain, the
+relative-position bias a broadcast argument); otherwise the layers run as
+the local loop, as JAX's fallback. The pipelined path returns no MoE aux
+(JAX sows nothing there either), and the batch the network sees must
+divide by the microbatches. ``DiffusionPrior(config, device, mesh=...)``
+places the network on the mesh before it reaches the device
+(``prior_specs``: the pipeline's stages or the experts over the model
+axis): each rank allocates only its stage's layers, or its experts.
 """
 
 from __future__ import annotations
@@ -43,8 +54,15 @@ from dalle2_video_tpu_torch.models.layers import (
     ScaleOnlyLayerNorm,
     sinusoidal_pos_emb,
 )
-from dalle2_video_tpu_torch.models.moe import MoEFF
+from dalle2_video_tpu_torch.models.moe import MoEFF, moe_sharding_tree
 from dalle2_video_tpu_torch.ops.as_jax import gelu_as_jax, silu_as_jax
+from dalle2_video_tpu_torch.parallel.mesh import Mesh, get_active_mesh
+from dalle2_video_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    pipeline_sharding_tree,
+    stage_slices,
+)
+from dalle2_video_tpu_torch.parallel.sharded import Spec, place_blocks
 from dalle2_video_tpu_torch.utils.contrastive import l2_normalize
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
 from dalle2_video_tpu_torch.utils.keys import RowKeys
@@ -122,15 +140,19 @@ def stack_layers(layers: List[nn.Module]) -> nn.Module:
 
 class CausalTransformer(nn.Module):
     """Pre-norm causal transformer. Its layers are ``attn{i}`` / ``ff{i}``,
-    or with ``scan_layers`` one ``layers`` module of stacked parameters.
-    ``forward`` returns (x, the list of the MoE layers' aux losses)."""
+    or with ``scan_layers`` one ``layers`` module of stacked parameters
+    (all ``depth`` layers, or on a placed pipeline this rank's stage).
+    ``forward`` returns (x, the list of the MoE layers' aux losses); with
+    ``pipeline_microbatches`` under a mesh whose model axis has more than
+    one rank, the stack runs as a GPipe pipeline and returns no aux."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  rotary: bool = True, rel_pos_bias: bool = True, swiglu_ff: bool = True,
                  scan_layers: bool = False, ff_experts: int = 0,
-                 moe_capacity_factor: float = 2.0):
+                 moe_capacity_factor: float = 2.0, pipeline_microbatches: int = 0):
         super().__init__()
         self.depth, self.scan_layers = depth, scan_layers
+        self.pipeline_microbatches = pipeline_microbatches
         self.rel_pos_bias = RelPosBias(heads) if rel_pos_bias else None
         make = lambda: CausalTransformerLayer(  # noqa: E731
             dim, heads, dim_head, rotary=rotary, swiglu_ff=swiglu_ff, ff_experts=ff_experts,
@@ -147,8 +169,15 @@ class CausalTransformer(nn.Module):
     def forward(self, x):
         bias = self.rel_pos_bias(x.shape[1]) if self.rel_pos_bias is not None else None
         auxes = []
-        if self.scan_layers:
+        if self.scan_layers:  # (the per-layer layout never pipelines, as in JAX)
             stacked = dict(self.layers.named_parameters())
+            held = next(iter(stacked.values())).shape[0]
+            mesh = get_active_mesh()
+            if self.pipeline_microbatches > 0 and mesh is not None and mesh.model > 1:
+                return self.final_norm(self._pipelined(x, bias, stacked, held, mesh)), []
+            if held != self.depth:
+                raise ValueError(f"{held} of {self.depth} layers held: a placed pipeline "
+                                 "runs under its mesh (active_mesh)")
             for i in range(self.depth):
                 x, aux = torch.func.functional_call(
                     self.layers, {k: p[i] for k, p in stacked.items()}, (x, bias))
@@ -158,6 +187,22 @@ class CausalTransformer(nn.Module):
                 x, aux = getattr(self, f"ff{i}")(x + getattr(self, f"attn{i}")(x, attn_bias=bias))
                 auxes.append(aux)
         return self.final_norm(x), [a for a in auxes if a is not None]
+
+    def _pipelined(self, x, bias, stacked, held: int, mesh: Mesh):
+        """The stack as a pipeline over the mesh's model axis: this rank's
+        stage is its placed block, or its slices of a whole stack."""
+        if held == self.depth:
+            stage = stage_slices(stacked, mesh)
+        elif held * mesh.model == self.depth:
+            stage = stacked
+        else:
+            raise ValueError(f"{held} of {self.depth} layers held over {mesh.model} stages")
+
+        def layer_fn(p, xb, *bb):
+            return torch.func.functional_call(self.layers, p, (xb, bb[0] if bb else None))[0]
+
+        return pipeline_apply(layer_fn, stage, x, mesh, microbatches=self.pipeline_microbatches,
+                              broadcast_args=() if bias is None else (bias,))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,10 +228,6 @@ class PriorNetworkConfig:
 class DiffusionPriorNetwork(nn.Module):
     def __init__(self, cfg: PriorNetworkConfig):
         super().__init__()
-        if cfg.pipeline_microbatches > 0:
-            raise NotImplementedError(
-                "pipeline_microbatches > 0 (GPipe over a mesh's model axis) is not ported "
-                "yet; the stacked layout alone is scan_layers")
         self.cfg = cfg
         d = cfg.dim
         self.time_proj = Dense(d, d)
@@ -201,7 +242,8 @@ class DiffusionPriorNetwork(nn.Module):
             d, cfg.depth, cfg.heads, cfg.dim_head,
             rotary=cfg.rotary_emb, rel_pos_bias=cfg.rel_pos_bias, swiglu_ff=cfg.swiglu_ff,
             scan_layers=cfg.scan_layers, ff_experts=cfg.ff_experts,
-            moe_capacity_factor=cfg.moe_capacity_factor)
+            moe_capacity_factor=cfg.moe_capacity_factor,
+            pipeline_microbatches=cfg.pipeline_microbatches)
 
     def forward(self, video_embed_noisy, time, *, text_embed, text_encodings=None,
                 text_keep_mask=None, self_cond=None, return_aux: bool = False):
@@ -245,10 +287,11 @@ class DiffusionPriorConfig:
     training_clamp_l2norm: bool = False
 
 
-def prior_from_config(cfg: Dict[str, Any], device: DeviceLike = None) -> "DiffusionPrior":
+def prior_from_config(cfg: Dict[str, Any], device: DeviceLike = None,
+                      mesh: Optional[Mesh] = None) -> "DiffusionPrior":
     """Build the prior from the config's ``prior:`` block and global ``dim``
     (the keys JAX ``prior_from_config`` reads: ``pipeline_microbatches``
-    implies the stacked layout, and raises here)."""
+    implies the stacked layout), placed on ``mesh`` when given."""
     pc = cfg["prior"]
     pipe_mb = int(pc.get("pipeline_microbatches", 0))
     return DiffusionPrior(
@@ -265,18 +308,47 @@ def prior_from_config(cfg: Dict[str, Any], device: DeviceLike = None) -> "Diffus
             timesteps=pc["timesteps"],
             sample_timesteps=pc["sample_timesteps"],
         ),
-        device=device,
+        device=device, mesh=mesh,
     )
+
+
+def prior_specs(network: nn.Module, mesh: Optional[Mesh]) -> Dict[str, Spec]:
+    """The network's placement on ``mesh`` (spec per parameter name): the
+    pipeline's stages (``pipeline_sharding_tree``) or the experts
+    (``moe_sharding_tree``) over the model axis; nothing off a mesh or on
+    a model axis of one rank. The two take the same axis: both at once
+    raise."""
+    cfg = network.cfg
+    if mesh is None or mesh.model == 1:
+        return {}
+    if cfg.pipeline_microbatches > 0 and cfg.ff_experts > 0:
+        raise ValueError("pipeline and expert parallelism both take the mesh's model axis: "
+                         "enable one per run (pipeline_microbatches or ff_experts)")
+    named = dict(network.named_parameters())
+    if cfg.pipeline_microbatches > 0:
+        return pipeline_sharding_tree(named, mesh)
+    if cfg.ff_experts > 0:
+        return moe_sharding_tree(named, mesh)
+    return {}
 
 
 class DiffusionPrior:
     """Engine: the training loss and best-of-N reranked DDIM sampling in
-    embed space, on ``device`` (CUDA by default)."""
+    embed space, on ``device`` (CUDA by default). With a ``mesh`` the
+    network is built whole on the host, cut to this rank's blocks by
+    ``prior_specs`` (``specs``), then moved: run it under
+    ``active_mesh(mesh)``."""
 
-    def __init__(self, config: DiffusionPriorConfig, device: DeviceLike = None):
+    def __init__(self, config: DiffusionPriorConfig, device: DeviceLike = None,
+                 mesh: Optional[Mesh] = None):
         self.config = config
         self.device = resolve_device(device)
-        self.network = DiffusionPriorNetwork(config.network).to(self.device).eval()
+        self.mesh = mesh
+        network = DiffusionPriorNetwork(config.network)
+        self.specs = prior_specs(network, mesh)
+        if self.specs:
+            place_blocks(network, self.specs, mesh)
+        self.network = network.to(self.device).eval()
         self.schedule = DiffusionSchedule.create(
             config.beta_schedule, config.timesteps, device=self.device,
             loss_type=config.loss_type)

@@ -1,9 +1,9 @@
 """The data and model axes on ``torch.distributed`` (port of
 dalle2_video_tpu/parallel/): the mesh (``mesh.py``), differentiable
 collectives (``collectives.py``), the sharded train / sample steps with
-ZeRO-1 and tensor-parallel placement (``sharded.py``) and
-sequence-parallel attention (``sp_attention.py``). The prior's GPipe
-pipeline (JAX ``pipeline.py``) is not ported."""
+ZeRO-1 and tensor-parallel placement (``sharded.py``),
+sequence-parallel attention (``sp_attention.py``) and the prior's GPipe
+pipeline (``pipeline.py``; its expert parallelism is ``models/moe.py``'s)."""
 
 from dalle2_video_tpu_torch.parallel.mesh import (
     DATA_AXIS,

@@ -1,6 +1,7 @@
 """Differentiable collectives over one mesh axis, built from the three
-every backend has (all-reduce, all-gather, broadcast): gloo has no
-reduce-scatter, so a reduce-scatter is an all-reduce and a slice.
+every backend has (all-reduce, all-gather, broadcast) and point-to-point
+sends: gloo has no reduce-scatter, so a reduce-scatter is an all-reduce and
+a slice.
 
 Each function says what a value is on the axis -- replicated (every rank
 holds the same) or sharded (each rank its block) -- because that decides
@@ -18,11 +19,14 @@ inflate the gradient by the axis size. So:
   ``sum_cotangent``     identity; backward: the cotangent summed over the
                         axis (a replicated input used by a sharded part);
   ``psum``              the sum over the axis; backward: identity (each
-                        rank's part of a sum every rank then holds).
+                        rank's part of a sum every rank then holds);
+  ``ppermute``          sharded -> sharded: rank i's value to rank
+                        (i + shift) mod S of the ring (JAX ``lax.ppermute``);
+                        backward: the inverse permute (shift -> -shift).
 
 A ``group`` of None is a one-rank axis: every function is the identity.
-The raw collectives (``all_reduce_``, ``all_gather_list``, ``broadcast_``)
-run a gloo group's CUDA tensors on host copies (gloo stages CUDA through
+The raw collectives (``all_reduce_``, ``all_gather_list``, ``broadcast_``,
+``ppermute_``) run a gloo group's CUDA tensors on host copies (gloo stages CUDA through
 the host; this keeps to the collectives every gloo build carries for CPU
 tensors), NCCL's on the device.
 """
@@ -75,6 +79,27 @@ def broadcast_(x: torch.Tensor, src: int, group) -> torch.Tensor:
     else:
         dist.broadcast(x, src=src, group=group)
     return x
+
+
+def ppermute_(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """The x of ring member (i - shift) mod S, received while this rank's x
+    goes to (i + shift) mod S (no gradient). Both transfers are posted at
+    once (``batch_isend_irecv``), so neither side blocks first; a one-rank
+    group, or a shift by a multiple of S, is the identity."""
+    n = _size(group)
+    if n == 1 or shift % n == 0:
+        return x
+    i = _rank(group)
+    host = _on_host(x, group)
+    src = x.detach().contiguous()
+    if host:
+        src = src.cpu()
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, dist.get_global_rank(group, (i + shift) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (i - shift) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(x.device) if host else out
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -153,6 +178,17 @@ class _Psum(torch.autograd.Function):
         return g, None
 
 
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return ppermute_(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute_(g, ctx.group, -ctx.shift), None, None
+
+
 def gather_sharded(x, group, dim: int = 0):
     return x if group is None else _GatherSharded.apply(x, group, dim)
 
@@ -171,3 +207,10 @@ def sum_cotangent(x, group):
 
 def psum(x, group):
     return x if group is None else _Psum.apply(x, group)
+
+
+def ppermute(x, group, shift: int = 1):
+    """Differentiable ``ppermute_``. Its backward is itself a collective:
+    every rank of the group must reach it (each rank's output feeds its
+    loss), in the same order."""
+    return x if group is None else _Ppermute.apply(x, group, shift)

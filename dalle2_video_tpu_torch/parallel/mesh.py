@@ -82,6 +82,14 @@ class Mesh:
     def coords(self, rank: int) -> Dict[str, int]:
         return {DATA_AXIS: rank // self.model, MODEL_AXIS: rank % self.model}
 
+    def row(self) -> "Mesh":
+        """This rank's row of the model axis as a mesh of its own (data 1):
+        what each replica runs under where every data row does the same
+        work on the whole batch (the prior's pipeline and experts: the JAX
+        script passes every batch whole)."""
+        return Mesh(1, self.model, self.model_index, self.device, self.backend,
+                    model_group=self.model_group, world_group=self.model_group)
+
 
 @contextlib.contextmanager
 def active_mesh(mesh: Optional[Mesh]) -> Iterator[Optional[Mesh]]:

@@ -118,6 +118,48 @@ def block_slices(shape: Sequence[int], spec: Spec, mesh: Mesh, rank: int) -> Tup
     return tuple(out)
 
 
+def split_axes(spec: Spec, mesh: Mesh) -> List[Tuple[int, str]]:
+    """(dim, axis) of each dim ``spec`` splits over an axis of more than one
+    rank."""
+    return [(d, a) for d, a in enumerate(spec) if a is not None and mesh.shape[a] > 1]
+
+
+def local_block(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of a whole tensor ``t`` under ``spec`` (a view)."""
+    return t[block_slices(t.shape, spec, mesh, mesh.rank)]
+
+
+def whole_shape(block: torch.Tensor, spec: Spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of the whole tensor whose block under ``spec`` is ``block``."""
+    shape = list(block.shape)
+    for d, a in split_axes(spec, mesh):
+        shape[d] *= mesh.shape[a]
+    return tuple(shape)
+
+
+def gather_whole(block: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec`` (the blocks
+    gathered over each split axis; collective over those axes' groups)."""
+    for d, a in split_axes(spec, mesh):
+        block = all_gather_cat(block.contiguous(), mesh.group(a), d)
+    return block
+
+
+@torch.no_grad()
+def place_blocks(module: torch.nn.Module, specs: Mapping[str, Spec], mesh: Mesh) -> None:
+    """Replace each parameter of ``module`` that its spec splits over the
+    mesh by this rank's block of it (a new parameter: the whole tensor is
+    freed once nothing else holds it). Place a module before moving it to
+    the device, so the device never holds another rank's blocks."""
+    for name, spec in specs.items():
+        if not split_axes(spec, mesh):
+            continue
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner)
+        setattr(sub, leaf, torch.nn.Parameter(local_block(getattr(sub, leaf), spec,
+                                                          mesh).clone()))
+
+
 class ShardedOptimizer:
     """A torch optimiser (AdamW for the decoder) over this rank's blocks of
     its parameters (``specs``: one per parameter, in the optimiser's order):

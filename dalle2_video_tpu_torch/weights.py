@@ -184,14 +184,26 @@ def load_clip_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
 def load_prior_train_state_from_jax(trainer, state: Mapping[str, Any]) -> None:
     """Strict load of the JAX prior's training state, given as numpy trees:
     ``{"params": flax params, "opt_state": {"mu", "nu": trees, "count":
-    int}, "ema": {"params": tree, "step": int} or None, "step": int}``."""
+    int}, "ema": {"params": tree, "step": int} or None, "step": int}``. The
+    trees are whole; a trainer placed on a mesh keeps each rank's blocks
+    (``PriorTrainer.local``)."""
     net = trainer.prior.network
-    load_from_jax(net, state["params"])
     own = dict(net.named_parameters())
+    whole = {k: torch.empty(trainer.whole_shape(k, p), device="meta") for k, p in own.items()}
+
+    def local(tree, what):
+        return {k: trainer.local(k, v) for k, v in _strict(tree, whole, what).items()}
+
+    net.load_state_dict(local(state["params"], "prior params"), strict=True)
     opt = state["opt_state"]
-    _set_adam(trainer.optimizer, own, _strict(opt["mu"], own, "prior mu"),
-              _strict(opt["nu"], own, "prior nu"), opt["count"])
-    _load_ema(trainer.ema, state["ema"], "prior ema")
+    _set_adam(trainer.optimizer, own, local(opt["mu"], "prior mu"),
+              local(opt["nu"], "prior nu"), opt["count"])
+    if (state["ema"] is None) != (trainer.ema is None):
+        raise ValueError("prior ema: EMA present in one of state and trainer only")
+    if trainer.ema is not None:
+        for k, v in local(state["ema"]["params"], "prior ema").items():
+            trainer.ema.params[k].copy_(v)
+        trainer.ema.step = int(np.asarray(state["ema"]["step"]))
     trainer.step = int(np.asarray(state["step"]))
 
 

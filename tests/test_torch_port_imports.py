@@ -58,9 +58,9 @@ def test_source_scan_finds_no_banned_import():
     assert {*(f"dalle2_video_tpu_torch.models.{m}" for m in ("vae", "vqvae", "discriminator")),
             "dalle2_video_tpu_torch.train.vqgan_trainer",
             "dalle2_video_tpu_torch.train.train_vqgan"} <= set(_modules())
-    # and the data and model axes on torch.distributed
+    # and the data and model axes on torch.distributed, the prior's pipeline
     assert {f"dalle2_video_tpu_torch.parallel.{m}" for m in (
-        "mesh", "collectives", "sharded", "sp_attention")} | {
+        "mesh", "collectives", "sharded", "sp_attention", "pipeline")} | {
         "dalle2_video_tpu_torch.probes.parallel_steps"} <= set(_modules())
 
 

@@ -5,7 +5,7 @@ weights), the prior network, loss (the self-conditioning coin both ways,
 the MoE aux) and gradients with ``ff_experts``, ``self_cond``,
 ``swiglu_ff=False`` and ``scan_layers``, the self-conditioned
 ``sample_loop`` under CFG, the bridge's stacked layout, ``prior_from_config``
-and the refusals of the pipeline.
+and the pipelined prior's fallback off a mesh.
 
 A tiny prior (dim 16, depth 2, 2 heads of 8, 100 timesteps), f32, its JAX
 parameters drawn from a seeded normal in the JAX layout (``jax_tree_of``)
@@ -333,13 +333,30 @@ def test_prior_from_config_reads_the_jax_keys_and_refuses_the_pipeline():
     """prior_from_config reads the keys JAX prior_from_config reads (the
     stacked layout, the experts, their capacity and aux weight;
     pipeline_microbatches implies the stacked layout) into the same network
-    config; the pipeline itself (a mesh) raises."""
+    config. The pipeline no longer raises (the name predates its port):
+    with no active mesh the pipelined prior runs the local loop, and its
+    network equals JAX's fallback (tests/test_pipeline.py::
+    test_pipeline_off_mesh_falls_back_to_scan) at 2e-5, its experts too."""
     cfg = {"dim": D, "prior": dict(depth=2, heads=2, dim_head=8, timesteps=T,
                                    sample_timesteps=4, ff_experts=4, scan_layers=True,
                                    moe_capacity_factor=1.5, moe_aux_weight=0.1)}
     want = dataclasses.asdict(jax_prior_from_config(cfg).config)
     assert dataclasses.asdict(prior_from_config(cfg, CPU).config) == want
     pipe = dict(cfg, prior=dict(cfg["prior"], scan_layers=False, pipeline_microbatches=2))
-    assert jax_prior_from_config(pipe).config.network.scan_layers
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        prior_from_config(pipe, CPU)
+    jp = jax_prior_from_config(pipe)
+    assert jp.config.network.scan_layers
+    tp = prior_from_config(pipe, CPU)
+    assert dataclasses.asdict(tp.config) == dataclasses.asdict(jp.config)
+    params = jax_tree_of(tp.network, seed=6)
+    load_from_jax(tp.network, params)
+    rng = np.random.default_rng(7)
+    ve, te = (rng.standard_normal((B, D)).astype(np.float32) for _ in range(2))
+    t = np.array([0, 3, 17, 50, 88, 99], np.int32)
+
+    def fn(p, ve, t, te):
+        return jp.network.apply(p, ve, t, text_embed=te)
+
+    out = _compiled(fn, params, ve, t, te)(params, ve, t, te)
+    with torch.no_grad():
+        got = tp.network(t_(ve), t_(t).long(), text_embed=t_(te))
+    _close(got, out, 0.0, 2e-5, "pipelined network off the mesh")

@@ -236,22 +236,44 @@ def test_load_decoder_sampling_params_prefers_each_unets_ema_shadow(tmp_path):
     assert [float(sd["w"][0]) for sd in served] == [-1.0, 2.0]  # best: step 1
 
 
-@pytest.mark.parametrize("override", [("mesh.data=2",), ("prior.expert_parallel=2",),
-                                      ("prior.ff_experts=4", "prior.expert_parallel=4"),
-                                      ("prior.pipeline_microbatches=2",)],
-                         ids=["mesh.data=2", "prior.expert_parallel=2",
-                              "prior.ff_experts=4-expert_parallel=4",
-                              "prior.pipeline_microbatches=2"])
-def test_train_prior_refuses_unported_options(tmp_path, override):
-    """What needs more than one device raises: a mesh, expert parallelism,
-    the pipeline (the stacked layout and the experts themselves train:
-    tests/test_torch_port_prior_moe.py)."""
+_REFUSALS = {
+    "mesh.data=2": (("mesh.data=2",), NotImplementedError),
+    "prior.expert_parallel=2": (("prior.expert_parallel=2",), NotImplementedError),
+    "prior.ff_experts=4-expert_parallel=4": (("prior.ff_experts=4", "prior.expert_parallel=4"),
+                                             NotImplementedError),
+    "prior.pipeline_microbatches=2": (("prior.pipeline_microbatches=2",), None),
+    "prior.pipeline_microbatches=2-ff_experts=4": (("prior.pipeline_microbatches=2",
+                                                    "prior.ff_experts=4"), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", list(_REFUSALS), ids=list(_REFUSALS))
+def test_train_prior_refuses_unported_options(tmp_path, case):
+    """In one process, what needs more than one device raises: a mesh,
+    expert parallelism (no ranks hold the experts), and the pipeline and
+    the experts at once (both take the model axis: the JAX script's
+    assert). The pipeline alone no longer raises (the name predates its
+    port): in one process it trains on the local loop, its losses and
+    parameters those of the same run with scan_layers."""
+    override, error = _REFUSALS[case]
     ve, te = _embeds(3, b=6)
     np.save(tmp_path / "v.npy", ve)
     np.save(tmp_path / "t.npy", te)
-    with pytest.raises(NotImplementedError):
-        train_prior.main([f"videos.embed={tmp_path}/v.npy", f"texts.embed={tmp_path}/t.npy",
-                          "device=cpu", f"run_dir={tmp_path}", "dim=32", *override])
+    args = [f"videos.embed={tmp_path}/v.npy", f"texts.embed={tmp_path}/t.npy", "device=cpu",
+            "dim=32", "prior.depth=2", "prior.heads=2", "prior.dim_head=8",
+            "prior.batch_size=2", "prior.epochs=1", "log_level=WARNING"]
+    if error is not None:
+        with pytest.raises(error):
+            train_prior.main(args + [f"run_dir={tmp_path}", *override])
+        return
+    pipe = train_prior.main(args + [f"run_dir={tmp_path}/pipe", *override])
+    scan = train_prior.main(args + [f"run_dir={tmp_path}/scan", "prior.scan_layers=true"])
+    assert pipe["trainer"].step == scan["trainer"].step >= 1
+    assert pipe["train_loss"] == scan["train_loss"] and pipe["val_loss"] == scan["val_loss"]
+    got = pipe["trainer"].prior.network.state_dict()
+    assert any(k.startswith("transformer.layers.") for k in got)
+    for k, v in scan["trainer"].prior.network.state_dict().items():
+        assert torch.equal(got[k], v), k
 
 
 _DECODER = ["frame_sizes=[8,16]", "frame_numbers=[2,2]", "decoder.batch_size=2",
