@@ -33,6 +33,9 @@ Phases (any failure exits non-zero and prints no result line):
      two bit-equal calls (the GroupNorm kernels, rows 3, 4 and 9, too);
      rows 1, 3 and 5 also at batch 1, the distilled student's unguided
      serving batch (check_student_kernels), each summed over one DDIM step;
+     rows 1 and 2 at the curve recipe's SR bottleneck, q (b, 262144, 32),
+     kv (b, 16385, 32): row 1 in bf16 at batch 1, 2 and 4 and in f32 at 1
+     and 4, row 2 at batch 1 on the CUDA cores (check_curve_kernels);
   3. module check: small UNet3Ds with the kernel impls against the same
      weights on the plain impls, f32 and bf16; then one loss's gradients
      through both, bf16 compute over f32 masters. Two cases: the serving /
@@ -192,6 +195,28 @@ Phases (any failure exits non-zero and prints no result line):
      decoder's entry point under torchrun --nproc_per_node=1 (NCCL,
      smoke=true, mesh.data=-1) must train one batch through both unets, and
      the prior's (pipeline_microbatches 4: its local loop) its 2 steps;
+ 5j. sample_cli: python -m dalle2_video_tpu_torch.serve.sample (the README's
+     stage 5) at the serve recipe, its config asking SAMPLE_CLI_STEPS DDIM
+     steps a stage, random weights from sample_seed: the plain request
+     through the CLI's main (its .npy float32 (1, 90, 128, 128, 3), finite,
+     in [0, 1]) equal bit for bit to build_generate_batch's video for the
+     same prompt and seed at batch 1; then through the CLI's request
+     handling on that callable inpainting of frames 0 and 1 of a 64 px
+     known clip (kept within 1e-6 of it resized to 128 px), a negative
+     prompt and a long video of SAMPLE_CLI_FRAMES frames (2 windows); rows
+     1, 3 and 5 per request as the unet structure predicts;
+ 5k. curve: train/train_curve.py's recipe (configs/cascade_sr.yaml's
+     geometry, 50.2M + 14.1M parameters, bf16 compute, batch 8 then 1) at
+     CURVE_STEPS steps a stage on its blob corpus: the losses finite, the
+     last 10 steps' mean below the first 10's per stage, the mid-run reload
+     equal to the state saved before it exactly, the end sample in [0, 1];
+     then on that teacher eval_quality (CURVE_N clips, CURVE_LADDER, the
+     cascade grid), demo_inpaint's extension (its known region within
+     1e-6), demo_longvideo (CURVE_LONG_FRAMES frames), distill --curve
+     (CURVE_DISTILL_PHASES, a step each) and the SR witness
+     (CURVE_SR_STEPS steps), every number finite; rows 1 and 2 at the SR
+     unet's bottleneck (held there in phase 2: check_curve_kernels)
+     counted exactly, every backward on the CUDA cores (batch 1);
  5i. train_prior_moe: the recipe's prior with 8 experts a layer and
      self-conditioning, PRIOR_STEPS steps at batch 256 (finite loss and
      aux, every parameter moved), one best-of-2 64-step sample; no kernel;
@@ -599,6 +624,112 @@ def check_student_kernels(dev, torch, rows):
         rows[name]["student_step"] = {f"unet{u}": step[u][name] for u in (1, 2)}
     log(f"serve_student kernels at batch {STUDENT_BATCH}, one DDIM step (ms): "
         + ", ".join(f"unet {u} {step[u]}" for u in (1, 2)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The curve recipe's SR unet (train/train_curve.py: 64 x 128^2, dim mults
+# (1, 2, 4, 8), attention_impl flash) attends jointly at its 64 x 16 x 16
+# bottleneck, 16 heads of 32: q (b, 262,144, 32) against kv (b, 16,385,
+# 32), the null kv included. Its paths give row 1 (label, dtype, batch,
+# save_lse): the training forward at batch 1 in bf16 and, for the batch-1
+# backward's exact lse, again in f32 (ops/flash_mqa.py::fwd_residuals;
+# train_curve's stage 2 and the SR witness's student); the bf16 sampling
+# forwards at batch 1 (the witness's teacher), 2 (its SR samples at
+# cond_scale 1) and 4 (eval_quality's cascade grid: 2 rows under CFG); and
+# the f32 sampling forward at batch 4 (train_curve's end sample: the recipe
+# samples in f32). Row 2 at batch 1 in bf16 takes the CUDA cores (the JAX
+# rule: _bwd_xla_scan's f32 math).
+CURVE_SR_TOKENS = 64 * 16 * 16
+CURVE_FWD_CASES = [("train", "bfloat16", 1, True), ("train exact lse", "float32", 1, True),
+                   ("witness teacher", "bfloat16", 1, False),
+                   ("witness SR sample", "bfloat16", 2, False),
+                   ("cascade grid", "bfloat16", 4, False),
+                   ("end sample", "float32", 4, False)]
+CURVE_F32_CHUNK = 16384  # query rows of the f32 plain version at a time
+
+
+def check_curve_kernels(dev, torch, rows):
+    """Rows 1 and 2 at the curve recipe's SR shapes (CURVE_FWD_CASES and
+    the batch-1 backward), each held to its plain version and timed beside
+    its bound (the "curve" entries of the JSON rows). The bf16 forwards by
+    check_row1 (hold_flash and the f64 oracle); the f32 forwards to the f32
+    plain version (one softmax over every key, taken CURVE_F32_CHUNK query
+    rows at a time) within 1e-5 (out) and 1e-4 (lse) absolute, the
+    standing f32 tolerance of tests/test_torch_port_cuda.py; the backward
+    as check_backward_kernels holds its bf16 cases, on the CUDA-core route,
+    with the f32 forward's exact lse as the training path hands it."""
+    from dalle2_video_tpu_torch.ops import flash_mqa as fm
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    h, d = 16, 32
+    sc = d**-0.5
+    n = CURVE_SR_TOKENS
+    fwd = {}
+    for label, dtype, b, save_lse in CURVE_FWD_CASES:
+        q, k, v, bk = row1_case(torch, fm, g, dev, b, n, h, d)
+        shape = f"curve {label} {dtype} b={b} n_q={n * h} n_kv={n + 1} d={d}"
+        if dtype == "float32":
+            q, k, v = q.float(), k.float(), v.float()
+            got = fm.flash_mqa_fwd(q, k, v, sm_scale=sc, save_lse=save_lse)
+            again = fm.flash_mqa_fwd(q, k, v, sm_scale=sc, save_lse=save_lse)
+            outs, agains = (got if save_lse else (got,)), (again if save_lse else (again,))
+            if not all(torch.equal(x, y) for x, y in zip(outs, agains)):
+                raise AssertionError(f"flash_mqa_fwd {shape}: two calls differ")
+            err = 0.0
+            for r0 in range(0, q.shape[1], CURVE_F32_CHUNK):
+                sl = slice(r0, r0 + CURVE_F32_CHUNK)
+                ref = fm.flash_mqa_reference(q[:, sl], k, v, sc, save_lse)
+                refs = ref if save_lse else (ref,)
+                for part, o, r, atol in zip(("out", "lse"), outs, refs, (1e-5, 1e-4)):
+                    diff = float((o[:, sl] - r).abs().max())
+                    err = max(err, diff) if part == "out" else err
+                    if not diff <= atol:
+                        raise AssertionError(f"flash_mqa_fwd {shape} {part} rows {r0}+: max "
+                                             f"|diff| {diff:.3e} > {atol:g}")
+                del ref, refs
+            log(f"flash_mqa_fwd {shape}: max_abs_err={err:.3e} (out within 1e-5, lse within "
+                f"1e-4, absolute), two calls bit-equal")
+        else:
+            err = check_row1(torch, fm, f"curve {label}", q, k, v, sc, bk, save_lse)[0]
+        kms = time_ms(lambda: fm.flash_mqa_fwd(q, k, v, sm_scale=sc, save_lse=save_lse))
+        bnd, by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                        flops=4.0 * b * n * h * (n + 1) * d, exps=float(b * n * h * (n + 1)))
+        fwd[label] = dict(shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} {dtype}"
+                          + (" lse" if save_lse else ""), max_abs_err=err, ms=kms,
+                          bound_ms=bnd, bound_by=by)
+        log(f"  ms={kms:.4f} bound_ms={bnd:.4f} ({by}) [{card_line()}]")
+        del q, k, v
+    rows["flash_mqa_fwd"]["curve"] = fwd
+
+    b = 1
+    q, k, v, _ = row1_case(torch, fm, g, dev, b, n, h, d)
+    go = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+    out, lse = fm.fwd_residuals(q, k, v, sm_scale=sc)
+    before = dict(fm.BWD_KERNEL.routes)
+    got = fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=sc)
+    took = {r: c - before.get(r, 0) for r, c in fm.BWD_KERNEL.routes.items()
+            if c != before.get(r, 0)}
+    if took != {"cuda_cores": 1}:
+        raise AssertionError(f"flash_mqa_bwd curve: routes {took}, the JAX rule gives cuda_cores")
+    want = fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, sc)
+    shape = f"curve train bfloat16 b={b} n_q={n * h} n_kv={n + 1} d={d} (cuda_cores)"
+    e, tol = rel("flash_mqa_bwd", shape, ("dq", "dk", "dv"), got, want, rtol=1e-2,
+                 atol_frac=1e-3)
+    del want
+    if not all(torch.equal(x, y) for x, y in zip(
+            got, fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=sc))):
+        raise AssertionError(f"flash_mqa_bwd {shape}: two calls differ")
+    kms = time_ms(lambda: fm.flash_mqa_bwd(q, k, v, out, lse, go, sm_scale=sc), iters=5)
+    pms = time_ms(lambda: fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, sc), iters=1,
+                  warmup=1)
+    bnd, by = bound(2 * (4 * q.numel() + 4 * k.numel()) + 8 * b * n * h,
+                    flops=5 * 2.0 * b * n * h * (n + 1) * d, exps=float(b * n * h * (n + 1)))
+    rows["flash_mqa_bwd"]["curve"] = dict(
+        shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 (cuda_cores)", max_abs_err=e,
+        tolerance=tol, ms=kms, plain_ms=pms, bound_ms=bnd, bound_by=by)
+    log(f"  ms={kms:.4f} plain_ms={pms:.2f} bound_ms={bnd:.4f} ({by}) [{card_line()}]")
+    del q, k, v, go, out, lse, got
     torch.cuda.empty_cache()
     return rows
 
@@ -4498,6 +4629,287 @@ def parallel_phase(dev, torch, root: str):
     return runs, by_rank
 
 
+# "sample_cli": python -m dalle2_video_tpu_torch.serve.sample (the README's
+# stage 5) at the serve recipe, its config asking SAMPLE_CLI_STEPS DDIM
+# steps a stage: the plain request through the CLI's main, then (through
+# the CLI's request handling on one generate_batch) the same request,
+# inpainting of frames SAMPLE_CLI_KNOWN of a 64 px known clip, a negative
+# prompt and a long video of SAMPLE_CLI_FRAMES frames (2 windows).
+SAMPLE_CLI_STEPS = OPTION_STEPS
+SAMPLE_CLI_KNOWN = (0, 1)
+SAMPLE_CLI_FRAMES = 158  # 90 + (90 - 22): two windows at the default overlap
+SAMPLE_CLI_SEED = 7
+
+
+def sample_cli(dev, torch, root: str):
+    """The CLI's .npy files: float32 (1, T, 128, 128, 3), finite, in [0,
+    1]; the plain one bit for bit build_generate_batch's video for the same
+    prompt and seed at batch 1; the known frames the known clip resized to
+    128 px within 1e-6; every request's launches of rows 1, 3 and 5 as the
+    unet structure predicts (option_launches). The guided route of the same
+    callable is serve_options' (c)."""
+    import logging
+
+    import numpy as np
+
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.ops.video import resize_video
+    from dalle2_video_tpu_torch.serve import sample
+    from dalle2_video_tpu_torch.serve.stack import build_generate_batch
+    from dalle2_video_tpu_torch.utils.config import config_from_argv
+
+    card = card_line()
+    prompt = "a person smiling"
+    argv = [*SERVE_PATHS["serve"]["overrides"],
+            f"sample_timesteps=[{SAMPLE_CLI_STEPS},{SAMPLE_CLI_STEPS}]",
+            f"run_dir={root}/no_checkpoints", f"sample_seed={SAMPLE_CLI_SEED}",
+            f"prompt={prompt}", "cond_scale=3.0"]
+    cfg = config_from_argv(argv)
+    t_win, size = cfg["frame_numbers"][-1], cfg["frame_sizes"][-1]
+    known = np.random.default_rng(0).random((t_win, cfg["frame_sizes"][0],
+                                             cfg["frame_sizes"][0], 3), dtype=np.float32)
+    np.save(f"{root}/sample_known.npy", known)
+    known_out = resize_video(torch.from_numpy(known[None]), size, clamp_range=(0.0, 1.0))[0]
+    kernels = all_kernels()
+    totals, results = Counter(), {}
+
+    def request(label, windows, fn):
+        for k in kernels:
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        vid = fn()
+        wall = time.time() - t0
+        got = {k.name: k.launches for k in kernels if k.launches}
+        want = option_launches(windows, guided=False)
+        if got != want:
+            raise AssertionError(f"sample_cli {label}: launches {got}, the unet structure "
+                                 f"gives {want}")
+        totals.update(got)
+        frames = SAMPLE_CLI_FRAMES if windows > 1 else t_win
+        if vid.dtype != np.float32 or vid.shape != (1, frames, size, size, 3):
+            raise AssertionError(f"sample_cli {label}: {vid.dtype} {vid.shape}")
+        if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+            raise AssertionError(f"sample_cli {label}: values not finite in [0, 1]")
+        results[label] = vid
+        log(f"sample_cli {label}: {wall:.3f} s ({frames / wall:.2f} frames/s, the stack's "
+            f"build included where the CLI builds it), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}; mean "
+            f"{float(vid.mean()):.3f} std {float(vid.std()):.3f} [{card}]")
+        return vid
+
+    out = f"{root}/sample_plain.npy"
+    cli = request("python -m ...serve.sample (plain)", 1,
+                  lambda: sample.main([*argv, f"out={out}"]))
+    if not np.array_equal(np.load(out), cli):
+        raise AssertionError("sample_cli: the .npy is not the video the CLI returned")
+    t0 = time.time()
+    gb = build_generate_batch(cfg, logging.getLogger("chip_smoke"), dev)
+    log(f"sample_cli: generate_batch built in {time.time() - t0:.1f} s")
+    served = request("build_generate_batch, the same prompt and seed", 1,
+                     lambda: gb([prompt], [SAMPLE_CLI_SEED], cond_scale=3.0, ddim_steps=None))
+    if not np.array_equal(cli, served):
+        raise AssertionError(f"sample_cli: the CLI's video differs from the server's by up to "
+                             f"{float(np.abs(cli - served).max()):.3e}")
+    frames = ",".join(map(str, SAMPLE_CLI_KNOWN))
+    vid = request(f"inpaint_frames={frames}", 1, lambda: sample.sample(
+        {**cfg, "inpaint_video": f"{root}/sample_known.npy", "inpaint_frames": frames,
+         "out": f"{root}/sample_inpaint.npy"}, generate_batch=gb))
+    idx = list(SAMPLE_CLI_KNOWN)
+    err = float(np.abs(vid[0, idx] - known_out[idx].numpy()).max())
+    log(f"sample_cli inpaint_frames={frames}: known frames vs the known clip at {size} px: "
+        f"max |diff| {err:.3e}")
+    if err > 1e-6:
+        raise AssertionError(f"sample_cli: the known frames moved by {err:.3e}")
+    request("negative_prompt", 1, lambda: sample.sample(
+        {**cfg, "negative_prompt": "a person frowning", "out": f"{root}/sample_negative.npy"},
+        generate_batch=gb))
+    request(f"n_frames={SAMPLE_CLI_FRAMES}", 2, lambda: sample.sample(
+        {**cfg, "n_frames": SAMPLE_CLI_FRAMES, "out": f"{root}/sample_long.npy"},
+        generate_batch=gb))
+    log(f"sample_cli: the CLI's plain video equals build_generate_batch's bit for bit; "
+        f"launches {dict(totals)}")
+    del gb
+    torch.cuda.empty_cache()
+    return {k.name: totals[k.name] for k in kernels}
+
+
+# "curve": train/train_curve.py's recipe at full width (the unets 50.2M and
+# 14.1M parameters), cut to CURVE_STEPS steps a stage (the recipe: 600) and
+# an end sample of CURVE_SAMPLE_STEPS DDIM steps a stage (the recipe: 64);
+# then on that teacher eval_quality at CURVE_N clips with CURVE_LADDER and
+# its cascade grid, demo_inpaint's extension, demo_longvideo at
+# CURVE_LONG_FRAMES frames, distill --curve at CURVE_DISTILL_PHASES (one step
+# each) and the SR witness at CURVE_SR_STEPS steps; the cascade grid, the
+# demos and the witness's reference sample at CURVE_SAMPLING_STEPS DDIM
+# steps (the scripts: 64). Unet 1 (xla attention, GroupNorm and
+# cross-attention) launches no kernel; unet 2 launches row 1 at every
+# forward (fwd_residuals: twice where it is differentiated at batch 1) and
+# row 2 at every backward, all held in phase 2 (check_curve_kernels).
+CURVE_STEPS = 50
+CURVE_SAMPLE_STEPS = 4
+CURVE_SAMPLING_STEPS = 16
+CURVE_N = 16
+CURVE_LADDER = (8, 16)
+CURVE_LONG_FRAMES = 32
+CURVE_LONG_N = 4
+CURVE_DISTILL_PHASES = (32, 16)
+CURVE_SR_STEPS = 2
+
+
+def curve_launches(train_steps=0, sr_forwards=0, sr_samples=0, witness_steps=0):
+    """Rows 1 and 2 of a curve run: per SR-unet train step (batch 1) two
+    forwards and a backward; one forward per SR sampling step; per SR
+    witness step two teacher forwards, the student's two and a backward."""
+    fwd = 2 * train_steps + sr_forwards + sr_samples + 4 * witness_steps
+    return {k: v for k, v in (("flash_mqa_fwd", fwd),
+                              ("flash_mqa_bwd", train_steps + witness_steps)) if v}
+
+
+def curve_phase(dev, torch, root: str):
+    """The curve run: per stage the losses finite and the last 10 steps'
+    mean below the first 10's, the mid-run reload equal to the state saved
+    before it exactly, ms a step and peak memory printed; the end sample
+    finite in [0, 1]. Then the scripts on its teacher, each result finite
+    (the inpainting's known region within 1e-6). Every run's launches of
+    rows 1 and 2 exact (curve_launches), every backward on the CUDA cores."""
+    import copy
+    import dataclasses
+    from pathlib import Path
+    from unittest import mock
+
+    from dalle2_video_tpu_torch.ops._cuda import all_kernels
+    from dalle2_video_tpu_torch.ops.flash_mqa import BWD_KERNEL
+    from dalle2_video_tpu_torch.train import (demo_inpaint, demo_longvideo, distill,
+                                              distill_sr_demo, eval_quality, train_curve)
+
+    card = card_line()
+    kernels = all_kernels()
+    totals = Counter()
+    run = Path(root) / "r2_curve"
+
+    def counted(label, want, fn):
+        for k in kernels:
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = fn()
+        wall = time.time() - t0
+        got = {k.name: k.launches for k in kernels if k.launches}
+        if got != want:
+            raise AssertionError(f"curve {label}: launches {got}, the structure gives {want}")
+        if want.get("flash_mqa_bwd") and BWD_KERNEL.routes != {
+                "cuda_cores": want["flash_mqa_bwd"]}:
+            raise AssertionError(f"curve {label}: flash backward routes {BWD_KERNEL.routes}, "
+                                 "the JAX rule gives the CUDA cores at batch 1")
+        totals.update(got)
+        log(f"curve {label}: {wall:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {got} [{card}]")
+        return out
+
+    saved, loaded = [], []
+    save, load = train_curve.save_checkpoint, train_curve.load_checkpoint
+
+    def saving(path, state):
+        if not loaded:  # the last save before the reload; its tensors live on in the trainer
+            saved[:] = [copy.deepcopy(state)]
+        return save(path, state)
+
+    def loading(path, **kw):
+        state = load(path, **kw)
+        loaded.append(copy.deepcopy(state))  # the optimiser may keep these tensors
+        return state
+
+    with mock.patch.object(train_curve, "save_checkpoint", saving), \
+            mock.patch.object(train_curve, "load_checkpoint", loading):
+        out = counted(f"train_curve ({CURVE_STEPS} steps a stage)",
+                      curve_launches(CURVE_STEPS, sr_samples=CURVE_SAMPLE_STEPS),
+                      lambda: train_curve.train_curve(run, CURVE_STEPS, dev,
+                                                      sample_steps=CURVE_SAMPLE_STEPS))
+    if len(loaded) != 1:
+        raise AssertionError(f"curve: {len(loaded)} reloads, the run exercises one")
+    _same_state(loaded[0], saved[0], "the mid-run reload")
+    summary = json.loads((run / "summary.json").read_text())
+    for u in ("1", "2"):
+        first, last = summary["loss_first10_mean"][u], summary["loss_last10_mean"][u]
+        if not (math.isfinite(first) and math.isfinite(last) and last < first):
+            raise AssertionError(f"curve stage {u}: loss of the first 10 steps {first}, of the "
+                                 f"last 10 {last}")
+    sample_range = summary["sample_range"]
+    if not (sample_range[0] >= 0.0 and sample_range[1] <= 1.0):
+        raise AssertionError(f"curve: the end sample's range {sample_range}")
+    log(f"curve train_curve: {CURVE_STEPS} steps a stage, the mid-run reload (stage 1 step "
+        f"{CURVE_STEPS // 2}) equal to the saved state; ms a step "
+        f"{ {u: round(v, 2) for u, v in summary['ms_per_step'].items()} }, peak memory GiB "
+        f"{ {u: round(v, 2) for u, v in summary['peak_memory_gib'].items()} }, loss first 10 "
+        f"{summary['loss_first10_mean']} last 10 {summary['loss_last10_mean']}; end sample "
+        f"{summary['sample_shape']} at {CURVE_SAMPLE_STEPS} DDIM steps a stage in "
+        f"{summary['sample_s']:.1f} s [{card}]")
+    del out
+
+    steps = (CURVE_SAMPLING_STEPS,) * 2
+    grid_config = dataclasses.replace(eval_quality.eval_config(), sample_timesteps=steps)
+    with mock.patch.object(eval_quality, "eval_config", lambda: grid_config):
+        res = counted(f"eval_quality (N {CURVE_N}, ladder {CURVE_LADDER}, the cascade grid)",
+                      curve_launches(sr_samples=CURVE_SAMPLING_STEPS),
+                      lambda: eval_quality.eval_quality(run, Path(root) / "eval_quality",
+                                                        CURVE_N, CURVE_LADDER, device=dev))
+    finite_results("eval_quality", res)
+    log(f"curve eval_quality: anchors {res['fvd_real_vs_real_splithalf']!r} (real vs real) "
+        f"{res['fvd_real_vs_noise']!r} (real vs noise); "
+        + ", ".join(f"DDIM-{st} FVD {res[f'fvd_ddim{st}']!r} in {res[f'sample_s_ddim{st}']:.2f} s"
+                    for st in CURVE_LADDER)
+        + f"; cascade grid {res['cascade_sample_shape']} in {res['cascade_sample_s']:.2f} s")
+    with mock.patch.object(demo_inpaint, "STEPS", CURVE_SAMPLING_STEPS):
+        res = counted("demo_inpaint (extend)", {},
+                      lambda: demo_inpaint.demo_inpaint(run, Path(root) / "demo_inpaint",
+                                                        CURVE_N, (("extend", "replace"),), dev))
+    finite_results("demo_inpaint", res)
+    if not res["extend_known_max_err"] <= 1e-6:
+        raise AssertionError(f"demo_inpaint: the known frames moved by "
+                             f"{res['extend_known_max_err']}")
+    log(f"curve demo_inpaint extend: known region max |err| {res['extend_known_max_err']:.3e}, "
+        f"FVD {res['extend_fvd']!r}, {res['extend_sample_s']:.2f} s")
+    with mock.patch.object(demo_longvideo, "STEPS", CURVE_SAMPLING_STEPS):
+        res = counted(f"demo_longvideo ({CURVE_LONG_N} clips of {CURVE_LONG_FRAMES} frames)",
+                      {}, lambda: demo_longvideo.demo_longvideo(
+                          run, Path(root) / "demo_longvideo", CURVE_LONG_N, CURVE_LONG_FRAMES,
+                          CURVE_N, dev))
+    finite_results("demo_longvideo", res)
+    log(f"curve demo_longvideo: FVD windows {res['fvd_windows']!r}, first "
+        f"{res['fvd_first_window']!r}, last {res['fvd_last_window']!r}; seam flicker ratio "
+        f"{res['ratio']!r}; {res['sample_s']:.2f} s")
+    with mock.patch.object(distill, "PHASES", CURVE_DISTILL_PHASES), \
+            mock.patch.object(distill, "N_EVAL", CURVE_N):
+        res = counted(f"distill --curve (phases {CURVE_DISTILL_PHASES}, one step each)", {},
+                      lambda: distill.distill_curve(run, Path(root) / "distill_curve", 1, dev))
+    finite_results("distill --curve", res)
+    log("curve distill --curve: " + ", ".join(
+        f"student {s} FVD {res[f'fvd_student{s}']!r}" for s in CURVE_DISTILL_PHASES)
+        + f"; anchor {res['fvd_real_vs_real_splithalf']!r}")
+    sr = distill_sr_demo.STUDENT_STEPS
+    with mock.patch.object(distill_sr_demo, "REF_STEPS", CURVE_SAMPLING_STEPS):
+        res = counted(f"distill_sr_demo ({CURVE_SR_STEPS} steps)",
+                      curve_launches(sr_samples=CURVE_SAMPLING_STEPS + 2 * sr,
+                                     witness_steps=CURVE_SR_STEPS),
+                      lambda: distill_sr_demo.distill_sr_demo(run, Path(root) / "distill_sr",
+                                                              CURVE_SR_STEPS, dev))
+    finite_results("distill_sr_demo", res)
+    log(f"curve distill_sr_demo: PSNR vs the teacher's {CURVE_SAMPLING_STEPS}-step SR: "
+        f"teacher {sr} steps {res['psnr_teacher8_vs_ref64']!r}, student "
+        f"{res['psnr_student8_vs_ref64']!r}; SR sampling s {res['sr_sample_s']}")
+    torch.cuda.empty_cache()
+    return {k.name: totals[k.name] for k in kernels}
+
+
+def finite_results(label, res):
+    """Every number of a script's results finite (FVDs not below -1e-6)."""
+    bad = {k: v for k, v in res.items() if isinstance(v, float) and not (
+        math.isfinite(v) and (v >= -1e-6 or not k.startswith("fvd")))}
+    if bad:
+        raise AssertionError(f"{label}: results {bad}")
+
+
 # "train_prior_moe": the recipe's prior (depth 6, dim 512, 8 x 64 heads)
 # with a top-2 mixture of 8 experts in every layer (prior.ff_experts 8)
 # and self-conditioning (neither has a config key the JAX prior_from_config
@@ -4739,9 +5151,9 @@ def main() -> int:
         log(f"phase {name}: {phases[name]:.1f} s")
         return out
 
-    rows = phase("kernels", lambda: check_probe_kernels(dev, torch, check_conv_kernels(
-        dev, torch, check_backward_kernels(dev, torch, check_student_kernels(
-            dev, torch, check_kernels(dev, torch))))))
+    rows = phase("kernels", lambda: check_curve_kernels(dev, torch, check_probe_kernels(
+        dev, torch, check_conv_kernels(dev, torch, check_backward_kernels(
+            dev, torch, check_student_kernels(dev, torch, check_kernels(dev, torch)))))))
 
     def module_checks():
         for case in MODULE_CASES:
@@ -4780,6 +5192,8 @@ def main() -> int:
         runs["latent"] = phase("latent", latent_phase, dev, torch, stages)
         par_runs, par_by_rank = phase("parallel", parallel_phase, dev, torch, root)
         runs.update(par_runs)
+        runs["sample_cli"] = phase("sample_cli", sample_cli, dev, torch, root)
+        runs["curve"] = phase("curve", curve_phase, dev, torch, root)
     runs["train_prior_moe"] = phase("train_prior_moe", train_prior_moe, dev, torch)
     runs["probes"] = phase("probes", probes, dev, torch)
     log("phase times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
@@ -4801,7 +5215,8 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "check": "ok", "tolerance": r["tolerance"], "shape": r["shape"]}
         for extra in ("conv_alone_ms", "variants", "library_fwd_bwd_ms", "probe_geometry",
-                      "serve_step", "block_k_2048", "text", "student_step", "latent"):
+                      "serve_step", "block_k_2048", "text", "student_step", "latent",
+                      "curve"):
             if extra in r:
                 row[extra] = r[extra]
         out.append(row)

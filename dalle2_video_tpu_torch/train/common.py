@@ -1,10 +1,14 @@
 """What the training entry points share: the single-device check and the
 train / val loaders (the decoder's ``python -m dalle2_video_tpu_torch.train``,
-``train.train_clip`` and ``train.train_prior``)."""
+``train.train_clip`` and ``train.train_prior``), and the resumable
+``results.json`` of the scoring scripts (``train.distill``,
+``train.eval_quality``, ``train.demo_inpaint``)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import json
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,3 +46,18 @@ def make_loaders(cfg: Dict[str, Any], dataset, splits: Dict[str, np.ndarray], de
                 make_worker_loader(dataset, bs, splits["val"], shuffle=False, **kw))
     return (BatchLoader(dataset, bs, splits["train"], shuffle=True, seed=cfg["seed"], **shard),
             BatchLoader(dataset, bs, splits["val"], shuffle=False, **shard))
+
+
+def results_file(out: Path, fresh: Optional[Dict[str, Any]] = None
+                 ) -> Tuple[Dict[str, Any], Callable[[], None]]:
+    """``<out>/results.json``'s results (empty where there is none) with
+    ``fresh`` merged over them, and the flush that writes them back: a
+    rerun keeps what an earlier run scored."""
+    path = Path(out) / "results.json"
+    results = json.loads(path.read_text()) if path.exists() else {}
+    results.update(fresh or {})
+
+    def flush():
+        path.write_text(json.dumps(results, indent=1))
+
+    return results, flush

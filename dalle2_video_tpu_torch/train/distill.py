@@ -60,8 +60,7 @@ the FVD (``utils/fvd.py``, its fixed-seed ViViT extractor) of each
 phase's EMA student, sampled alone at its own step count and cond_scale 1
 (``stop_at_unet_number`` 1, one request seed ``SEED_BASE`` + i per
 sample), against min(``N_EVAL``, held-out) clips of the data path's
-held-out split (the JAX script's blob videos and their teacher are not
-in the repository), embedded once, with a split-half real-vs-real anchor.
+held-out split, embedded once, with a split-half real-vs-real anchor.
 The space the reals are scored in: the stores hold CLIP-normalised
 values, which the decoder maps by x 2 - 1 as if they were [0, 1]
 pictures, so a sample is the store's values clamped to [0, 1]; the reals
@@ -72,13 +71,22 @@ The students sample through the serve recipe's cross-attention kernel
 scores only the phases without a score. ``results.json`` gains
 ``extractor``, ``fvd_real_vs_real_splithalf``, ``fvd_student<n>`` and
 ``sample_s_student<n>``.
+
+The JAX script's own data source is the curve teacher (``--curve
+runs/r2_curve``, ``distill_curve``): unet 1 of ``train/train_curve.py``'s
+EMA cascade, fresh blob batches from RandomState(0) fed to the decoder as
+the [0, 1] pictures they are, and the scoring on ``N_EVAL`` held-out blob
+clips (RandomState(123), ``train/eval_quality.py``'s reals), sampled
+through the curve's own decoder (bf16, xla cross-attention):
+
+    python -m dalle2_video_tpu_torch.train.distill --curve runs/r2_curve \
+        [--run runs/distill] [--steps 400] [device=cuda]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import logging
 import time
 from pathlib import Path
@@ -97,7 +105,7 @@ from dalle2_video_tpu_torch.train.checkpoint import (
     load_decoder_sampling_params,
     save_checkpoint,
 )
-from dalle2_video_tpu_torch.train.common import check_single_device, make_loaders
+from dalle2_video_tpu_torch.train.common import check_single_device, make_loaders, results_file
 from dalle2_video_tpu_torch.utils.config import config_from_argv
 from dalle2_video_tpu_torch.utils.device import DeviceLike, resolve_device
 from dalle2_video_tpu_torch.utils.fvd import embed_all, fvd_from_features, vivit_embed_fn
@@ -417,6 +425,7 @@ LOG_EVERY = 50
 N_EVAL = 64  # held-out clips scored (at most the split's)
 EVAL_BATCH = 16
 SEED_BASE = 1000  # sample i's request seed: SEED_BASE + i (the script's PRNGKey(1000 + s))
+CURVE_BATCH = 8  # blob clips a distill step of the curve teacher
 SCORE_SPACE = ("the store's values (CLIP-normalised) at the stage's geometry (nearest), "
                "clamped to [0, 1]; samples as the decoder returns them, clamped to [0, 1]")
 
@@ -471,9 +480,21 @@ def score_students(cfg: Dict[str, Any], dataset, splits: Dict[str, Any],
     decoder = build_decoder({**cfg, **{u: dict(cfg[u], cross_attention_impl="flash")
                                        for u in ("unet1", "unet2")}}, dev)
     reals, embeds = held_out_reals(dataset, np.asarray(splits["val"][:n]), decoder)
-    embed_fn, provenance = vivit_embed_fn(device=dev)
-    results.setdefault("extractor", provenance)
     results["score_space"] = SCORE_SPACE
+    score_phases(decoder, reals, embeds, emas, results, flush)
+
+
+def score_phases(decoder: VideoDecoder, reals, embeds, emas: Dict[int, Params],
+                 results: Dict[str, Any], flush) -> Optional[torch.Tensor]:
+    """The FVD of each phase's EMA student (loaded into ``decoder``'s unet
+    1, sampled unguided at its own step count, one request seed
+    ``SEED_BASE`` + i per sample) against ``reals`` (n, T, H, W, C) in [0,
+    1], beside the split-half anchor, into ``results``; ``flush()`` after
+    the anchor and after each student. A phase already scored is skipped.
+    Returns the last phase's samples where it was scored here."""
+    n = len(reals)
+    embed_fn, provenance = vivit_embed_fn(device=decoder.device)
+    results.setdefault("extractor", provenance)
     feats_real = embed_all(reals, embed_fn, EVAL_BATCH)  # embedded once
     half = n // 2
     results["fvd_real_vs_real_splithalf"] = fvd_from_features(feats_real[:half],
@@ -481,6 +502,7 @@ def score_students(cfg: Dict[str, Any], dataset, splits: Dict[str, Any],
     log.info("anchor (real vs real, split half): %.4f", results["fvd_real_vs_real_splithalf"])
     flush()
     own = dict(decoder.unets[0].named_parameters())
+    last = None
     for steps in PHASES:
         tag = f"student{steps}"
         if f"fvd_{tag}" in results:
@@ -502,6 +524,50 @@ def score_students(cfg: Dict[str, Any], dataset, splits: Dict[str, Any],
         log.info("%s: FVD %.4f (%.1f s to sample %d)", tag, results[f"fvd_{tag}"],
                  results[f"sample_s_{tag}"], n)
         flush()
+        if steps == PHASES[-1]:
+            last = fakes
+    return last
+
+
+def run_phases(decoder: VideoDecoder, teacher: Params, run: Path, steps_per_phase: int,
+               next_batch, results: Dict[str, Any], flush):
+    """The halving phases (``PHASES``; the first at ``COND_SCALE``, each
+    phase's EMA student the next one's teacher) of unet 1 from
+    ``teacher``, each ``steps_per_phase`` distill steps on ``next_batch()``
+    (videos [0, 1], video embeds) and its checkpoint
+    ``<run>/student_<steps>``; a finished phase is reloaded. Returns
+    (the EMA student of each phase by step count, the last trainer)."""
+    dev = decoder.device
+    tr = None
+    emas: Dict[int, Params] = {}
+    for phase, steps in enumerate(PHASES):
+        w = COND_SCALE if phase == 0 else 1.0
+        tr = DistillTrainer(decoder, DistillConfig(student_steps=steps,
+                                                   teacher_cond_scale=w, lr=LR),
+                            seed=100 + phase)
+        tr.init_state(teacher)
+        ck = run / f"student_{steps}"
+        if (ck / "done").exists():
+            tr.load_state_dict(load_checkpoint(str(ck / "state"), map_location=dev))
+            log.info("phase %d: reloaded its finished checkpoint", steps)
+        else:
+            losses = []
+            t0 = time.time()
+            for it in range(steps_per_phase):
+                videos, video_embed = next_batch()
+                loss = tr.distill_step(videos, video_embed=video_embed)
+                if (it + 1) % LOG_EVERY == 0 or it + 1 == steps_per_phase:
+                    losses.append(float(loss))  # one host sync per interval
+                    log.info("phase %d (w=%s) step %d: loss %.4f (%.0f ms/step)", steps, w,
+                             it + 1, losses[-1], (time.time() - t0) / (it + 1) * 1e3)
+            save_checkpoint(str(ck / "state"), tr.state_dict())
+            (ck / "done").write_text("ok")
+            results[f"phase{steps}_losses"] = losses
+            results[f"phase{steps}_ms_per_step"] = (
+                (time.time() - t0) / max(steps_per_phase, 1) * 1e3)
+            flush()
+        teacher = emas[steps] = tr.ema  # the EMA student teaches the next phase
+    return emas, tr
 
 
 def distill(cfg: Dict[str, Any], run: Path, steps_per_phase: int,
@@ -519,47 +585,19 @@ def distill(cfg: Dict[str, Any], run: Path, steps_per_phase: int,
     teacher = dict(decoder.unets[0].named_parameters())
     dataset, splits = store_dataset(cfg)
     loader, _ = make_loaders(cfg, dataset, splits, dev)
-    batches = None
-    results: Dict[str, Any] = {}
-    if (run / "results.json").exists():
-        results = json.loads((run / "results.json").read_text())
+    results, flush = results_file(run)
     as_dev = lambda a: torch.as_tensor(a).to(dev, non_blocking=True)  # noqa: E731
+    batches = None
 
-    def flush():
-        (run / "results.json").write_text(json.dumps(results, indent=1))
+    def next_batch():
+        nonlocal batches
+        batches = _batches(loader) if batches is None else batches
+        batch = next(batches)
+        return as_dev(batch["videos"]), as_dev(batch["video_embeds"])
 
-    tr = None
-    emas: Dict[int, Params] = {}
     try:
-        for phase, steps in enumerate(PHASES):
-            w = COND_SCALE if phase == 0 else 1.0
-            tr = DistillTrainer(decoder, DistillConfig(student_steps=steps,
-                                                       teacher_cond_scale=w, lr=LR),
-                                seed=100 + phase)
-            tr.init_state(teacher)
-            ck = run / f"student_{steps}"
-            if (ck / "done").exists():
-                tr.load_state_dict(load_checkpoint(str(ck / "state"), map_location=dev))
-                log.info("phase %d: reloaded its finished checkpoint", steps)
-            else:
-                batches = _batches(loader) if batches is None else batches
-                losses = []
-                t0 = time.time()
-                for it in range(steps_per_phase):
-                    batch = next(batches)
-                    loss = tr.distill_step(as_dev(batch["videos"]),
-                                           video_embed=as_dev(batch["video_embeds"]))
-                    if (it + 1) % LOG_EVERY == 0 or it + 1 == steps_per_phase:
-                        losses.append(float(loss))  # one host sync per interval
-                        log.info("phase %d (w=%s) step %d: loss %.4f (%.0f ms/step)", steps, w,
-                                 it + 1, losses[-1], (time.time() - t0) / (it + 1) * 1e3)
-                save_checkpoint(str(ck / "state"), tr.state_dict())
-                (ck / "done").write_text("ok")
-                results[f"phase{steps}_losses"] = losses
-                results[f"phase{steps}_ms_per_step"] = (
-                    (time.time() - t0) / max(steps_per_phase, 1) * 1e3)
-                flush()
-            teacher = emas[steps] = tr.ema  # the EMA student teaches the next phase
+        emas, tr = run_phases(decoder, teacher, run, steps_per_phase, next_batch, results,
+                              flush)
     finally:
         if batches is not None:
             batches.close()
@@ -567,13 +605,59 @@ def distill(cfg: Dict[str, Any], run: Path, steps_per_phase: int,
     return {**results, "trainer": tr}
 
 
+def distill_curve(curve_run: Path, run: Path, steps_per_phase: int,
+                  device: DeviceLike = None) -> Dict[str, Any]:
+    """scripts/distill_decoder.py on the curve teacher: unet 1 of
+    ``<curve_run>/last``'s EMA cascade (``train/train_curve.py``, sampled in
+    bf16 as ``train/eval_quality.py::build``) distilled through the phases
+    on fresh blob batches (``CURVE_BATCH`` clips of 16 x 64^2 a step from
+    RandomState(0): [0, 1] pictures, which the decoder maps by x 2 - 1
+    itself), then scored against ``N_EVAL`` held-out blob clips
+    (RandomState(123), eval_quality's reals) with the same extractor and
+    anchor, so a student's row compares with the teacher's ladder point of
+    its step count. Writes ``grid_student<last>.png`` beside
+    ``results.json``."""
+    from dalle2_video_tpu_torch.train.eval_quality import build, held_out, load_teacher
+    from dalle2_video_tpu_torch.train.train_curve import blob_videos
+    from dalle2_video_tpu_torch.utils.grid import save_grid
+
+    dev = resolve_device(device)
+    run.mkdir(parents=True, exist_ok=True)
+    _, decoder = build(dev)
+    load_teacher(decoder, curve_run)
+    teacher = {k: v.detach().clone() for k, v in decoder.unets[0].named_parameters()}
+    data_rng = np.random.RandomState(0)  # the training pool's stream
+    results, flush = results_file(run)
+    as_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+
+    frames, size = decoder.config.frame_numbers[0], decoder.config.frame_sizes[0]
+
+    def next_batch():
+        vids, embs = blob_videos(data_rng, CURVE_BATCH, frames, size)
+        return as_dev(vids), as_dev(embs)
+
+    emas, tr = run_phases(decoder, teacher, run, steps_per_phase, next_batch, results, flush)
+    reals, embeds = held_out(N_EVAL, frames=frames, size=size)
+    results["score_space"] = "blob clips in [0, 1]; samples as the decoder returns them"
+    fakes = score_phases(decoder, torch.from_numpy(reals), torch.from_numpy(embeds).to(dev),
+                         emas, results, flush)
+    if fakes is not None:
+        save_grid(run / f"grid_student{PHASES[-1]}.png", fakes)
+    return {**results, "trainer": tr}
+
+
 def main(argv=None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--run", default="runs/distill", help="the phases' checkpoint directory")
     ap.add_argument("--steps", type=int, default=400, help="distill steps per phase")
+    ap.add_argument("--curve", default=None,
+                    help="distill the curve teacher of this run directory on blob clips "
+                         "(train/train_curve.py) in place of the decoder checkpoint and store")
     args, rest = ap.parse_known_args(argv)
     cfg = config_from_argv(rest)
     logging.basicConfig(level=cfg.get("log_level", "INFO"))
+    if args.curve:
+        return distill_curve(Path(args.curve), Path(args.run), args.steps, cfg.get("device"))
     return distill(cfg, Path(args.run), args.steps, cfg.get("device"))
 
 

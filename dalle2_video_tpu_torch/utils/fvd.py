@@ -24,7 +24,7 @@ space by ``SPACE_METHOD`` (``resize_video``, antialiased when it shrinks).
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,20 +90,31 @@ def compute_fvd(real_videos, fake_videos, embed_fn: Callable, batch_size: int = 
                              embed_all(fake_videos, embed_fn, batch_size))
 
 
-def vivit_embed_fn(device: DeviceLike = None) -> Tuple[Callable, str]:
+def vivit_embed_fn(device: DeviceLike = None,
+                   ckpt: Optional[str] = None) -> Tuple[Callable, str]:
     """(embed_fn, provenance): the ``EXTRACTOR`` ViViT on ``device`` (CUDA by
     default), its weights from a CPU generator seeded 0 through torch's
-    initialisers. ``embed_fn`` takes (N, T, H, W, C) videos in [0, 1]
-    (NumPy or torch, any geometry: resized to the extractor's as the module
-    docstring says) and returns (N, 256) float32 NumPy features, computed in
-    f32 under no_grad."""
+    initialisers, or (``ckpt``: a trained tower, scripts/eval_quality.py's
+    ``--vivit``) the ViViT state in the checkpoint directory at ``ckpt``
+    (``train/checkpoint.py``: a bare state dict, or a training state's
+    params, loaded strictly). ``embed_fn`` takes (N, T, H, W, C) videos in
+    [0, 1] (NumPy or torch, any geometry: resized to the extractor's as the
+    module docstring says) and returns (N, 256) float32 NumPy features,
+    computed in f32 under no_grad."""
     dev = resolve_device(device)
     with init_from(torch.Generator().manual_seed(0)):
         vivit = ViViT(EXTRACTOR)
+    if ckpt:
+        from dalle2_video_tpu_torch.train.checkpoint import load_params_subtree
+
+        vivit.load_state_dict(load_params_subtree(ckpt, which="latest", prefer_ema=False),
+                              strict=True)
+        provenance = f"trained ({ckpt})"
+    else:
+        provenance = ("fixed-seed random init (seed 0, torch's initialisers on the port's "
+                      "ViViT: comparable with this port's FVDs only, not with the JAX "
+                      "script's PRNGKey(0) init)")
     vivit = vivit.to(dev).eval().requires_grad_(False)
-    provenance = ("fixed-seed random init (seed 0, torch's initialisers on the port's ViViT: "
-                  "comparable with this port's FVDs only, not with the JAX script's "
-                  "PRNGKey(0) init)")
     cfg = EXTRACTOR
 
     @torch.no_grad()

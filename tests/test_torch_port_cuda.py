@@ -416,6 +416,31 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, b, n_q, n_kv):
     _assert_grads_close(got, fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 32**-0.5), dtype)
 
 
+def test_flash_bwd_kernel_at_the_curve_sr_shape_batch_1(dev):
+    """The curve recipe's SR unet (train/train_curve.py) trains at batch 1:
+    its joint attention at the 64 x 16 x 16 bottleneck, 16 heads of 32, q
+    (1, 262144, 32) against kv (1, 16385, 32), in bf16. Its forward keeps
+    the f32 forward's exact lse (fwd_residuals), and the backward takes the
+    CUDA cores; both held to the plain versions, the forward's lse and out
+    in f32 and the out on a slice of query rows."""
+    g = torch.Generator(device=dev).manual_seed(16385)
+    n = 64 * 16 * 16
+    q, go = (torch.randn(1, 16 * n, 32, generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(1, n + 1, 32, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fm.fwd_residuals(q, k, v, sm_scale=32**-0.5)
+    rows = slice(0, 8192)
+    _, ref_lse = fm.flash_mqa_reference(q[:, rows].float(), k.float(), v.float(), 32**-0.5,
+                                        save_lse=True)
+    torch.testing.assert_close(lse[:, rows], ref_lse, atol=1e-4, rtol=0)
+    _assert_grads_close([out[:, rows]], [fm.flash_mqa_reference(q[:, rows], k, v, 32**-0.5)],
+                        torch.bfloat16)
+    got = _flash_bwd_launch(q, k, v, out, lse, go, 32**-0.5, "cuda_cores")
+    _assert_grads_close(got, fm.flash_mqa_bwd_reference(q, k, v, out, lse, go, 32**-0.5),
+                        torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype,b", [(torch.bfloat16, 2), (torch.float32, 2),
                                      (torch.bfloat16, 1)])
 def test_flash_bwd_kernel_logits_below_minus_87(dev, dtype, b):

@@ -62,6 +62,11 @@ def test_source_scan_finds_no_banned_import():
     assert {f"dalle2_video_tpu_torch.parallel.{m}" for m in (
         "mesh", "collectives", "sharded", "sp_attention", "pipeline")} | {
         "dalle2_video_tpu_torch.probes.parallel_steps"} <= set(_modules())
+    # and the trained-teacher quality path and the README's last entry points
+    assert {*(f"dalle2_video_tpu_torch.train.{m}" for m in (
+        "train_curve", "eval_quality", "demo_inpaint", "demo_longvideo", "distill_sr_demo",
+        "elastic")), "dalle2_video_tpu_torch.serve.sample",
+        "dalle2_video_tpu_torch.utils.grid"} <= set(_modules())
 
 
 def test_every_module_imports_with_jax_blocked():
